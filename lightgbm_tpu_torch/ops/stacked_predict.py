@@ -1,0 +1,534 @@
+"""Whole-model prediction: host-built tables, device binning, the forest
+kernel.
+
+The JAX package's ``ops/stacked_predict.py`` builds, on the host, one
+decision table per tree node over a global bin layout of every feature
+(``_scan_nodes``, ``_rebuild_tables``, ``_stack_trees``, ``_node_table``):
+a node's table is its own decision evaluated at one representative value
+per bin, so the device agrees with the host walk by construction
+(missing values, default-left, the zero band and categorical bitsets).
+That build is copied here as numpy, bit for bit. The device side
+differs: instead of the TPU's one-hot matrix products the port walks
+each tree (ops/forest.py), reading per-node records and the node's
+decision table laid out ``[T, S, Wn]``, evaluated straight into that
+layout. The TPU layout (``W [Wtot, T, S]``, the ancestor matrix and the
+leaf targets) is built only on request (``jax_layout``), and
+``walk_tables`` turns the JAX package's own W into the walk's tables.
+
+Rows are binned on the device when they are f32-exact and every feature
+is numerical (``codes_from_x``), else on the host in float64
+(``_bin_rows``); then one forest-kernel launch per row chunk.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import forest as forest_ops
+from ..io.binning import MissingType
+from ..utils import log
+from ..utils.device import Counter
+
+# decision_type bit layout (models/tree.py, mirroring tree.h)
+K_CATEGORICAL_MASK = 1
+K_DEFAULT_LEFT_MASK = 2
+
+_ZERO_EPS = 1e-35
+# per-feature table-width cap: categorical features whose bitsets cover
+# more distinct categories than this fall back to the host path
+MAX_FEATURE_WIDTH = 1024
+# rows per forest-kernel launch: bounds the codes and staging tensors
+ROW_CHUNK = 1 << 18
+
+# models that could not be stacked and are scored by the host walk
+fallbacks = Counter()
+
+
+class StackedModel:
+    """Host-built stacked tables for a list of trees, their device
+    copies, and ``predict``."""
+
+    def __init__(self, trees: List, num_features: int, num_class: int,
+                 device: torch.device):
+        self.num_class = num_class
+        self.num_trees = len(trees)
+        self.device = device
+        self.ok = True
+        try:
+            self._build(trees, num_features)
+        except _FallbackError as e:
+            log.warning("stacked predict unavailable (%s); "
+                        "host prediction path will be used", e)
+            fallbacks.add()
+            self.ok = False
+
+    # -- host-side build (copied from the JAX package) -----------------------
+
+    def _build(self, trees: List, num_features: int) -> None:
+        F = num_features
+        self._F = F
+        feats, lefts, rights = _node_arrays(
+            [t.split_feature[:t.num_leaves - 1] for t in trees],
+            [t.left_child[:t.num_leaves - 1] for t in trees],
+            [t.right_child[:t.num_leaves - 1] for t in trees])
+        depth = _tree_depths(lefts, rights)   # before any walk over nodes
+        L = max([t.num_leaves for t in trees] + [2])
+        S = L - 1
+
+        # 1. per-feature edges / category sets from every node
+        self._thr_sets: List[set] = [set() for _ in range(F)]
+        self._cat_sets: List[set] = [set() for _ in range(F)]
+        self._zero_mt = np.zeros(F, bool)
+        self._is_cat = np.zeros(F, bool)
+        self._scan_nodes(trees)
+
+        # 2. per-feature representative values + binning data
+        reps = self._rebuild_tables()
+        self._reps = reps
+        self._S, self._L = S, L
+
+        # 3. the JAX package's cap on its [Wtot, T, S] int8 decision
+        # matrix, kept so that both packages stack the same models; the
+        # port never builds that matrix
+        w_bytes = self._Wtot * len(trees) * S
+        if w_bytes > (2 << 30):
+            raise _FallbackError(f"W matrix {w_bytes >> 20} MB")
+
+        # 4. the walk's tables, each node's decisions evaluated straight
+        # into dec[t, s, :width of its feature]; the binning tables
+        T = len(trees)
+        dec = np.zeros((T, S, max(int(np.max(self._rep_sizes, initial=1)),
+                                  1)), np.uint8)
+        leaf_val = np.zeros((T, L), np.float32)
+        for ti, t in enumerate(trees):
+            nl = t.num_leaves
+            leaf_val[ti, :nl] = np.asarray(t.leaf_value[:nl], np.float32)
+            for s in range(nl - 1):
+                rep = reps[t.split_feature[s]]
+                dec[ti, s, :rep.size] = _node_table(t, s, rep)
+        self.forest = _forest(feats, lefts, rights, depth, self._offsets,
+                              dec, leaf_val, num_class=self.num_class,
+                              device=self.device)
+        self.edges = (edge_tensors(self._E_f32, self._off32, self._nan_slot,
+                                   self.device)
+                      if self._dev_bin_ok else None)
+
+    def jax_layout(self, trees: List):
+        """The JAX package's stacked tables of ``trees`` (the trees this
+        model was built from): ``(W [Wtot, T, S] int8, P [T, S, L] int8,
+        tgt [T, L] f32, leaf values [T, L] f32)``, for parity checks.
+        Prediction never builds them."""
+        return self._stack_trees(trees, self._reps, self._S, self._L)
+
+    def _scan_nodes(self, trees: List) -> None:
+        """Accumulate every node's thresholds / category bitsets into
+        the per-feature sets (the union layout the decision tables are
+        binned against). Raises on shapes the stacker cannot host."""
+        F = self._F
+        for t in trees:
+            for s in range(t.num_leaves - 1):
+                f = t.split_feature[s]
+                if f >= F:
+                    raise _FallbackError(f"node feature {f} >= {F}")
+                dt = t.decision_type[s]
+                if dt & K_CATEGORICAL_MASK:
+                    self._is_cat[f] = True
+                    ci = t.threshold_in_bin[s]
+                    lo, hi = t.cat_boundaries[ci], t.cat_boundaries[ci + 1]
+                    for wi in range(lo, hi):
+                        w = int(t.cat_threshold[wi]) & 0xFFFFFFFF
+                        base = (wi - lo) * 32
+                        while w:
+                            b = (w & -w).bit_length() - 1
+                            self._cat_sets[f].add(base + b)
+                            w &= w - 1
+                else:
+                    self._thr_sets[f].add(float(t.threshold[s]))
+                    if (dt >> 2) & 3 == MissingType.ZERO:
+                        self._zero_mt[f] = True
+        if np.any(self._is_cat & (np.array(
+                [len(s) for s in self._thr_sets]) > 0)):
+            raise _FallbackError("feature used both numerically and "
+                                 "categorically")
+
+    def _rebuild_tables(self) -> List[np.ndarray]:
+        """Per-feature representative values, bin edges, table offsets
+        and the device-binning arrays, all derived from the accumulated
+        threshold/category sets. Returns the rep list.
+
+        Numerical layout: [m closed-right bins][overflow][NaN].
+        Categorical layout: [known cats][other][negative/NaN]."""
+        F = self._F
+        self._edges: List[Optional[np.ndarray]] = [None] * F
+        self._cats: List[Optional[np.ndarray]] = [None] * F
+        reps: List[np.ndarray] = []
+        widths = np.zeros(F, np.int64)
+        for f in range(F):
+            if self._is_cat[f]:
+                cs = np.array(sorted(self._cat_sets[f]), np.float64)
+                if cs.size > MAX_FEATURE_WIDTH:
+                    raise _FallbackError(
+                        f"categorical feature {f} has {cs.size} "
+                        f"distinct categories (> {MAX_FEATURE_WIDTH})")
+                self._cats[f] = cs
+                other = (cs.max() + 1.0) if cs.size else 1.0
+                rep = np.concatenate([cs, [other, -1.0]])
+            else:
+                thr = set(self._thr_sets[f])
+                if self._zero_mt[f]:
+                    # isolate the reference's zero band |x| <= 1e-35
+                    # (tree.h:188) into its own bin so a representative
+                    # speaks for every value it covers
+                    thr |= {np.nextafter(-_ZERO_EPS, -np.inf), _ZERO_EPS}
+                edges = np.asarray(sorted(thr), np.float64)
+                if edges.size > MAX_FEATURE_WIDTH:
+                    raise _FallbackError(
+                        f"feature {f} has {edges.size} thresholds")
+                self._edges[f] = edges
+                over = (np.nextafter(edges[-1], np.inf)
+                        if edges.size else 0.0)
+                rep = np.concatenate([edges, [over, np.nan]])
+            # widths bucketed to 32 as in the JAX package, so the global
+            # code layout (offsets) is the same in both packages
+            widths[f] = -(-rep.size // 32) * 32
+            reps.append(rep)
+        self._rep_sizes = np.array([r.size for r in reps], np.int64)
+        self._offsets = np.concatenate([[0], np.cumsum(widths)])
+        self._Wtot = int(self._offsets[-1])
+
+        # device binning (numerical features only): f32 edges rounded
+        # DOWN so an f32 row compares exactly like f64 against the f64
+        # threshold (x <= t  <=>  x <= largest-f32 <= t, for
+        # f32-representable x)
+        self._dev_bin_ok = not any(c is not None for c in self._cats)
+        if self._dev_bin_ok:
+            m_max = max((e.size for e in self._edges if e is not None),
+                        default=0)
+            E = np.full((F, max(m_max, 1)), np.inf, np.float32)
+            for f in range(F):
+                e = self._edges[f]
+                if e is None or e.size == 0:
+                    continue
+                # clip into f32 range BEFORE the cast: thresholds near
+                # ±DBL_MAX would otherwise overflow to ±inf. The clipped
+                # edge keeps the compare semantics: any finite f32
+                # x <= f32max < huge-t (left stays left), and the bump
+                # below handles the negative side like any other edge
+                # that is not f32-representable
+                f32i = np.finfo(np.float32)
+                ef = e.clip(f32i.min, f32i.max).astype(np.float32)
+                bump = ef.astype(np.float64) > e
+                ef[bump] = np.nextafter(ef[bump], -np.inf)
+                E[f, :e.size] = ef
+            self._E_f32 = E
+            self._nan_slot = np.array(
+                [self._offsets[f] + self._rep_sizes[f] - 1
+                 for f in range(F)],
+                np.int32)
+            self._off32 = self._offsets[:F].astype(np.int32)
+        return reps
+
+    def _stack_trees(self, trees: List, reps: List[np.ndarray],
+                     S: int, L: int):
+        """Decision tables / ancestor matrices / leaf values for
+        ``trees`` against the current table layout, in the JAX package's
+        layout (``jax_layout``)."""
+        T = len(trees)
+        Wtot = self._Wtot
+        W = np.zeros((Wtot, T, S), np.int8)
+        P = np.zeros((T, S, L), np.int8)
+        tgt = np.full((T, L), 1e9, np.float32)   # padded leaves: no match
+        leaf_val = np.zeros((T, L), np.float32)
+        for ti, t in enumerate(trees):
+            nl = t.num_leaves
+            leaf_val[ti, :nl] = np.asarray(t.leaf_value[:nl], np.float32)
+            for s in range(nl - 1):
+                f = t.split_feature[s]
+                o = self._offsets[f]
+                W[o:o + self._rep_sizes[f], ti, s] = _node_table(
+                    t, s, reps[f])
+            # DFS: signed ancestor matrix + per-leaf left-count target
+            if nl == 1:
+                tgt[ti, 0] = 0.0
+                continue
+            stack2 = [(0, [])]           # node, ancestor (node, sign) list
+            while stack2:
+                node, anc = stack2.pop()
+                for child, sign in ((t.left_child[node], 1),
+                                    (t.right_child[node], -1)):
+                    a2 = anc + [(node, sign)]
+                    if child < 0:
+                        lf = ~child
+                        # E = (#left-ancestors gone left)
+                        #   - (#right-ancestors gone left) == nLeft
+                        # exactly when every ancestor decision points
+                        # at this leaf
+                        tgt[ti, lf] = sum(1 for _, sg in a2 if sg > 0)
+                        for sn, sg in a2:
+                            P[ti, sn, lf] = sg
+                    else:
+                        stack2.append((child, a2))
+        return W, P, tgt, leaf_val
+
+    # -- prediction ---------------------------------------------------------
+
+    def _bin_rows(self, X: np.ndarray) -> np.ndarray:
+        """[N, F] float64 -> global one-hot column codes [N, Fm] int32
+        (model features only; surplus input columns are ignored)."""
+        N = X.shape[0]
+        Fm = len(self._offsets) - 1
+        codes = np.zeros((N, Fm), np.int32)
+        nanc = np.full(N, np.nan)
+        for f in range(Fm):
+            x = X[:, f] if f < X.shape[1] else nanc
+            codes[:, f] = self._offsets[f] + _feature_codes(
+                x, self._edges[f], self._cats[f])
+        return codes
+
+    def predict(self, X: np.ndarray, first: int = 0,
+                ntree: Optional[int] = None,
+                pred_leaf: bool = False) -> np.ndarray:
+        """Raw scores [K, N] float64 (or leaf indices [N, ntree-first]
+        int32) of trees [first, ntree)."""
+        ntree = self.num_trees if ntree is None else min(ntree,
+                                                         self.num_trees)
+        first = min(first, ntree)
+        X = np.ascontiguousarray(np.asarray(X, np.float64))
+        Fm = len(self._offsets) - 1
+        # device binning when rows are f32-exact and all-numerical:
+        # skips the host searchsorted pass AND halves the upload. Probe
+        # a small sample first so true f64 data doesn't pay a full scan.
+        dev_bin = self._dev_bin_ok and X.shape[1] >= Fm
+        rows = None
+        # overflow in these casts is EXPECTED for data that is not
+        # f32-exact (values beyond f32 range become inf, _f32_exact
+        # rejects them and the host binning path runs)
+        with np.errstate(over="ignore"):
+            if dev_bin:
+                probe = X[:64, :Fm]
+                dev_bin = _f32_exact(probe, probe.astype(np.float32))
+            if dev_bin:
+                Xf = X[:, :Fm].astype(np.float32)
+                dev_bin = _f32_exact(X[:, :Fm], Xf)
+                rows = Xf if dev_bin else None
+        if rows is None:
+            rows = self._bin_rows(X)
+        N = X.shape[0]
+        parts = []
+        for c0 in range(0, N, ROW_CHUNK):
+            part = rows[c0:c0 + ROW_CHUNK]
+            if dev_bin:
+                codes_t = codes_from_x(
+                    torch.from_numpy(part).to(self.device), *self.edges)
+            else:
+                codes_t = torch.from_numpy(
+                    np.ascontiguousarray(part.T)).to(self.device)
+            parts.append(forest_ops.forest_predict(
+                codes_t, self.forest, first, ntree, leaf_mode=pred_leaf))
+        if pred_leaf:
+            if not parts:
+                return np.zeros((0, ntree - first), np.int32)
+            return torch.cat(parts).cpu().numpy()
+        if not parts:
+            return np.zeros((self.num_class, 0), np.float64)
+        return torch.cat(parts).cpu().numpy().T.astype(np.float64)
+
+
+class _FallbackError(Exception):
+    pass
+
+
+def walk_tables(W: np.ndarray, leaf: np.ndarray, offsets: np.ndarray,
+                rep_sizes: np.ndarray, split_feature: Sequence,
+                left_child: Sequence, right_child: Sequence, *,
+                num_class: int, device) -> forest_ops.Forest:
+    """The forest kernel's tables from the JAX package's stacked decision
+    tables ``W [Wtot, T, S]`` and each tree's node arrays (convert.py).
+
+    Node s of tree t reads feature f = split_feature[t][s]; its decision
+    at local code j is ``W[offsets[f] + j, t, s]``, stored contiguously
+    as ``dec[t, s, j]``. Child pointers are validated here (every node
+    reached once from the root, leaves in range), so the kernel's walk
+    always ends."""
+    Wtot, T, S = W.shape
+    L = leaf.shape[1]
+    F = len(offsets) - 1
+    feats, lefts, rights = _node_arrays(split_feature, left_child,
+                                        right_child)
+    for t, feat in enumerate(feats):
+        ns = feat.size
+        if ns and (ns > S or ns + 1 > L or feat.min() < 0
+                   or feat.max() >= F):
+            log.fatal(f"tree {t}: {ns} nodes on features outside the "
+                      f"stacked layout")
+    depth = _tree_depths(lefts, rights)
+    dec = np.zeros((T, S, max(int(np.max(rep_sizes, initial=1)), 1)),
+                   np.uint8)
+    feat_all = np.zeros((T, S), np.int64)
+    used = np.zeros((T, S), bool)
+    for t, feat in enumerate(feats):
+        feat_all[t, :feat.size] = feat
+        used[t, :feat.size] = True
+    for f in np.unique(feat_all[used]):
+        m = used & (feat_all == f)
+        o, w = int(offsets[f]), int(rep_sizes[f])
+        dec[m, :w] = W[o:o + w][:, m].T
+    return _forest(feats, lefts, rights, depth, offsets, dec, leaf,
+                   num_class=num_class, device=device)
+
+
+def _node_arrays(split_feature: Sequence, left_child: Sequence,
+                 right_child: Sequence):
+    """Each tree's node arrays as int64 numpy."""
+    return tuple([np.asarray(a, np.int64) for a in arrays]
+                 for arrays in (split_feature, left_child, right_child))
+
+
+def _forest(feats, lefts, rights, depth: np.ndarray, offsets: np.ndarray,
+            dec: np.ndarray, leaf: np.ndarray, *, num_class: int,
+            device) -> forest_ops.Forest:
+    """Node records [T, S, 4] = (feature, left, right, table offset of the
+    feature), roots, and the tables, on ``device``."""
+    T, S, _ = dec.shape
+    nodes = np.zeros((T, S, 4), np.int32)
+    root = np.zeros(T, np.int32)
+    for t, feat in enumerate(feats):
+        if feat.size == 0:
+            root[t] = -1                # ~0: the single leaf
+            continue
+        nodes[t, :feat.size] = np.stack(
+            [feat, lefts[t], rights[t], offsets[feat]], axis=1)
+    return forest_ops.Forest(
+        nodes=torch.from_numpy(nodes).to(device),
+        dec=torch.from_numpy(dec).to(device),
+        leaf=torch.from_numpy(np.ascontiguousarray(leaf, np.float32)
+                              ).to(device),
+        root=torch.from_numpy(root).to(device),
+        root_host=root, depth=depth, num_class=int(num_class),
+        num_features=len(offsets) - 1)
+
+
+def _tree_depths(lefts: Sequence, rights: Sequence) -> np.ndarray:
+    """[T] nodes on each tree's longest root-to-leaf path (0 for a
+    single-leaf tree); fatal on malformed child pointers."""
+    depth = np.zeros(len(lefts), np.int32)
+    for t, (left, right) in enumerate(zip(lefts, rights)):
+        if left.size:
+            depth[t] = _tree_depth(t, left, right)
+    return depth
+
+
+def _tree_depth(t: int, left: np.ndarray, right: np.ndarray) -> int:
+    """Nodes on the longest root-to-leaf path; fatal unless the child
+    pointers form one tree over nodes [0, ns) and leaves [0, ns]."""
+    ns = left.size
+    seen = np.zeros(ns, bool)
+    leaves = np.zeros(ns + 1, bool)
+    best = 0
+    stack = [(0, 1)]
+    while stack:
+        node, d = stack.pop()
+        if node >= ns or seen[node]:
+            log.fatal(f"tree {t}: malformed child pointers at node {node}")
+        seen[node] = True
+        best = max(best, d)
+        for child in (int(left[node]), int(right[node])):
+            if child >= 0:
+                stack.append((child, d + 1))
+            elif ~child > ns or leaves[~child]:
+                log.fatal(f"tree {t}: malformed leaf pointer {child}")
+            else:
+                leaves[~child] = True
+    if not seen.all():
+        log.fatal(f"tree {t}: nodes unreachable from the root")
+    return best
+
+
+def edge_tensors(E_f32: np.ndarray, off32: np.ndarray, nan_slot: np.ndarray,
+                 device):
+    """The device-binning tables (f32 edges rounded down, per-feature
+    code offsets, NaN slots) as device tensors for ``codes_from_x``."""
+    return (torch.from_numpy(np.ascontiguousarray(E_f32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(off32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(nan_slot)).to(device))
+
+
+def codes_from_x(x: torch.Tensor, E: torch.Tensor, off32: torch.Tensor,
+                 nan_slot: torch.Tensor) -> torch.Tensor:
+    """f32 rows [n, F] -> feature-major global codes [F, n] int32.
+
+    The JAX package counts ``sum(x > E)`` over a [n, F, M] comparison;
+    over sorted edges (inf-padded) that count is the left insertion
+    point, so one searchsorted per feature gives the same codes without
+    the [n, F, M] intermediate."""
+    xt = x.t().contiguous()
+    bins = torch.searchsorted(E, xt).to(torch.int32)
+    return torch.where(torch.isnan(xt), nan_slot[:, None],
+                       off32[:, None] + bins).contiguous()
+
+
+def _feature_codes(x: np.ndarray, edges: Optional[np.ndarray],
+                   cats: Optional[np.ndarray]) -> np.ndarray:
+    """Values -> LOCAL bin codes for one feature under the table
+    layout of _rebuild_tables.
+
+    Numerical: [closed-right bins][overflow][NaN].
+    Categorical: [known cats][other][negative/NaN]."""
+    N = x.shape[0]
+    if cats is not None:
+        nan = np.isnan(x)
+        neg = ~nan & (x < 0)
+        cat = np.trunc(np.where(nan | neg, 0, x))
+        if cats.size:
+            pos = np.clip(np.searchsorted(cats, cat), 0, cats.size - 1)
+            known = cats[pos] == cat
+        else:
+            # empty bitset (all categories go right): every value maps
+            # to the "other" slot
+            pos = np.zeros(N, np.int64)
+            known = np.zeros(N, bool)
+        b = np.where(known, pos, cats.size)          # other
+        return np.where(nan | neg, cats.size + 1, b)  # neg/NaN slot
+    edges = edges if edges is not None else np.zeros(0, np.float64)
+    nan = np.isnan(x)
+    b = np.searchsorted(edges, np.where(nan, 0.0, x), side="left")
+    return np.where(nan, edges.size + 1, b)
+
+
+def _node_table(tree, s: int, reps: np.ndarray) -> np.ndarray:
+    """Evaluate node s's decision (go-left=1) at each representative
+    value — vectorized mirror of tree.h:183-201 / Tree._decision."""
+    dt = tree.decision_type[s]
+    if dt & K_CATEGORICAL_MASK:
+        nan = np.isnan(reps)
+        ok = ~nan & (reps >= 0)
+        cat = np.trunc(np.where(ok, reps, 0)).astype(np.int64)
+        ci = tree.threshold_in_bin[s]
+        lo, hi = tree.cat_boundaries[ci], tree.cat_boundaries[ci + 1]
+        words = np.asarray(tree.cat_threshold[lo:hi], np.uint32)
+        wi = cat // 32
+        in_r = ok & (wi < (hi - lo))
+        bit = np.zeros(reps.size, bool)
+        if in_r.any():
+            bit[in_r] = ((words[wi[in_r]]
+                          >> (cat[in_r] % 32).astype(np.uint32)) & 1) != 0
+        return bit.astype(np.int8)
+    mt = (dt >> 2) & 3
+    def_left = bool(dt & K_DEFAULT_LEFT_MASK)
+    nan = np.isnan(reps)
+    fz = np.where(nan & (mt != MissingType.NAN), 0.0, reps)
+    miss = (((mt == MissingType.ZERO)
+             & (fz >= -_ZERO_EPS) & (fz <= _ZERO_EPS))
+            | ((mt == MissingType.NAN) & nan))
+    with np.errstate(invalid="ignore"):
+        go_left = np.where(miss, def_left, fz <= tree.threshold[s])
+    return go_left.astype(np.int8)
+
+
+def _f32_exact(X64: np.ndarray, X32: np.ndarray) -> bool:
+    """True when every finite value round-trips f64 -> f32 -> f64."""
+    with np.errstate(invalid="ignore"):
+        same = (X32.astype(np.float64) == X64) | np.isnan(X64)
+    return bool(same.all())
