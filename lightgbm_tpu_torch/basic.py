@@ -1,12 +1,17 @@
-"""Booster: the scoring surface of a loaded model (the JAX package's
-``basic.py``, reference python-package basic.py:1450-2415)."""
+"""Dataset and Booster (the JAX package's ``basic.py``, reference
+python-package basic.py:626-2415): training on a Dataset, and scoring a
+trained or loaded model."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .config import Config
+from .io.dataset import BinnedDataset, Metadata
+from .metrics import create_metrics, metric_names
 from .models.gbdt import GBDT
+from .objectives import create_objective
 from .utils.log import LightGBMError
 
 
@@ -40,22 +45,94 @@ def _data_to_2d(data) -> np.ndarray:
     return X
 
 
-class Booster:
-    """A model loaded from LightGBM v2 model text. ``device`` is where it
-    predicts: None means ``cuda:0`` (predict raises when there is no
-    card); ``"cpu"`` must be asked for."""
+class Dataset:
+    """Training data (basic.py:626-1448 surface), binned lazily: the
+    rows are binned on the device of the Booster that first uses it."""
 
-    def __init__(self, model_file: Optional[str] = None,
+    def __init__(self, data, label=None, weight=None, feature_name="auto",
+                 params: Optional[Dict[str, Any]] = None):
+        self.data = data
+        self.label = label
+        self.weight = weight
+        self.feature_name = feature_name
+        self.params = dict(params) if params else {}
+        self._inner: Optional[BinnedDataset] = None
+
+    def construct(self, device=None) -> "Dataset":
+        """Bin the rows on ``device`` (None: cuda:0), once; the raw rows
+        are dropped then."""
+        if self._inner is not None:
+            return self
+        if self.data is None:
+            raise LightGBMError("the Dataset's raw data was freed")
+        cfg = Config()
+        cfg.set(self.params)
+        X = np.asarray(self.data)
+        if X.ndim == 1:
+            X = X.reshape(-1, 1)
+        names = (None if isinstance(self.feature_name, str)
+                 else list(self.feature_name))
+        self._inner = BinnedDataset(cfg, device).construct_from_matrix(
+            X, Metadata(label=self.label, weight=self.weight),
+            feature_names=names)
+        self.data = None
+        return self
+
+
+class Booster:
+    """A model trained on ``train_set`` or loaded from LightGBM v2 model
+    text. ``device`` is where it trains and predicts: None means
+    ``cuda:0`` (raising when there is no card); ``"cpu"`` must be asked
+    for."""
+
+    def __init__(self, params: Optional[Dict[str, Any]] = None,
+                 train_set: Optional[Dataset] = None,
+                 model_file: Optional[str] = None,
                  model_str: Optional[str] = None, device=None):
+        self.params = dict(params) if params else {}
+        self.train_set = train_set
         self.best_iteration = -1
+        self._train_data_name = "training"
+        if train_set is not None:
+            self._init_from_train_set(train_set, device)
+            return
         if model_file is not None:
             with open(model_file) as fh:
                 model_str = fh.read()
         elif model_str is None:
-            raise TypeError("Need a model file or model string to create "
-                            "a Booster")
+            raise TypeError("Need a training dataset or model file or model "
+                            "string to create a Booster")
         self._gbdt = GBDT(device).load_model_from_string(
             model_str, source=model_file or "")
+
+    def _init_from_train_set(self, train_set: Dataset, device) -> None:
+        cfg = Config()
+        cfg.set(self.params)
+        train_set.params = {**self.params, **train_set.params}
+        inner = train_set.construct(device)._inner
+        objective = create_objective(cfg.objective, cfg)
+        if objective is not None:
+            objective.init(inner.metadata, inner.num_data)
+        metrics = create_metrics(metric_names(cfg), cfg, inner.metadata,
+                                 inner.num_data)
+        self.config = cfg
+        self._gbdt = GBDT(inner.device).init(cfg, inner, objective, metrics)
+
+    def update(self) -> bool:
+        """One boosting iteration; True when no further split was
+        possible (basic.py:1693-1746)."""
+        if self.train_set is None:
+            raise LightGBMError("update needs a Booster with training data")
+        return self._gbdt.train_one_iter()
+
+    def current_iteration(self) -> int:
+        return self._gbdt.iter_
+
+    def eval_train(self) -> List[tuple]:
+        """[(data name, metric name, value, bigger is better)] on the
+        train set."""
+        return [(self._train_data_name, name, val, bigger)
+                for name, val, bigger in self._gbdt.get_eval_at(0)]
 
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False, pred_leaf: bool = False,

@@ -509,6 +509,16 @@ class Config:
                 self.num_class != 1:
             log.fatal("Ranking objectives don't support multiclass")
 
+    def boosting_type(self) -> str:
+        """GetBoostingType normalization (src/io/config.cpp:45)."""
+        b = self.boosting
+        for name, aliases in (("gbdt", ("gbdt", "gbrt")), ("dart", ("dart",)),
+                              ("goss", ("goss",)),
+                              ("rf", ("rf", "random_forest"))):
+            if b in aliases:
+                return name
+        log.fatal(f"Unknown boosting type {b}")
+
     def to_string(self) -> str:
         """Config::ToString — saved into the model file `parameters:` block."""
         lines = []

@@ -1,8 +1,9 @@
 """Decision tree model (host-side arrays + serialization).
 
-The JAX package's ``models/tree.py``, serving half: the reference Tree
+The JAX package's ``models/tree.py``: the reference Tree
 (include/LightGBM/tree.h:1-518, src/io/tree.cpp:209-355) as parallel
-numpy-friendly lists, its v2 model text and its float64 host traversal.
+numpy-friendly lists, its v2 model text, its float64 host traversal, and
+``tree_from_record``, which builds a Tree from a grown TreeRecord.
 
 - node i is created by split i; leaves are encoded as ``~leaf_index`` in
   child pointers (tree.h left_child_/right_child_ convention)
@@ -273,3 +274,32 @@ def _fmt_double(x) -> str:
         return str(x)
     return repr(float(x))
 
+
+def tree_from_record(rec: dict, mappers, real_features, max_leaves: int
+                     ) -> Tree:
+    """A host Tree from a grown record's host arrays
+    (``TreeRecord.to_numpy``; the JAX package's tree.py:564): thresholds
+    become the split bins' real upper bounds, features their real
+    column indices. Numerical splits only."""
+    nl = int(rec["num_leaves"])
+    t = Tree(max_leaves)
+    for i in range(nl - 1):
+        leaf = int(rec["split_leaf"][i])
+        if leaf < 0:
+            break
+        feat = int(rec["split_feature"][i])
+        tbin = int(rec["split_bin"][i])
+        mapper = mappers[feat]
+        node = t.split(leaf=leaf, feature=int(real_features[feat]),
+                       threshold_bin=tbin,
+                       threshold_real=mapper.bin_to_value(tbin),
+                       left_value=0.0, right_value=0.0, left_count=0,
+                       right_count=0, gain=float(rec["split_gain"][i]),
+                       missing_type=mapper.missing_type,
+                       default_left=bool(rec["split_default_left"][i]))
+        t.internal_value[node] = float(rec["internal_value"][i])
+        t.internal_count[node] = int(round(float(rec["internal_count"][i])))
+    for leaf in range(nl):
+        t.leaf_value[leaf] = float(rec["leaf_output"][leaf])
+        t.leaf_count[leaf] = int(round(float(rec["leaf_count"][leaf])))
+    return t

@@ -1,4 +1,4 @@
-"""Forest traversal: the CUDA kernel, its plain PyTorch version, the build.
+"""Forest traversal: the CUDA kernel and its plain PyTorch version.
 
 Counterpart of the JAX package's fused forest kernel
 (lightgbm_tpu/ops/stacked_predict.py:1048 ``forest_predict_pallas`` and
@@ -10,37 +10,22 @@ thread walks each tree from its root (csrc/forest_predict.cu says why).
 ``forest_predict`` launches the kernel for CUDA tensors and runs
 ``forest_predict_plain`` for CPU tensors; there is no other route. The
 plain version adds the same f32 values in the same order, so the two
-agree bit for bit.
+agree bit for bit. The library is built by utils/cuda_build.py.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..utils import cuda_build
 from ..utils.device import Counter
 from ..utils.log import LightGBMError
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                      "forest_predict.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                         "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 # kernel launches since the last reset (the plain version never counts)
 launches = Counter()
-
-_lib = None
-_lib_lock = threading.Lock()
 
 
 class Forest(NamedTuple):
@@ -62,56 +47,15 @@ class Forest(NamedTuple):
                              root=self.root.to(device))
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME:
-        path = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(path):
-            return path
-    path = shutil.which("nvcc")
-    if path is None:
-        raise LightGBMError("nvcc not found: the forest kernel is built "
-                            "from csrc/forest_predict.cu on first use")
-    return path
-
-
-def build_library() -> Tuple[str, float, str]:
-    """Compile csrc/forest_predict.cu for sm_90a unless a library built
-    from the same source and flags exists. Returns (path, seconds spent
-    compiling, nvcc's report)."""
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    path = os.path.join(BUILD_DIR, f"forest_predict_{digest[:16]}.so")
-    if os.path.exists(path):
-        return path, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise LightGBMError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
-
-
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _, _ = build_library()
-            lib = ctypes.CDLL(path)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.forest_predict_scores.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                  i, i, i, i, p]
-            lib.forest_predict_scores.restype = i
-            lib.forest_predict_leaves.argtypes = [p, p, p, p, p, i, i, i, i,
-                                                  i, p]
-            lib.forest_predict_leaves.restype = i
-            _lib = lib
-    return _lib
+    lib = cuda_build.library("forest_predict")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.forest_predict_scores.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                          i, p]
+    lib.forest_predict_scores.restype = i
+    lib.forest_predict_leaves.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.forest_predict_leaves.restype = i
+    return lib
 
 
 def _check(codes_t: torch.Tensor, forest: Forest, first: int,
