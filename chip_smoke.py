@@ -39,10 +39,31 @@ the entry points a user calls:
    grown again with K1 and K2 swapped for their kernel-order plain
    versions, equals its record bit for bit; the differing split is a
    near tie, within the f32 rounding of the two runs' own gains
-   (``explain_difference``); train AUC within 4e-4.
+   (``explain_difference``); train AUC within 4e-4;
+10. HIGGS-shape training on the headline tier, int8 count-proxy
+   histograms (``tpu_quantized_hist``, W=64), on phase 7's rows through
+   ``train``: ms and launches per iteration, the card's busy share, and
+   the holdout AUC within 0.01 of phase 7's exact tier;
+11. the LRB window on the int8 tier with exact counts
+   (``tpu_count_proxy=0``, W=30) through the C-API sequence, 50
+   iterations under bagging, then the next window's 65,536 rows scored;
+12. 4-bit packed bins at full width: phase 7's rows at max_bin 15 (16
+   bins, two per byte on the card), 10 iterations on the exact tier and
+   10 on the count-proxy tier; phases 10-12 capture their first root
+   pass and their first and widest wave;
+13. the int8 kernels (K2q, K1q) against their plain version on the card
+   bit for bit (every channel, K1's leaf ids and cnt_r) and two launches
+   bit-identical; each packed launch bit-identical to the unpacked launch
+   on the same rows; each variant's time, its plain version's, the
+   ``index_add_`` library call (int32 for the int8 tiers) and its bound;
+14. card vs CPU on the quantized tier: the LRB parameters with
+   ``tpu_quantized_hist`` at 100,000 rows, 20 iterations; trees equal up
+   to a near tie of the quantized gains, train AUC within 4e-4.
 
-Prints a JSON line of the kernels, then the last line
-``{"ok": true, "device": {...}}``. Any failed check raises, and the
+Phases 6-7 and 10-12 check that the main path launched each kernel (and
+each histogram variant) of its tier. Prints a JSON line of the kernels,
+then the last line ``{"ok": true, "device": {...}}``. Any failed check
+raises, and the
 script exits non-zero without that line. The model generators are
 importable (the body runs only under ``__main__``).
 """
@@ -97,6 +118,9 @@ HIGGS_PARAMS = {"objective": "binary", "metric": "auc", "max_bin": 63,
 HIGGS_ITERS = 10
 CPU_ROWS = 100_000
 AUC_TOL = 4e-4
+PROXY_AUC_TOL = 0.01            # the count-proxy tier's cost is about 1e-3
+PACKED_MAX_BIN = 15             # 16 bins: 4-bit packed
+CPU_Q_ITERS = 20
 
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 7):
@@ -289,6 +313,22 @@ def device_busy(fn, runs: int):
     return wall, busy
 
 
+def host_ops(fn, runs: int, k: int = 6) -> str:
+    """The ``k`` operators with the most host time over ``runs`` calls of
+    ``fn`` (torch.profiler's self CPU time, per call, with their counts
+    per call): where the host's part of an iteration goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / runs:.2f} ms "
+                     f"x{e.count // runs}" for e in ev[:k])
+
+
 def host_prep_ms(X: np.ndarray) -> float:
     """Host time of predict's first step at this input: the float64 view
     and the f32-exactness check that picks device binning."""
@@ -299,26 +339,35 @@ def host_prep_ms(X: np.ndarray) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _clone(a):
+    import torch
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, tuple):
+        return tuple(_clone(x) for x in a)
+    return a
+
+
 class Capture:
-    """Calls ``fn`` and keeps clones of the tensor arguments of its first
-    call, or with ``key``, of the first call with the largest
-    ``key(args)`` (cloned before the call: K3 updates its scores in
-    place)."""
+    """Calls ``fn`` and keeps clones of the tensor arguments (positional
+    ``args``, keyword ``kw``) of its first call, or with ``key``, of the
+    first call with the largest ``key(args)`` (cloned before the call: K3
+    updates its scores in place)."""
 
     def __init__(self, fn, key=None):
         self.fn = fn
         self.key = key
         self.args = None
+        self.kw = {}
         self.best = None
 
-    def __call__(self, *args):
-        import torch
+    def __call__(self, *args, **kw):
         k = None if self.key is None else self.key(args)
         if self.args is None or (k is not None and k > self.best):
-            self.args = tuple(a.clone() if torch.is_tensor(a) else a
-                              for a in args)
+            self.args = _clone(args)
+            self.kw = {name: _clone(v) for name, v in kw.items()}
             self.best = k
-        return self.fn(*args)
+        return self.fn(*args, **kw)
 
 
 @contextlib.contextmanager
@@ -344,8 +393,9 @@ def capturing():
 
 
 def bound(nbytes: float, ops: float) -> dict:
-    """The least time for a function: bytes over HBM bandwidth or f32
-    operations over the f32 rate, whichever is larger."""
+    """The least time for a function: bytes over HBM bandwidth or its
+    operations over the rate of the CUDA cores (f32, and int32 adds,
+    counted at the same rate), whichever is larger."""
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_F32_FLOPS * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
@@ -403,6 +453,19 @@ def plain_in_kernel_order(plain, args):
     return out.to(dev)
 
 
+def plain_kw(kw: dict) -> dict:
+    """A wrapper's keyword arguments as its plain version takes them."""
+    return {k: kw[k] for k in ("count_proxy", "packed4", "num_features")
+            if k in kw}
+
+
+def kernel_raw(kernel, kw: dict):
+    """``kernel`` with the captured keywords and no dequantization: the
+    raw sums the kernel writes."""
+    kw = dict(kw, gh_scale=None)
+    return lambda *a: kernel(*a, **kw)
+
+
 def check_histogram(name, kernel, plain, args, hist_of, slots_of):
     """One histogram kernel (K1 or K2) on captured main-path inputs
     ``args`` (bins_t, g, h, ...): two launches bit-identical, and every
@@ -436,11 +499,17 @@ def check_histogram(name, kernel, plain, args, hist_of, slots_of):
             "rows_counted": int(h64[:, 0, :, 2].sum())}
 
 
-def lib_index_add(args, dev):
-    """The K2 yardstick: one ``index_add_`` of the three channels on a
-    flat index built beforehand (the plain version's scatter)."""
+def lib_index_add(args, dev, kw=None):
+    """The K2 yardstick: one ``index_add_`` of the channels on a flat index
+    built beforehand (the plain version's scatter): f32 for the f32 tier,
+    int32 (g, h and, with exact counts, 1) for the int8 tier; packed bins
+    are indexed as their unpacked features."""
     import torch
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    kw = kw or {}
     bins_t, g, h, leaf, wl, B = args
+    if kw.get("packed4"):
+        bins_t = hw.unpack4(bins_t, kw["num_features"])
     F, n = bins_t.shape
     W = wl.shape[0]
     eq = (leaf[None, :] == wl[:, None]) & (wl >= 0)[:, None]
@@ -448,9 +517,12 @@ def lib_index_add(args, dev):
                        * (F * B), W * F * B)
     flat = (base[None, :] + torch.arange(F, device=dev)[:, None] * B
             + bins_t.long()).reshape(-1)
-    vals = torch.stack([g.expand(F, n), h.expand(F, n),
-                        torch.ones(F, n, device=dev)], -1).reshape(-1, 3)
-    out = torch.zeros(((W + 1) * F * B, 3), device=dev)
+    dt = torch.int32 if g.dtype == torch.int8 else torch.float32
+    chans = [g.to(dt), h.to(dt), torch.ones((), dtype=dt, device=dev)]
+    chans = chans[:2] if kw.get("count_proxy") else chans
+    vals = torch.stack([c.expand(F, n) for c in chans], -1).reshape(
+        -1, len(chans))
+    out = torch.zeros(((W + 1) * F * B, len(chans)), dtype=dt, device=dev)
 
     def call():
         out.index_add_(0, flat, vals)
@@ -510,26 +582,30 @@ def card_tree_in_kernel_order(booster, inputs, t: int) -> dict:
     matched its plain version bit for bit."""
     from lightgbm_tpu_torch.ops import hist_wave as hw
     from lightgbm_tpu_torch.ops import wave_grower as wg
+    from lightgbm_tpu_torch.ops.f32math import fma
     gb = booster._gbdt
+    assert gb._grower_cfg.precision == "f32"
     dev = gb.train_data.bins_t.device
     saved = wg.wave_histogram, wg.fused_partition_histogram
-    wg.wave_histogram = lambda *a: plain_in_kernel_order(
-        hw.wave_histogram_plain, a)
-    wg.fused_partition_histogram = lambda *a: plain_in_kernel_order(
-        hw.fused_partition_histogram_plain, a)
+
+    def swap(plain):
+        return lambda *a, gh_scale=None, precision="f32", **kw: \
+            plain_in_kernel_order(plain, a + tuple(plain_kw(kw).values()))
+    wg.wave_histogram = swap(hw.wave_histogram_plain)
+    wg.fused_partition_histogram = swap(hw.fused_partition_histogram_plain)
     try:
         rec, _ = wg.WaveGrower.grow(gb._grower, gb.train_data.bins_t,
                                     *[x.to(dev) for x in inputs[t]])
     finally:
         wg.wave_histogram, wg.fused_partition_histogram = saved
     shrink = float(np.float32(gb.shrinkage_rate))
-    bias = float(np.float32(0.0))
     return rec._replace(
-        leaf_output=rec.leaf_output * shrink + bias,
-        internal_value=rec.internal_value * shrink + bias).to_numpy()
+        leaf_output=fma(rec.leaf_output, shrink, 0.0),
+        internal_value=fma(rec.internal_value, shrink, 0.0)).to_numpy()
 
 
-def explain_difference(runs: dict, t: int, i: int) -> dict:
+def explain_difference(runs: dict, t: int, i: int,
+                       quantized: bool = False) -> dict:
     """Both runs' split number ``i`` of tree ``t`` (their first
     difference), each evaluated in float64 on each run's own grower
     inputs of that tree: the candidate's gain (l1 = 0), its two sides'
@@ -544,8 +620,11 @@ def explain_difference(runs: dict, t: int, i: int) -> dict:
     rounding, and two orders of addition can rank candidates that close
     either way. It is a hessian-boundary tie when a side's hessian sum
     lies within 1e-5 of min_sum_hessian_in_leaf, where f32 rounding
-    decides validity."""
+    decides validity. With ``quantized`` the gains are those of the
+    tree's quantized g and h (ops/quantize.py, the same on both devices),
+    dequantized, which is what that tier's splits maximise."""
     import torch
+    from lightgbm_tpu_torch.ops.quantize import quantize
     from lightgbm_tpu_torch.ops.partition import row_goes_right
     from lightgbm_tpu_torch.ops.predict import replay_partition
     gb = runs["cpu"][0]._gbdt
@@ -561,8 +640,13 @@ def explain_difference(runs: dict, t: int, i: int) -> dict:
     l2 = cfg.lambda_l2
     table = {}
     for src in runs:
-        g, h, mask = [a.double() for a in runs[src][3][t][:3]]
-        g, h = g * mask, h * mask
+        g, h, mask = runs[src][3][t][:3]
+        if quantized:
+            q = quantize(g.float() * mask, h.float() * mask)
+            g = q.gq.double() * float(q.sg)
+            h = q.hq.double() * float(q.sh)
+        else:
+            g, h = g.double() * mask.double(), h.double() * mask.double()
         for w, (lf, f, b, dl) in cand.items():
             rows = (leaf == lf) & (mask > 0)
             right = row_goes_right(bins[f].to(torch.int32), b, bool(dl),
@@ -591,6 +675,28 @@ def explain_difference(runs: dict, t: int, i: int) -> dict:
             "gain_tie": gap <= rounding, "hessian_boundary": boundary}
 
 
+def check_leaf_gather(args) -> dict:
+    """K3 on a captured score update (scores, leaf ids, leaf outputs,
+    shrinkage): bit for bit against its plain version, with its time, its
+    plain version's, the library call ``table.index_select(0, leaf_ids)``
+    (the gather alone, for ids in range) and the bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import predict as pr
+    sc, leaf, table, shrink = args
+    n = sc.shape[0]
+    got = pr.add_leaf_outputs(sc.clone(), leaf, table, shrink)
+    want = pr.add_leaf_outputs_plain(sc.clone(), leaf, table, shrink)
+    assert torch.equal(got, want), "K3 != plain"
+    s1, s2 = sc.clone(), sc.clone()
+    return dict(
+        max_abs_err=0.0, shape=f"N={n}, L={table.shape[0]}",
+        ms=cuda_ms(lambda: pr.add_leaf_outputs(s1, leaf, table, shrink), 20),
+        plain_ms=cuda_ms(
+            lambda: pr.add_leaf_outputs_plain(s2, leaf, table, shrink), 20),
+        library_ms=cuda_ms(lambda: table.index_select(0, leaf), 20),
+        **bound(12 * n + 4 * table.shape[0], 2 * n))
+
+
 def check_kernels(caps, label: str, dev) -> dict:
     """K2, K1 and K3 against their plain versions on one training's
     captured inputs (check_histogram; K3 bit for bit), with each
@@ -601,49 +707,46 @@ def check_kernels(caps, label: str, dev) -> dict:
     from lightgbm_tpu_torch.ops import hist_wave as hw
     from lightgbm_tpu_torch.ops import predict as pr
     a2, a1 = caps["K2"].args, caps["K1w"].args
+    kw2, kw1 = caps["K2"].kw, caps["K1w"].kw
     bins_t, B = a2[0], a2[-1]
     F, n = bins_t.shape
     out = {}
-    st2 = check_histogram("K2", hw.wave_histogram, hw.wave_histogram_plain,
-                          a2, lambda o: o, None)
+
+    def k2(*a):
+        return hw.wave_histogram(*a, **kw2)
+
+    def p2(*a):
+        return hw.wave_histogram_plain(*a, **plain_kw(kw2))
+
+    def k1(*a):
+        return hw.fused_partition_histogram(*a, **kw1)
+
+    def p1(*a):
+        return hw.fused_partition_histogram_plain(*a, **plain_kw(kw1))
+    st2 = check_histogram("K2", k2, p2, a2, lambda o: o, None)
     W2 = a2[4].shape[0]
     out["K2"] = dict(
         st2, shape=f"F={F}, N={n}, W={W2}, B={B}",
-        ms=cuda_ms(lambda: hw.wave_histogram(*a2), 5),
-        plain_ms=cuda_ms(lambda: hw.wave_histogram_plain(*a2), 3),
+        ms=cuda_ms(lambda: k2(*a2), 5),
+        plain_ms=cuda_ms(lambda: p2(*a2), 3),
         library_ms=lib_index_add(a2, dev),
         **bound(F * n + 12 * n + 4 * W2 + 12 * W2 * F * B,
                 3 * F * st2["rows_counted"]))
-    first = check_histogram(
-        "K1", hw.fused_partition_histogram,
-        hw.fused_partition_histogram_plain, caps["K1"].args,
-        lambda o: o[1], lambda o: o[0])
-    st1 = check_histogram(
-        "K1", hw.fused_partition_histogram,
-        hw.fused_partition_histogram_plain, a1, lambda o: o[1],
-        lambda o: o[0])
+    first = check_histogram("K1", k1, p1, caps["K1"].args, lambda o: o[1],
+                            lambda o: o[0])
+    st1 = check_histogram("K1", k1, p1, a1, lambda o: o[1], lambda o: o[0])
     W1 = a1[5].shape[1]
     out["K1"] = dict(
         st1, shape=f"F={F}, N={n}, W={W1}, B={B}",
         first_wave={"W": caps["K1"].args[5].shape[1],
                     "max_abs_err_f64": first["max_abs_err_f64"]},
         in_bag_rows=int((a1[3] > 0).sum()),
-        ms=cuda_ms(lambda: hw.fused_partition_histogram(*a1), 5),
-        plain_ms=cuda_ms(lambda: hw.fused_partition_histogram_plain(*a1), 3),
+        ms=cuda_ms(lambda: k1(*a1), 5),
+        plain_ms=cuda_ms(lambda: p1(*a1), 3),
         library_ms=None,
         **bound(F * n + 20 * n + 36 * W1 + 12 * W1 * F * B,
                 n + 3 * F * st1["rows_counted"]))
-    sc, leaf, table = caps["K3"].args
-    got = pr.add_leaf_outputs(sc.clone(), leaf, table)
-    want = pr.add_leaf_outputs_plain(sc.clone(), leaf, table)
-    assert torch.equal(got, want), "K3 != plain"
-    s1, s2 = sc.clone(), sc.clone()
-    out["K3"] = dict(
-        max_abs_err=0.0, shape=f"N={n}, L={table.shape[0]}",
-        ms=cuda_ms(lambda: pr.add_leaf_outputs(s1, leaf, table), 20),
-        plain_ms=cuda_ms(
-            lambda: pr.add_leaf_outputs_plain(s2, leaf, table), 20),
-        library_ms=None, **bound(12 * n + 4 * table.shape[0], n))
+    out["K3"] = check_leaf_gather(caps["K3"].args)
     for name in ("K2", "K1"):
         k = out[name]
         lib = k["library_ms"]
@@ -662,31 +765,50 @@ def check_kernels(caps, label: str, dev) -> dict:
           f"bag")
     k = out["K3"]
     print(f"{label} K3 at [{k['shape']}]: {k['ms']:.4f} ms, plain "
-          f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+          f"{k['plain_ms']:.4f} ms, library (index_select) "
+          f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
           f"({k['bound_by']}); bit-equal to plain")
     return out
 
 
-def train_phases(dev) -> list:
-    """Phases 6-9 of the module docstring. Returns the kernels-line
-    entries of K2, K1 and K3."""
-    import torch
-    import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch import capi
+def _counters() -> dict:
     from lightgbm_tpu_torch.ops import forest as forest_ops
     from lightgbm_tpu_torch.ops import hist_wave as hw
     from lightgbm_tpu_torch.ops import predict as pr
-    counters = {"K2": hw.k2_launches, "K1": hw.k1_launches,
-                "K3": pr.launches, "K4": forest_ops.launches}
+    out = {"K2": hw.k2_launches, "K1": hw.k1_launches, "K3": pr.launches,
+           "K4": forest_ops.launches}
+    for v in hw.VARIANTS:
+        out[f"K2/{v}"] = hw.k2_variant_launches[v]
+        out[f"K1/{v}"] = hw.k1_variant_launches[v]
+    return out
 
-    def reset():
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.reset()
 
-    def read():
-        torch.cuda.synchronize()
-        return {k: c.value for k, c in counters.items()}
+def reset_counts() -> None:
+    """Sets every kernel's launch count (and each histogram variant's) to
+    0, after the card has finished what it was given."""
+    import torch
+    torch.cuda.synchronize()
+    for c in _counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    """Launches since ``reset_counts``: K1, K2, K3 and K4 in all, and each
+    histogram variant launched at least once ("K2/proxy", ...)."""
+    import torch
+    torch.cuda.synchronize()
+    return {k: c.value for k, c in _counters().items()
+            if c.value or "/" not in k}
+
+
+def train_phases(dev) -> tuple:
+    """Phases 6-9 of the module docstring. Returns the kernels-line
+    entries of K2, K1 and K3, and phase 7's rows and holdout AUC for the
+    quantized phases."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import capi
+    reset, read = reset_counts, read_counts
 
     # 6. LRB window training through the C-API sequence, capturing kernel
     # inputs (bagging is on from the first iteration)
@@ -734,7 +856,9 @@ def train_phases(dev) -> list:
           f"{err_host:.2g} of the host walk; launches {lrb_counts}")
     wall, busy = device_busy(lambda: capi.LGBM_BoosterUpdateOneIter(bst), 3)
     print(f"lrb profile, one window of 3 iterations: wall {wall:.1f} ms, "
-          f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%)")
+          f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%); host time "
+          f"per iteration by operator: "
+          f"{host_ops(lambda: capi.LGBM_BoosterUpdateOneIter(bst), 3)}")
     capi.LGBM_BoosterFree(bst)
     del X, ds, bst
 
@@ -773,7 +897,8 @@ def train_phases(dev) -> list:
     wall, busy = device_busy(bst.update, 2)
     print(f"higgs profile, one window of 2 iterations: wall {wall:.1f} ms, "
           f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%)")
-    del bst, ds, X
+    del bst, ds
+    higgs_data = {"X": X, "y": y, "Xt": Xt, "yt": yt, "auc": auc_t}
 
     # 8. each kernel against its plain version at the captured shapes
     t0 = time.perf_counter()
@@ -851,7 +976,8 @@ def train_phases(dev) -> list:
                     "built beforehand"),
              "K1": ("no single PyTorch call partitions rows and builds "
                     "their histograms"),
-             "K3": "no single PyTorch call gathers and adds"}
+             "K3": ("table.index_select(0, leaf_ids): the gather alone, "
+                    "for ids in range")}
     keep = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "max_abs_err_f64")
     for name, kid, path, rep in (
@@ -865,7 +991,9 @@ def train_phases(dev) -> list:
         out.append({
             "name": name, "route": "cuda", "source": src + path,
             "replaces": rep,
-            "launches": lrb_counts[kid] + higgs_counts[kid],
+            "launches": (lrb_counts[kid] + higgs_counts[kid]
+                         if kid == "K3" else lrb_counts[f"{kid}/f32"]
+                         + higgs_counts[f"{kid}/f32"]),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -880,7 +1008,328 @@ def train_phases(dev) -> list:
             "lrb": {f: lrb[kid][f] for f in keep if f in lrb[kid]},
             **({} if kid == "K3" else
                {"max_abs_err_f64": k["max_abs_err_f64"]})})
-    return out
+    return out, higgs_data
+
+
+def check_int_histogram(name, kernel, plain, args, kw, outs_of) -> None:
+    """An int8-tier kernel (K2q or K1q) on captured main-path inputs: two
+    raw launches bit-identical and equal, every output (sums, and K1's
+    leaf ids and cnt_r), to the plain version run on the card, whose
+    integer sums do not depend on order."""
+    import torch
+    raw = kernel_raw(kernel, kw)
+    out1, out2 = outs_of(raw(*args)), outs_of(raw(*args))
+    want = outs_of(plain(*args, **plain_kw(kw)))
+    torch.cuda.synchronize()
+    assert len(out1) == len(want), name
+    for a, b, c in zip(out1, out2, want):
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        assert torch.equal(a, c), f"{name}: differs from the plain version"
+
+
+def check_packed(name, kernel, args, kw, outs_of) -> None:
+    """A packed launch (4-bit bins, two per byte) against the unpacked
+    launch on the same rows: bit-identical outputs."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    raw = kernel_raw(kernel, kw)
+    unpacked = dict(kw, packed4=False)
+    flat = hw.unpack4(args[0], kw["num_features"]).contiguous()
+    got = outs_of(raw(*args))
+    want = outs_of(kernel_raw(kernel, unpacked)(flat, *args[1:]))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), f"{name}: packed launch != unpacked launch"
+
+
+def time_histogram(kid, caps_key, caps, dev) -> dict:
+    """Times (kernel, plain version on the card, library call) and the
+    bound of a captured K2 or K1 launch of any tier, at its shapes. The
+    bytes: each row's bins (one byte per feature, half under packed4),
+    g and h (4 bytes each, 1 in the int8 tier), its leaf id (K1: in and
+    out, and the bag mask), the split table and the output; the
+    operations: one add per (row, feature, channel) counted, and K1's
+    partition of every row."""
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    cap = caps[caps_key]
+    a, kw = cap.args, cap.kw
+    bins_t, g, B = a[0], a[1], a[-1]
+    F = kw.get("num_features") or bins_t.shape[0]
+    n = bins_t.shape[1]
+    C = 2 if kw.get("count_proxy") else 3
+    fn, plain = ((hw.wave_histogram, hw.wave_histogram_plain) if kid == "K2"
+                 else (hw.fused_partition_histogram,
+                       hw.fused_partition_histogram_plain))
+    # rows the pass counts, from the count channel of the 3-channel sums
+    full = plain(*a, **dict(plain_kw(kw), count_proxy=False))
+    full = full if kid == "K2" else full[1]
+    counted = int(full[:, 0, :, 2].sum())
+    W = a[4].shape[0] if kid == "K2" else a[5].shape[1]
+    bin_bytes = ((F + 1) // 2 if kw.get("packed4") else F) * n
+    io_bytes = (2 * g.element_size() + (4 if kid == "K2" else 12)) * n
+    nbytes = (bin_bytes + io_bytes + (4 if kid == "K2" else 40) * W
+              + W * F * B * C * 4)
+    ops = C * F * counted + (n if kid == "K1" else 0)
+    raw = kernel_raw(fn, kw)
+    extra = {}
+    if kw.get("packed4"):
+        flat = hw.unpack4(bins_t, F).contiguous()
+        unpacked = kernel_raw(fn, dict(kw, packed4=False))
+        extra["unpacked_ms"] = cuda_ms(lambda: unpacked(flat, *a[1:]), 5)
+    return dict(
+        extra, shape=f"F={F}, N={n}, W={W}, B={B}, C={C}"
+        + (", packed" if kw.get("packed4") else ""),
+        ms=cuda_ms(lambda: raw(*a), 5),
+        plain_ms=cuda_ms(lambda: plain(*a, **plain_kw(kw)), 3),
+        library_ms=lib_index_add(a, dev, kw) if kid == "K2" else None,
+        **bound(nbytes, ops))
+
+
+def quant_phases(dev, higgs: dict) -> list:
+    """Phases 10-14 of the module docstring: the int8 tiers and 4-bit
+    packed bins. ``higgs`` holds phase 7's rows and exact-tier holdout
+    AUC. Returns the kernels-line entries of every quantized and packed
+    histogram variant."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    X, y, Xt, yt = higgs["X"], higgs["y"], higgs["Xt"], higgs["yt"]
+    runs = {}
+
+    def train_higgs(label, params, variant):
+        """train() on phase 7's rows, capturing the first root pass and
+        the first and widest wave; checks the variant ran."""
+        with capturing() as caps:
+            reset_counts()
+            t0 = time.perf_counter()
+            ds = lgt.Dataset(X, label=y, params=params).construct()
+            torch.cuda.synchronize()
+            bin_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            bst = lgt.train(params, ds, num_boost_round=HIGGS_ITERS)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            counts = read_counts()
+        for k in (f"K2/{variant}", f"K1/{variant}", "K3"):
+            assert counts.get(k, 0) > 0, (label, counts)
+        cfg = bst._gbdt._grower_cfg
+        prob = bst.predict(Xt)
+        assert prob.shape == (HOLDOUT_ROWS,) and np.isfinite(prob).all()
+        auc = auc_np(yt, prob)
+        wall, busy = device_busy(bst.update, 2)
+        per_it = {k: v / HIGGS_ITERS for k, v in counts.items()}
+        print(f"{label}: {HIGGS_TRAIN_ROWS} x 28, {HIGGS_ITERS} iterations,"
+              f" W={cfg.wave_size}, B={cfg.num_bins}, precision "
+              f"{cfg.precision}, count-proxy {cfg.count_proxy}, packed4 "
+              f"{cfg.packed4}; binning {bin_s:.2f} s; "
+              f"{1e3 * train_s / HIGGS_ITERS:.1f} ms/iteration; holdout auc "
+              f"{auc:.5f}; launches per iteration {per_it}; profile of 2 "
+              f"iterations: wall {wall:.1f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / wall:.1f}%)")
+        runs[label] = {"caps": caps, "counts": counts, "auc": auc,
+                       "ms_per_iteration": 1e3 * train_s / HIGGS_ITERS,
+                       "busy": busy / wall}
+        return bst, cfg
+
+    # 10. the headline tier: int8 count-proxy histograms at the HIGGS shape
+    bst, cfg = train_higgs("higgs proxy", {**HIGGS_PARAMS,
+                                           "tpu_quantized_hist": True},
+                           "proxy")
+    assert (cfg.precision, cfg.count_proxy, cfg.wave_size) == (
+        "int8", True, 64), cfg
+    gap = abs(runs["higgs proxy"]["auc"] - higgs["auc"])
+    assert gap <= PROXY_AUC_TOL, f"proxy tier auc {gap} from the exact tier"
+    print(f"  holdout auc: count-proxy {runs['higgs proxy']['auc']:.5f}, "
+          f"exact {higgs['auc']:.5f} (|diff| {gap:.2g} <= {PROXY_AUC_TOL})")
+    del bst
+
+    # 11. the LRB window on the int8 tier with exact counts, C API
+    Xl = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    yl = lrb_labels(Xl, seed=22)
+    Xn = make_lrb_rows(LRB_NEXT_ROWS, seed=23)
+    yn = lrb_labels(Xn, seed=24)
+    params = {**TRAIN_PARAMS, "tpu_quantized_hist": "true",
+              "tpu_count_proxy": "0"}
+    with capturing() as caps:
+        reset_counts()
+        ds = capi.LGBM_DatasetCreateFromMat(Xl, parameters=params)
+        capi.LGBM_DatasetSetField(ds, "label", yl)
+        bst = capi.LGBM_BoosterCreate(ds, params)
+        iters = []
+        for _ in range(int(params["num_iterations"])):
+            t1 = time.perf_counter()
+            finished = capi.LGBM_BoosterUpdateOneIter(bst)
+            torch.cuda.synchronize()
+            iters.append(time.perf_counter() - t1)
+            if finished:
+                break
+        evals = dict(capi.LGBM_BoosterGetEval(bst, 0))
+        text = capi.LGBM_BoosterSaveModelToString(bst)
+        pred = np.asarray(capi.LGBM_BoosterPredictForMat(bst, Xn))
+        counts = read_counts()
+    cfg = bst.gbdt._grower_cfg
+    assert pred.shape == (LRB_NEXT_ROWS,) and np.isfinite(pred).all()
+    host = host_raw(lgt.Booster(model_str=text, device="cpu")._gbdt,
+                    Xn[:SUBSET])[0]
+    err_host = float(np.abs(pred[:SUBSET] - 1 / (1 + np.exp(-host))).max())
+    assert err_host <= 1e-5, f"lrb int8 model text: {err_host} from host walk"
+    assert (cfg.precision, cfg.count_proxy, cfg.wave_size) == (
+        "int8", False, 30), cfg
+    for k in ("K2/int8", "K1/int8", "K3"):
+        assert counts.get(k, 0) > 0, counts
+    assert bool((caps["K1w"].args[3] == 0).any()), "no out-of-bag rows"
+    assert evals["auc"] > 0.6 and text.startswith("tree"), evals
+    wall, busy = device_busy(lambda: capi.LGBM_BoosterUpdateOneIter(bst), 3)
+    top = host_ops(lambda: capi.LGBM_BoosterUpdateOneIter(bst), 3)
+    n_it = len(iters)
+    print(f"lrb int8: {LRB_TRAIN_ROWS} x {LRB_FEATURES}, {n_it} iterations, "
+          f"W={cfg.wave_size}, B={cfg.num_bins}; median "
+          f"{1e3 * float(np.median(iters)):.1f} ms/iteration; train auc "
+          f"{evals['auc']:.5f}; next window auc {auc_np(yn, pred):.5f}, "
+          f"model text scores within {err_host:.2g} of the host walk; "
+          f"launches per iteration "
+          f"{ {k: v / n_it for k, v in counts.items()} }; profile of 3 "
+          f"iterations: wall {wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); host time per iteration by "
+          f"operator: {top}")
+    runs["lrb int8"] = {"caps": caps, "counts": counts, "iters": n_it}
+    capi.LGBM_BoosterFree(bst)
+    del Xl, Xn, ds, bst
+
+    # 12. 4-bit packed bins at full width: the exact tier, then count-proxy
+    for label, extra, variant in (
+            ("higgs packed exact", {}, "f32_packed4"),
+            ("higgs packed proxy", {"tpu_quantized_hist": True},
+             "proxy_packed4")):
+        bst, cfg = train_higgs(label, {**HIGGS_PARAMS, **extra,
+                                       "max_bin": PACKED_MAX_BIN}, variant)
+        assert cfg.packed4 and cfg.num_bins == 16, cfg
+        assert bst._gbdt.train_data.packed4
+        del bst
+
+    # 13. the kernels on those captures
+    t0 = time.perf_counter()
+    out = {}
+    for label, variant in (("higgs proxy", "proxy"), ("lrb int8", "int8"),
+                           ("higgs packed exact", "f32_packed4"),
+                           ("higgs packed proxy", "proxy_packed4")):
+        caps = runs[label]["caps"]
+        for kid, key, fn, plain, outs_of in (
+                ("K2", "K2", hw.wave_histogram, hw.wave_histogram_plain,
+                 lambda o: (o,)),
+                ("K1", "K1", hw.fused_partition_histogram,
+                 hw.fused_partition_histogram_plain, lambda o: tuple(o)),
+                ("K1", "K1w", hw.fused_partition_histogram,
+                 hw.fused_partition_histogram_plain, lambda o: tuple(o))):
+            cap = caps[key]
+            if variant != "f32_packed4":
+                check_int_histogram(f"{label} {key}", fn, plain, cap.args,
+                                    cap.kw, outs_of)
+            if variant.endswith("packed4"):
+                check_packed(f"{label} {key}", fn, cap.args, cap.kw, outs_of)
+        for kid, key in (("K2", "K2"), ("K1", "K1w")):
+            t = time_histogram(kid, key, caps, dev)
+            t["launches"] = runs[label]["counts"][f"{kid}/{variant}"]
+            t["launches_per_iteration"] = t["launches"] / runs[label].get(
+                "iters", HIGGS_ITERS)
+            out[(kid, variant)] = t
+            lib = t["library_ms"]
+            print(f"{label} {kid} [{t['shape']}]: {t['ms']:.3f} ms, plain "
+                  f"{t['plain_ms']:.3f} ms, library "
+                  f"{'none' if lib is None else f'{lib:.3f} ms'}, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}); "
+                  f"{t['launches_per_iteration']:.2f} launches/iteration"
+                  + (f"; the unpacked launch {t['unpacked_ms']:.3f} ms"
+                     if "unpacked_ms" in t else ""))
+        if variant == "proxy":
+            cap = caps["K2"]
+            root = kernel_raw(hw.wave_histogram, cap.kw)(*cap.args)
+            print(f"  {label} root pass: largest |g| cell "
+                  f"{int(root[..., 0].abs().max())}, largest h cell "
+                  f"{int(root[..., 1].max())} quantized units (exact in "
+                  f"int32; f32 adds are exact below 2^24 = 16777216)")
+        what = ("packed == unpacked launch" if variant == "f32_packed4" else
+                "bit-equal to the plain version on the card, two launches "
+                "bit-identical" + (", packed == unpacked launch"
+                                   if variant.endswith("packed4") else ""))
+        print(f"  {label} K2 (root), K1 (first and widest wave): {what}")
+    print(f"quantized kernel checks: {time.perf_counter() - t0:.1f} s")
+
+    # 14. card vs CPU on the quantized tier: the LRB parameters at 100,000
+    # rows, 20 iterations
+    Xc = make_lrb_rows(CPU_ROWS, seed=31)
+    yc = lrb_labels(Xc, seed=32)
+    params = {**TRAIN_PARAMS, "tpu_quantized_hist": "true",
+              "num_iterations": str(CPU_Q_ITERS)}
+    cmp_runs = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        b = lgt.Booster(params, lgt.Dataset(Xc, label=yc),
+                        device=None if where == "cuda" else "cpu")
+        grower = b._gbdt._grower
+        inputs = []
+
+        def grow(*args, _grow=grower.grow, _inputs=inputs):
+            _inputs.append([a.cpu() for a in args[1:]])
+            return _grow(*args)
+        grower.grow = grow
+        for _ in range(CPU_Q_ITERS):
+            b.update()
+        b.model_to_string()
+        cmp_runs[where] = (b, dict((m, v) for _, m, v, _ in b.eval_train()),
+                           time.perf_counter() - t0, inputs)
+    gm, cm = cmp_runs["cuda"][0]._gbdt.models, cmp_runs["cpu"][0]._gbdt.models
+    assert len(gm) == len(cm), (len(gm), len(cm))
+    diff = tree_diff(gm, cm)
+    d_auc = abs(cmp_runs["cuda"][1]["auc"] - cmp_runs["cpu"][1]["auc"])
+    if diff is None:
+        where = f"all {len(gm)} trees equal in structure and counts"
+        same_text = (cmp_runs["cuda"][0].model_to_string()
+                     == cmp_runs["cpu"][0].model_to_string())
+        where += ("; model text byte-equal" if same_text else "")
+    else:
+        t, i, ga, gc = diff
+        why = explain_difference(cmp_runs, t, i, quantized=True)
+        print(f"  float64 gain gap {why['gap']:.6g}; the f32 rounding of the "
+              f"two runs' own gains {why['rounding']:.6g}")
+        assert why["gain_tie"] or why["hessian_boundary"], \
+            f"quantized card and CPU trees differ at tree {t} split {i}"
+        where = (f"trees equal up to tree {t}, split {i}, a near tie "
+                 f"(split gains {ga:.7g} on the card, {gc:.7g} on the CPU)")
+    assert d_auc <= AUC_TOL, f"quantized card vs CPU auc differs by {d_auc}"
+    print(f"quantized card vs CPU, {CPU_ROWS} LRB rows x {len(gm)} "
+          f"iterations (count-proxy): {where}; train auc "
+          f"{cmp_runs['cuda'][1]['auc']:.6f} vs "
+          f"{cmp_runs['cpu'][1]['auc']:.6f} (|diff| {d_auc:.2g} <= "
+          f"{AUC_TOL}); {cmp_runs['cuda'][2]:.1f} s on the card, "
+          f"{cmp_runs['cpu'][2]:.1f} s on the CPU")
+
+    entries = []
+    src = "lightgbm_tpu_torch/csrc/hist_wave.cu"
+    for (kid, variant), t in sorted(out.items()):
+        name = ("wave_histogram" if kid == "K2"
+                else "fused_partition_histogram") + "_" + variant
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": ("lightgbm_tpu/ops/hist_wave.py:482" if kid == "K2"
+                         else "lightgbm_tpu/ops/hist_wave.py:984"),
+            "launches": t["launches"], "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_note": ("index_add_ of the channels on a flat index "
+                             "built beforehand" if kid == "K2" else
+                             "no single PyTorch call partitions rows and "
+                             "builds their histograms"),
+            "shape": t["shape"],
+            "launches_per_iteration": t["launches_per_iteration"],
+            **({"unpacked_ms": t["unpacked_ms"]} if "unpacked_ms" in t
+               else {}),
+            "vs_plain": ("bitwise against the unpacked launch"
+                         if variant == "f32_packed4" else
+                         "bitwise against the plain version on the card")})
+    return entries
 
 
 def main() -> None:
@@ -1059,8 +1508,10 @@ def main() -> None:
           f"{lrb['rows']} rows, plain {lrb['plain_ms']:.1f} ms, bound "
           f"{lrb['bound_ms']:.5f} ms ({lrb['bound_by']})")
 
-    # 6-9: training
-    train = train_phases(dev)
+    # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins
+    train, higgs_data = train_phases(dev)
+    quant = quant_phases(dev, higgs_data)
+    del higgs_data
 
     # kernels line
     forest = {
@@ -1074,7 +1525,7 @@ def main() -> None:
         "rows": higgs["rows"], "serve_launches": serve_launches,
         "lrb": {k: lrb[k] for k in ("rows", "ms", "plain_ms", "bound_ms",
                                     "bound_by")}}
-    print(json.dumps({"kernels": [forest] + train}))
+    print(json.dumps({"kernels": [forest] + train + quant}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

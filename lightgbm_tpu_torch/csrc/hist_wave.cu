@@ -11,6 +11,16 @@
 // rows in each of W wave slots; K1 first applies the wave's W splits to
 // the rows' leaf ids and counts each slot's smaller child only.
 //
+// Variants, as in the TPU kernels:
+//   - int8 tier (K2q, K1q): g and h are int8 (quantized, |v| <= 127) and
+//     the sums are exact int32, [W, F, B, C] with C = 3 (sum g, sum h,
+//     count) or, in count-proxy mode, C = 2 (sum g, sum h); K1q in
+//     count-proxy mode also counts each slot's in-bag rows moved right;
+//   - packed4: bins are [ceil(F/2), N] bytes holding two 4-bit bins,
+//     feature f in byte row f/2, low nibble when f is even. Only how a
+//     bin is read changes, so a packed launch adds in the same order as
+//     the unpacked one and gives the same bits.
+//
 // What bounds them on an H100: the bytes are few (each row's F bin
 // bytes, g, h, leaf id, mask: ~48 B/row at 28 features, 0.16 ms per
 // pass at 11M rows and 3.35 TB/s). The TPU kernel turns the scatter into
@@ -35,6 +45,13 @@
 //      row order;
 //   3. a reduction pass adds the per-range partial tiles in range order.
 //
+// The int8 tier needs none of that: integer adds do not depend on their
+// order, so its histogram pass (one block per (feature, row range), 512
+// threads over the range's rows) adds each row into a shared int32
+// [W, B, C] tile with shared atomics and flushes the tile's non-zero
+// cells into the zeroed output with global atomics. Every launch gives
+// the same bits, and so does any order of the same adds.
+//
 // K1 is thus two data passes (slot, then histogram) rather than one; the
 // pair is the K1 port and is timed as one. The histogram pass is bound
 // by the instructions it executes, not by bytes: each of a block's
@@ -49,6 +66,7 @@ namespace {
 
 constexpr int kTileRows = 1024;   // rows staged per shared-memory tile
 constexpr int kWarps = 4;         // warps per histogram block
+constexpr int kIntThreads = 512;  // threads per int8-tier histogram block
 constexpr int kMaxWave = 64;      // slot ids fit a byte, W is the dump
 constexpr int kMaxBins = 256;     // bins are uint8
 constexpr int kMissingZero = 1;
@@ -57,6 +75,16 @@ constexpr uint16_t kNone = 0xFFFF;
 
 __host__ __device__ inline int64_t i64min(int64_t a, int64_t b) {
   return a < b ? a : b;
+}
+
+// feature f's bin of row i: its own byte row, or a nibble of byte row
+// f/2 (low nibble for even f) when the bins are packed two per byte
+template <bool PACKED>
+__device__ __forceinline__ int read_bin(const uint8_t* __restrict__ bins,
+                                        int f, int64_t n, int64_t i) {
+  if (!PACKED) return bins[(int64_t)f * n + i];
+  const int byte = bins[(int64_t)(f >> 1) * n + i];
+  return (f & 1) ? byte >> 4 : byte & 15;
 }
 
 // packed split table of K1, [kTblRows, W] int32 (ops/hist_wave.py TBL_*)
@@ -81,15 +109,23 @@ __global__ void wave_slots_kernel(const int* __restrict__ leaf,
   }
 }
 
+// K1's slot pass: each row's new leaf id, and its slot when it lies in
+// the slot's smaller child and in bag (W otherwise). With cnt_r, also
+// each slot's in-bag rows moved right (count-proxy mode), added per
+// block in shared memory and then once per slot into cnt_r.
+template <bool PACKED>
 __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
                                        const float* __restrict__ mask,
                                        const int* __restrict__ leaf,
                                        const int* __restrict__ tbl, int W,
                                        int64_t n, int* __restrict__ leaf_out,
-                                       uint8_t* __restrict__ slot) {
+                                       uint8_t* __restrict__ slot,
+                                       int* __restrict__ cnt_r) {
   __shared__ int s_tbl[kTblRows * kMaxWave];
+  __shared__ int s_cnt[kMaxWave];
   for (int e = threadIdx.x; e < kTblRows * W; e += blockDim.x)
     s_tbl[e] = tbl[e];
+  for (int k = threadIdx.x; k < W; k += blockDim.x) s_cnt[k] = 0;
   __syncthreads();
   const int* parent = s_tbl + kTblParent * W;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -98,7 +134,7 @@ __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
     int out = l, s = W;
     for (int k = 0; k < W; ++k) {
       if (parent[k] < 0 || parent[k] != l) continue;
-      const int col = bins[(int64_t)s_tbl[kTblFeat * W + k] * n + i];
+      const int col = read_bin<PACKED>(bins, s_tbl[kTblFeat * W + k], n, i);
       const int miss = s_tbl[kTblMiss * W + k];
       const bool is_missing =
           (miss == kMissingNan && col == s_tbl[kTblNumbin * W + k] - 1) ||
@@ -107,16 +143,23 @@ __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
                                     : col > s_tbl[kTblBin * W + k];
       const int new_id = s_tbl[kTblNew * W + k];
       const int small = s_tbl[kTblSmall * W + k];
+      const bool in_bag = mask[i] > 0.0f;
       if (right) out = new_id;
-      if (small >= 0 && right == (small == new_id) && mask[i] > 0.0f) s = k;
+      if (small >= 0 && right == (small == new_id) && in_bag) s = k;
+      if (cnt_r != nullptr && right && in_bag) atomicAdd(&s_cnt[k], 1);
       break;
     }
     leaf_out[i] = out;
     slot[i] = (uint8_t)s;
   }
+  if (cnt_r == nullptr) return;
+  __syncthreads();
+  for (int k = threadIdx.x; k < W; k += blockDim.x)
+    if (s_cnt[k] != 0) atomicAdd(&cnt_r[k], s_cnt[k]);
 }
 
 // part[r][f][w][b][c] = sums over rows of range r in slot w with bin b
+template <bool PACKED>
 __global__ void __launch_bounds__(kWarps * 32)
 slot_histogram_kernel(const uint8_t* __restrict__ bins,
                       const float* __restrict__ g,
@@ -134,7 +177,6 @@ slot_histogram_kernel(const uint8_t* __restrict__ bins,
   const int64_t r0 = (int64_t)r * rows_per_range;
   const int64_t r1 = i64min(n, r0 + rows_per_range);
   for (int e = threadIdx.x; e < W * B * 3; e += blockDim.x) tile[e] = 0.0f;
-  const uint8_t* frow = bins + (int64_t)f * n;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int64_t t0 = r0; t0 < r1; t0 += kTileRows) {
@@ -143,7 +185,9 @@ slot_histogram_kernel(const uint8_t* __restrict__ bins,
     for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
       const int64_t i = t0 + j;
       const int s = slot[i];
-      s_code[j] = s < W ? (uint16_t)((s << 8) | frow[i]) : kNone;
+      s_code[j] = s < W
+          ? (uint16_t)((s << 8) | read_bin<PACKED>(bins, f, n, i))
+          : kNone;
       s_g[j] = g[i];
       s_h[j] = h[i];
     }
@@ -194,21 +238,61 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part,
   }
 }
 
+// out[w][f][b][c] += the exact int32 sums of the rows of range r in slot
+// w with bin b: (gq, hq, 1) for C = 3, (gq, hq) for C = 2
+template <bool PACKED, int C>
+__global__ void __launch_bounds__(kIntThreads)
+int_histogram_kernel(const uint8_t* __restrict__ bins,
+                     const int8_t* __restrict__ gq,
+                     const int8_t* __restrict__ hq,
+                     const uint8_t* __restrict__ slot, int64_t n, int F,
+                     int B, int W, int64_t rows_per_range,
+                     int* __restrict__ out) {
+  extern __shared__ int itile[];                        // [W][B][C]
+  const int f = blockIdx.x;
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_range;
+  const int64_t r1 = i64min(n, r0 + rows_per_range);
+  const int cells = W * B * C;
+  for (int e = threadIdx.x; e < cells; e += blockDim.x) itile[e] = 0;
+  __syncthreads();
+  for (int64_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
+    const int s = slot[i];
+    if (s >= W) continue;
+    int* cell = itile + (s * B + read_bin<PACKED>(bins, f, n, i)) * C;
+    atomicAdd(cell, (int)gq[i]);
+    atomicAdd(cell + 1, (int)hq[i]);
+    if (C == 3) atomicAdd(cell + 2, 1);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < cells; e += blockDim.x) {
+    const int v = itile[e];
+    if (v == 0) continue;
+    const int c = e % C;
+    const int q = e / C;
+    atomicAdd(out + (((int64_t)(q / B) * F + f) * B + q % B) * C + c, v);
+  }
+}
+
 int hist_smem_bytes(int W, int B) {
   return W * B * 3 * (int)sizeof(float) +
          kTileRows * (2 * (int)sizeof(float) + (int)sizeof(uint16_t));
 }
 
-int launch_histogram(const uint8_t* bins, const float* g, const float* h,
-                     const uint8_t* slot, int64_t n, int F, int B, int W,
-                     int R, int64_t rows_per_range, float* part, float* out,
-                     cudaStream_t stream) {
+int row_blocks(int64_t n) {
+  return (int)i64min((n + 255) / 256, 132 * 16);
+}
+
+template <bool PACKED>
+int launch_histogram_t(const uint8_t* bins, const float* g, const float* h,
+                       const uint8_t* slot, int64_t n, int F, int B, int W,
+                       int R, int64_t rows_per_range, float* part,
+                       float* out, cudaStream_t stream) {
   const int smem = hist_smem_bytes(W, B);
   cudaError_t err = cudaFuncSetAttribute(
-      slot_histogram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      slot_histogram_kernel<PACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  slot_histogram_kernel<<<dim3(F, R), kWarps * 32, smem, stream>>>(
+  slot_histogram_kernel<PACKED><<<dim3(F, R), kWarps * 32, smem, stream>>>(
       bins, g, h, slot, n, F, B, W, rows_per_range, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -218,35 +302,97 @@ int launch_histogram(const uint8_t* bins, const float* g, const float* h,
   return (int)cudaGetLastError();
 }
 
-int row_blocks(int64_t n) {
-  return (int)i64min((n + 255) / 256, 132 * 16);
+int launch_histogram(bool packed, const uint8_t* bins, const float* g,
+                     const float* h, const uint8_t* slot, int64_t n, int F,
+                     int B, int W, int R, int64_t rows_per_range,
+                     float* part, float* out, cudaStream_t stream) {
+  return packed ? launch_histogram_t<true>(bins, g, h, slot, n, F, B, W, R,
+                                           rows_per_range, part, out, stream)
+                : launch_histogram_t<false>(bins, g, h, slot, n, F, B, W, R,
+                                            rows_per_range, part, out,
+                                            stream);
 }
 
-bool bad_shape(int W, int B) {
-  return W < 1 || W > kMaxWave || B < 1 || B > kMaxBins;
+template <bool PACKED, int C>
+int launch_int_t(const uint8_t* bins, const int8_t* gq, const int8_t* hq,
+                 const uint8_t* slot, int64_t n, int F, int B, int W, int R,
+                 int64_t rows_per_range, int* out, cudaStream_t stream) {
+  const int smem = W * B * C * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      int_histogram_kernel<PACKED, C>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int_histogram_kernel<PACKED, C>
+      <<<dim3(F, R), kIntThreads, smem, stream>>>(
+          bins, gq, hq, slot, n, F, B, W, rows_per_range, out);
+  return (int)cudaGetLastError();
+}
+
+// zeroes out [W, F, B, C] int32, then adds every range's tile into it
+int launch_int_histogram(bool packed, int C, const uint8_t* bins,
+                         const int8_t* gq, const int8_t* hq,
+                         const uint8_t* slot, int64_t n, int F, int B, int W,
+                         int R, int64_t rows_per_range, int* out,
+                         cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, (size_t)W * F * B * C * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (C == 2)
+    return packed ? launch_int_t<true, 2>(bins, gq, hq, slot, n, F, B, W, R,
+                                          rows_per_range, out, stream)
+                  : launch_int_t<false, 2>(bins, gq, hq, slot, n, F, B, W, R,
+                                           rows_per_range, out, stream);
+  return packed ? launch_int_t<true, 3>(bins, gq, hq, slot, n, F, B, W, R,
+                                        rows_per_range, out, stream)
+                : launch_int_t<false, 3>(bins, gq, hq, slot, n, F, B, W, R,
+                                         rows_per_range, out, stream);
+}
+
+int launch_partition(bool packed, const uint8_t* bins, const float* mask,
+                     const int* leaf, const int* tbl, int W, int64_t n,
+                     int* leaf_out, uint8_t* slot, int* cnt_r,
+                     cudaStream_t stream) {
+  if (cnt_r != nullptr) {
+    const cudaError_t err =
+        cudaMemsetAsync(cnt_r, 0, (size_t)W * sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (packed)
+    partition_slots_kernel<true><<<row_blocks(n), 256, 0, stream>>>(
+        bins, mask, leaf, tbl, W, n, leaf_out, slot, cnt_r);
+  else
+    partition_slots_kernel<false><<<row_blocks(n), 256, 0, stream>>>(
+        bins, mask, leaf, tbl, W, n, leaf_out, slot, cnt_r);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int W, int B, bool packed) {
+  return W < 1 || W > kMaxWave || B < 1 || B > (packed ? 16 : kMaxBins);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one histogram block asks for.
+// Bytes of dynamic shared memory one f32 histogram block asks for.
 int hist_wave_smem_bytes(int W, int B) { return hist_smem_bytes(W, B); }
 
 // K2: [W, F, B, 3] histograms of the rows whose leaf id is wl[k].
-// slot: [n] scratch; part: [R, F, W, B, 3] scratch; out: [W, F, B, 3].
+// bins: [F, n], or [ceil(F/2), n] when packed; slot: [n] scratch;
+// part: [R, F, W, B, 3] scratch; out: [W, F, B, 3].
 int wave_histogram_launch(const uint8_t* bins, const float* g,
                           const float* h, const int* leaf, const int* wl,
-                          int W, long long n, int F, int B, uint8_t* slot,
-                          float* part, int R, long long rows_per_range,
-                          float* out, void* stream) {
-  if (bad_shape(W, B)) return (int)cudaErrorInvalidValue;
+                          int W, long long n, int F, int B, int packed,
+                          uint8_t* slot, float* part, int R,
+                          long long rows_per_range, float* out,
+                          void* stream) {
+  if (bad_shape(W, B, packed)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   wave_slots_kernel<<<row_blocks(n), 256, 0, s>>>(leaf, wl, W, n, slot);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_histogram(bins, g, h, slot, n, F, B, W, R, rows_per_range,
-                          part, out, s);
+  return launch_histogram(packed, bins, g, h, slot, n, F, B, W, R,
+                          rows_per_range, part, out, s);
 }
 
 // K1: applies the wave's splits (tbl, [9, W] int32) to leaf -> leaf_out
@@ -256,18 +402,52 @@ int fused_partition_histogram_launch(const uint8_t* bins, const float* g,
                                      const float* h, const float* mask,
                                      const int* leaf, const int* tbl,
                                      int W, long long n, int F, int B,
-                                     int* leaf_out, uint8_t* slot,
-                                     float* part, int R,
+                                     int packed, int* leaf_out,
+                                     uint8_t* slot, float* part, int R,
                                      long long rows_per_range, float* out,
                                      void* stream) {
-  if (bad_shape(W, B)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(W, B, packed)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  partition_slots_kernel<<<row_blocks(n), 256, 0, s>>>(
-      bins, mask, leaf, tbl, W, n, leaf_out, slot);
+  const int err = launch_partition(packed, bins, mask, leaf, tbl, W, n,
+                                   leaf_out, slot, nullptr, s);
+  if (err != 0) return err;
+  return launch_histogram(packed, bins, g, h, slot, n, F, B, W, R,
+                          rows_per_range, part, out, s);
+}
+
+// K2q: as K2 on int8 gq, hq; out: [W, F, B, C] int32 exact sums (C = 3:
+// g, h, count; C = 2: g, h).
+int wave_histogram_int_launch(const uint8_t* bins, const int8_t* gq,
+                              const int8_t* hq, const int* leaf,
+                              const int* wl, int W, long long n, int F,
+                              int B, int C, int packed, uint8_t* slot,
+                              int R, long long rows_per_range, int* out,
+                              void* stream) {
+  if (bad_shape(W, B, packed) || (C != 2 && C != 3))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  wave_slots_kernel<<<row_blocks(n), 256, 0, s>>>(leaf, wl, W, n, slot);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_histogram(bins, g, h, slot, n, F, B, W, R, rows_per_range,
-                          part, out, s);
+  return launch_int_histogram(packed, C, bins, gq, hq, slot, n, F, B, W, R,
+                              rows_per_range, out, s);
+}
+
+// K1q: as K1 on int8 gq, hq into [W, F, B, C] int32; with cnt_r (count
+// proxy, [W] int32), also each slot's in-bag rows moved right.
+int fused_partition_histogram_int_launch(
+    const uint8_t* bins, const int8_t* gq, const int8_t* hq,
+    const float* mask, const int* leaf, const int* tbl, int W, long long n,
+    int F, int B, int C, int packed, int* leaf_out, uint8_t* slot,
+    int* cnt_r, int R, long long rows_per_range, int* out, void* stream) {
+  if (bad_shape(W, B, packed) || (C != 2 && C != 3))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_partition(packed, bins, mask, leaf, tbl, W, n,
+                                   leaf_out, slot, cnt_r, s);
+  if (err != 0) return err;
+  return launch_int_histogram(packed, C, bins, gq, hq, slot, n, F, B, W, R,
+                              rows_per_range, out, s);
 }
 
 }  // extern "C"

@@ -5,7 +5,10 @@ include/LightGBM/dataset.h:36-622, src/io/dataset_loader.cpp:196-235),
 dense route only: rows are sampled and a BinMapper found per column on
 the host (numpy, copied), trivial columns are dropped, and the matrix is
 binned on the device into one feature-major ``[F, N]`` tensor (uint8 up
-to 256 bins, int32 beyond), the layout the histogram kernels read.
+to 256 bins, int32 beyond), the layout the histogram kernels read. Under
+the 4-bit packed tier the set keeps its bins packed two per byte
+(``grower_bins(packed4=True)``); every other reader gets them unpacked
+from ``bins_t``.
 EFB bundling, the sparse route and categorical features are not ported.
 """
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.hist_wave import pack4, unpack4
 from ..ops.split import FeatureMeta
 from ..utils import log
 from ..utils.device import resolve_device
@@ -101,7 +105,8 @@ class BinnedDataset:
         self.mappers: List[BinMapper] = []        # per used (inner) feature
         self.used_feature_map = np.zeros(0, np.int32)
         self.real_to_inner: dict = {}
-        self.bins_t: Optional[torch.Tensor] = None   # [F, N] on device
+        self._bins: Optional[torch.Tensor] = None    # on device
+        self.packed4 = False         # _bins [ceil(F/2), N], 4-bit bins
         self.metadata = Metadata()
         self.feature_names: List[str] = []
         self.max_bin_global = 1
@@ -139,6 +144,33 @@ class BinnedDataset:
         self.real_to_inner = {r: i for i, r in enumerate(used)}
         self.max_bin_global = max((m.num_bin for m in self.mappers),
                                   default=1)
+
+    @property
+    def bins_t(self) -> Optional[torch.Tensor]:
+        """[F, N] bins on the device (unpacked on the fly when the set
+        holds them packed)."""
+        if self.packed4:
+            return unpack4(self._bins, self._num_bin_rows)
+        return self._bins
+
+    @bins_t.setter
+    def bins_t(self, bins: torch.Tensor) -> None:
+        self._bins = bins
+        self.packed4 = False
+
+    def grower_bins(self, packed4: bool) -> torch.Tensor:
+        """The bins the wave grower reads: [F, N], or with ``packed4``
+        [ceil(F/2), N] two 4-bit bins per byte (the JAX package's
+        ``_pack4_host``). The set keeps the last form asked for, so the
+        packed tier holds half the bytes on the device."""
+        if packed4 != self.packed4:
+            if packed4:
+                self._num_bin_rows = self._bins.shape[0]
+                self._bins = pack4(self._bins)
+            else:
+                self._bins = unpack4(self._bins, self._num_bin_rows)
+            self.packed4 = packed4
+        return self._bins
 
     def bin_dtype(self) -> torch.dtype:
         return torch.uint8 if self.max_bin_global <= 256 else torch.int32

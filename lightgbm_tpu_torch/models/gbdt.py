@@ -2,8 +2,10 @@
 
 The JAX package's ``models/gbdt.py`` (gbdt.cpp, gbdt_model_text.cpp,
 gbdt_prediction.cpp of the reference). Training is the serial gbdt path
-of the exact f32 tier: ``init`` sets up the wave grower on the train
-set's device, and ``train_one_iter`` runs one boosting iteration there
+on the exact f32 tier or the int8 quantized tiers (count-proxy or exact
+counts), with 4-bit packed bins where the JAX package packs them:
+``init`` sets up the wave grower on the train set's device, and
+``train_one_iter`` runs one boosting iteration there
 (the step body of the JAX package's ``ops/step_cache.py:324-406``:
 gradients, the tree, the shrinkage fold, the score update through the
 leaf-gather kernel, the boost-from-average bias on the stored record).
@@ -24,6 +26,7 @@ import torch
 from ..config import Config
 from .tree import Tree, tree_from_record
 from ..objectives import ObjectiveFunction, parse_objective_from_model_string
+from ..ops.f32math import fma
 from ..ops.predict import add_leaf_outputs
 from ..ops.split import SplitParams
 from ..ops.wave_grower import WaveGrower, WaveGrowerConfig
@@ -87,9 +90,6 @@ class GBDT:
         if config.boosting_type() != "gbdt":
             raise NotImplementedError(
                 f"boosting={config.boosting_type()} is not ported yet")
-        if config.tpu_quantized_hist:
-            raise NotImplementedError("the quantized histogram tier is not "
-                                      "ported yet")
         if objective is None:
             raise NotImplementedError("custom objectives are not ported yet")
         self.config = config
@@ -117,9 +117,13 @@ class GBDT:
         return self
 
     def _setup_grower(self) -> None:
-        """The grower of the serial learner (gbdt.py:300-480): split
-        hyperparameters, the wave width W, the histogram width B."""
+        """The grower of the serial learner and its histogram tier: split
+        hyperparameters, precision, count-proxy, packed bins, the wave
+        width W and the histogram width B (the JAX package's
+        gbdt.py:300-480, serial learner, no EFB bundles or sparse tier,
+        which the port has not)."""
         cfg = self.config
+        td = self.train_data
         if cfg.tree_learner != "serial":
             log.warning("tree_learner=%s needs several devices; the port "
                         "trains with the serial learner", cfg.tree_learner)
@@ -129,11 +133,37 @@ class GBDT:
             min_data_in_leaf=float(cfg.min_data_in_leaf),
             min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
             min_gain_to_split=cfg.min_gain_to_split)
-        if cfg.tpu_use_dp:
+        quant = cfg.tpu_quantized_hist
+        forced = bool(cfg.forcedsplits_filename)
+        # count-proxy: int8 only, no forced splits (nor EFB bundles,
+        # categorical features or the sparse tier, none ported)
+        proxy = quant and not forced and cfg.tpu_count_proxy != 0
+        if cfg.tpu_count_proxy == 1 and not proxy:
+            log.warning("tpu_count_proxy needs tpu_quantized_hist with "
+                        "tree_learner serial/data, no EFB bundles, no "
+                        "forced splits and no categorical features; "
+                        "using exact counts")
+        if proxy and cfg.tpu_count_proxy == -1:
+            log.info("tpu_count_proxy auto-enabled (int8 count-proxy "
+                     "histograms, 64-leaf waves): per-bin counts are "
+                     "conservative lower bounds for the "
+                     "min_data_in_leaf gate; set tpu_count_proxy=0 for "
+                     "exact counts")
+        # 4-bit packed bins ride the count-proxy tier or the exact tier
+        packed4_exact = not quant and cfg.tpu_use_dp and not forced
+        packed4 = ((proxy or packed4_exact) and td.max_bin_global <= 16
+                   and cfg.tpu_packed_bins != 0)
+        if quant and proxy:
+            precision, w_cap = "int8", 64    # 2 channels
+            hp = hp._replace(count_lb=True)  # conservative min_data gate
+        elif quant:
+            precision, w_cap = "int8", 40    # 3 channels
+        elif cfg.tpu_use_dp:
             # the exact tier's channel layout only sets the wave cap; off
             # the TPU the JAX package takes the widest layout its
             # objective allows: hilo4 (hilo3 needs constant hessians,
             # which binary logloss does not have)
+            precision = "f32"
             variant = cfg.tpu_exact_tier or (
                 "hilo5" if cfg.tpu_autotune == "off" else "hilo4")
             if variant == "hilo3":
@@ -142,13 +172,16 @@ class GBDT:
                 variant = "hilo4"
             w_cap = EXACT_TIER_CAPS[variant]
         else:
-            w_cap = 32
+            precision, w_cap = "f32", 32
         W = cfg.tpu_wave_size or w_cap
         if W > w_cap:
-            log.warning("tpu_wave_size=%d exceeds the lane cap of this tier; "
-                        "clamping to %d", W, w_cap)
+            log.warning("tpu_wave_size=%d exceeds the Pallas lane cap for "
+                        "this precision; clamping to %d", W, w_cap)
         W = max(1, min(W, w_cap, max(cfg.num_leaves, 2) - 1))
-        td = self.train_data
+        if quant and 127 * self._n >= 2 ** 31:
+            raise NotImplementedError(
+                "int8 histogram sums could overflow int32 beyond ~16.9M "
+                "rows; disable tpu_quantized_hist")
         # the histogram width: the JAX package's default bucket policy
         # (step_cache.bucket_bins), a power of two >= 16, unless
         # tpu_row_bucket=0 asks for exact shapes. Bins past a feature's
@@ -159,7 +192,12 @@ class GBDT:
             B = 1 << (max(B, 16) - 1).bit_length()
         self._grower_cfg = WaveGrowerConfig(
             num_leaves=max(cfg.num_leaves, 2), num_bins=B, wave_size=W,
-            max_depth=cfg.max_depth, hp=hp)
+            max_depth=cfg.max_depth, hp=hp, precision=precision,
+            count_proxy=proxy, packed4=packed4)
+        if packed4:
+            nbytes = td.grower_bins(True).numel()
+            log.info("4-bit packed bins: %.1f MB HBM (vs %.1f MB unpacked)",
+                     nbytes / 1e6, 2 * nbytes / 1e6)
         self._grower = WaveGrower(self._grower_cfg, td.feature_meta(),
                                   self.device)
 
@@ -219,8 +257,8 @@ class GBDT:
                 else torch.from_numpy(mask_np).to(dev))
         fmask = torch.from_numpy(self._feature_mask()).to(dev)
         g, h = self.objective.get_gradients(self._scores[0])
-        rec, leaf_ids = self._grower.grow(self.train_data.bins_t, g, h, mask,
-                                          fmask)
+        bins = self.train_data.grower_bins(self._grower_cfg.packed4)
+        rec, leaf_ids = self._grower.grow(bins, g, h, mask, fmask)
         splitless = rec.num_leaves <= 1
         if splitless:
             log.warning("Stopped training because there are no more leaves "
@@ -228,16 +266,18 @@ class GBDT:
             if not first_iteration:
                 return True
         shrink = float(np.float32(self.shrinkage_rate))
-        leaf_output = rec.leaf_output * shrink
-        internal_value = rec.internal_value * shrink
-        # out-of-bag rows included: the partition covers every row
-        add_leaf_outputs(self._scores[0], leaf_ids, leaf_output)
+        # out-of-bag rows included: the partition covers every row; the
+        # shrinkage rides the add as one fused multiply-add, as XLA
+        # contracts the JAX package's step
+        add_leaf_outputs(self._scores[0], leaf_ids, rec.leaf_output, shrink)
         # AddBias on the stored record only (tree.h:151): the init score
         # reached the scores through boost_from_average already
+        # (XLA contracts the JAX package's shrinkage and bias into one
+        # fused multiply-add here too)
         bias = float(np.float32(init_score if first_iteration else 0.0))
         self.records.append(rec._replace(
-            leaf_output=leaf_output + bias,
-            internal_value=internal_value + bias))
+            leaf_output=fma(rec.leaf_output, shrink, bias),
+            internal_value=fma(rec.internal_value, shrink, bias)))
         self.models.append(None)
         self._tree_shrinkage.append(
             1.0 if first_iteration and abs(init_score) > 1e-15

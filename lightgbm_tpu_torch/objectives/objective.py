@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import f32math
 from ..utils import log
 
 
@@ -106,7 +107,8 @@ class BinaryLogloss(ObjectiveFunction):
                               torch.from_numpy(self.label_weight).to(dev))
         lv, lw = self._dev[dev]
         sig = float(np.float32(self.sigmoid))
-        response = -lv * sig / (1.0 + torch.exp(lv * sig * score))
+        # XLA's exp bits (ops/f32math.py), the same on every device
+        response = -lv * sig / (1.0 + f32math.exp(lv * sig * score))
         ar = torch.abs(response)
         return response * lw, ar * (sig - ar) * lw
 

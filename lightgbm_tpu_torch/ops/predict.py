@@ -3,14 +3,15 @@
 Counterpart of the JAX package's ``ops/predict.py``:
 ``add_leaf_outputs`` (:102) with ``leaf_gather_pallas`` (:64), reference
 ScoreUpdater::AddScore (score_updater.hpp:17-123). ``add_leaf_outputs``
-adds ``table[leaf_ids]`` to the scores in place: it launches
-csrc/leaf_gather.cu for CUDA tensors and runs ``add_leaf_outputs_plain``
-for CPU tensors; there is no other route. Ids outside ``[0, L)`` add
-nothing (the two JAX paths disagree there: the TPU kernel adds 0.0,
-the XLA gather wraps -1 to the last entry and clamps high ids to it).
-Both versions round the same two
-f32 operations, the table's shrinkage product (done by the caller) and
-the add, so they agree bit for bit.
+sets ``scores = fma(table[leaf_ids], shrink, scores)`` in place: it
+launches csrc/leaf_gather.cu for CUDA tensors and runs
+``add_leaf_outputs_plain`` for CPU tensors; there is no other route.
+Ids outside ``[0, L)`` add nothing (the two JAX paths disagree there:
+the TPU kernel adds 0.0, the XLA gather wraps -1 to the last entry and
+clamps high ids to it). The shrinkage rides the add as one fused
+multiply-add, one rounding, as XLA contracts the JAX package's
+``scores + leaf_output * shrink``; the kernel's ``fmaf`` and the plain
+version's exact emulation (ops/f32math.py) agree bit for bit.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ launches = Counter()
 def _library():
     lib = cuda_build.library("leaf_gather")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_gather_add_launch.argtypes = [p, p, p, i, ll, p]
+    lib.leaf_gather_add_launch.argtypes = [p, p, p, i, ctypes.c_float, ll,
+                                           p]
     lib.leaf_gather_add_launch.restype = i
     return lib
 
@@ -54,21 +56,25 @@ def replay_partition(rec, bins_t: torch.Tensor, meta) -> torch.Tensor:
 
 
 def add_leaf_outputs_plain(scores: torch.Tensor, leaf_ids: torch.Tensor,
-                           table: torch.Tensor) -> torch.Tensor:
-    """scores[i] += table[leaf_ids[i]] in place, for ids in [0, L)."""
+                           table: torch.Tensor,
+                           shrink: float = 1.0) -> torch.Tensor:
+    """scores[i] = fma(table[leaf_ids[i]], shrink, scores[i]) in place,
+    for ids in [0, L)."""
+    from .f32math import fma
     L = table.shape[0]
     ok = (leaf_ids >= 0) & (leaf_ids < L)
     gathered = table[leaf_ids.clamp(0, L - 1).to(torch.int64)]
-    scores.copy_(torch.where(ok, scores + gathered, scores))
+    scores.copy_(torch.where(ok, fma(gathered, shrink, scores), scores))
     return scores
 
 
 def add_leaf_outputs(scores: torch.Tensor, leaf_ids: torch.Tensor,
-                     table: torch.Tensor) -> torch.Tensor:
-    """scores [N] f32 += table [L] f32 at leaf_ids [N] int32, in place;
-    ids outside [0, L) add nothing. Returns ``scores``."""
+                     table: torch.Tensor, shrink: float = 1.0) -> torch.Tensor:
+    """scores [N] f32 = fma(table [L] f32 at leaf_ids [N] int32, shrink
+    (taken as f32), scores), in place; ids outside [0, L) add nothing.
+    Returns ``scores``."""
     if scores.device.type == "cpu":
-        return add_leaf_outputs_plain(scores, leaf_ids, table)
+        return add_leaf_outputs_plain(scores, leaf_ids, table, shrink)
     if scores.device.type != "cuda":
         raise LightGBMError(f"no leaf-gather kernel for {scores.device}")
     L = table.shape[0]
@@ -88,7 +94,8 @@ def add_leaf_outputs(scores: torch.Tensor, leaf_ids: torch.Tensor,
     with torch.cuda.device(scores.device):
         err = _library().leaf_gather_add_launch(
             scores.data_ptr(), leaf_ids.data_ptr(), table.data_ptr(), L,
-            scores.numel(), torch.cuda.current_stream().cuda_stream)
+            float(shrink), scores.numel(),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise LightGBMError(f"leaf gather kernel failed: CUDA error {err}")
     launches.add()

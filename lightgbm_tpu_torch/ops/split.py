@@ -12,7 +12,9 @@ and a flat argmax picks the winner. Semantics kept from the reference:
   is not None; the NaN bin rides with the default side, the zero bin is
   skipped under MissingType.ZERO (feature_histogram.hpp:87-110);
 - min_data_in_leaf, min_sum_hessian_in_leaf, min_gain_to_split and the
-  monotone zeroing (GetSplitGains, feature_histogram.hpp:458);
+  monotone zeroing (GetSplitGains, feature_histogram.hpp:458); under
+  ``count_lb`` (the count-proxy tier) both sides' counts of the
+  min_data gate are sums of the count channel's lower bounds;
 - ties: the flat argmax order is feature-major, dir=-1 (larger
   thresholds first) before dir=+1 (smaller first), the reference's scan
   order. ``torch.argmax`` returns the first maximum, as ``jnp.argmax``.
@@ -20,6 +22,9 @@ and a flat argmax picks the winner. Semantics kept from the reference:
 The prefix sums are a product with a lower-triangular ones matrix, as
 in the JAX package: on the CPU that product adds in bin order in f32,
 bit-equal to the JAX package's einsum, where ``torch.cumsum`` is not.
+XLA's einsum adds in bin order from width 64 up; at widths 16 and 32 it
+keeps 4 and 2 lane accumulators (bins j with j % L == l, in order) and
+adds them pairwise at the end, and the port adds in that order there.
 Categorical features raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -28,6 +33,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .f32math import fma
 
 KEPSILON = 1e-15            # meta.h:38
 KMIN_SCORE = float("-inf")
@@ -45,6 +52,10 @@ class SplitParams(NamedTuple):
     min_data_in_leaf: float = 20.0
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
+    # count-proxy tier: the count channel holds per-bin lower bounds, so
+    # both sides of the min_data gate come from prefix/suffix sums of the
+    # channel (num_data - one side would over-estimate the other)
+    count_lb: bool = False
 
 
 class FeatureMeta(NamedTuple):
@@ -109,11 +120,43 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+# lane accumulators of XLA's CPU dot over a reduction of this width
+_DOT_LANES = {16: 4, 32: 2}
+
+
+def prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """[..., B, C] -> inclusive prefix sums over B in XLA's order (see
+    the module docstring): each lane's sums by a lower-triangular
+    product (sequential on the CPU), then the lanes pairwise."""
+    *lead, B, C = x.shape
+    L = _DOT_LANES.get(B, 1)
+    steps = B // L
+    tril = torch.tril(torch.ones((steps, steps), dtype=x.dtype,
+                                 device=x.device))
+    lane = torch.matmul(tril, x.reshape(-1, steps, L * C)).reshape(
+        -1, steps, L, C)                 # lane[q, l]: bins j = pL + l, p <= q
+    if L == 1:
+        return lane.reshape(*lead, B, C)
+    # bin k = qL + r: lanes l <= r hold their step-q sum, lanes l > r
+    # the step before (zero at q = 0)
+    prev = torch.cat([torch.zeros_like(lane[:, :1]), lane[:, :-1]], dim=1)
+    lidx = torch.arange(L, device=x.device)
+    outs = []
+    for r in range(L):
+        acc = torch.where((lidx <= r)[:, None], lane, prev)   # [., q, L, C]
+        parts = [acc[:, :, l] for l in range(L)]
+        while len(parts) > 1:
+            parts = [parts[2 * i] + parts[2 * i + 1]
+                     for i in range(len(parts) // 2)]
+        outs.append(parts[0])
+    return torch.stack(outs, dim=2).reshape(*lead, B, C)
+
+
 def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
                     sum_h: torch.Tensor, num_data: torch.Tensor,
                     feature_mask: torch.Tensor, meta: FeatureMeta,
-                    hp: SplitParams, can_split: torch.Tensor
-                    ) -> SplitResult:
+                    hp: SplitParams, can_split: torch.Tensor,
+                    sum_scale=None) -> SplitResult:
     """The best (feature, threshold, direction) of each of M leaves.
 
     hist [M, F, B, 3] f32 (grad, hess, count); sum_g, sum_h, num_data
@@ -131,7 +174,13 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     l1, l2 = _f32(hp.lambda_l1), _f32(hp.lambda_l2)
     mds = float(hp.max_delta_step)
 
-    sum_g = sum_g.to(f32)[:, None, None]                   # [M, 1, 1]
+    if sum_scale is None:
+        sum_g = sum_g.to(f32)[:, None, None]               # [M, 1, 1]
+    else:
+        # the leaf's sums are the products q * scale of its quantized sums
+        q_g = sum_g.to(f32)[:, None, None]
+        sum_g = q_g * sum_scale[0]
+        sum_h = sum_h.to(f32) * sum_scale[1]
     sum_h2 = sum_h.to(f32)[:, None, None] + _f32(2.0 * KEPSILON)
     num_data = num_data.to(f32)[:, None, None]
     gain_shift = leaf_split_gain(sum_g, sum_h2, l1, l2, mds)
@@ -145,10 +194,7 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     contrib_mask = ((bidx < nb) & ~(skip_db & (bidx == db))
                     & ~(use_na & (bidx == nb - 1))).to(f32)
     contrib = hist * contrib_mask[..., None]               # [M, F, B, 3]
-    # prefix sums as tril @ contrib (see the module docstring)
-    tril = torch.tril(torch.ones((B, B), dtype=f32, device=dev))
-    cum = torch.matmul(tril, contrib.reshape(M * F, B, 3)).reshape(
-        M, F, B, 3)
+    cum = prefix_sums(contrib)
     tot = cum[:, :, -1:, :]                                # [M, F, 1, 3]
     eps = _f32(KEPSILON)
 
@@ -158,7 +204,7 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     l_c1 = cum[..., 2]
     r_g1 = sum_g - l_g1
     r_h1 = sum_h2 - l_h1
-    r_c1 = num_data - l_c1
+    r_c1 = tot[..., 2] - l_c1 if hp.count_lb else num_data - l_c1
     valid1 = two_scan & (bidx <= nb - 2) & ~(skip_db & (bidx == db))
 
     # dir = -1: right accumulates from the top (missing goes left)
@@ -167,7 +213,7 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     r_c2 = tot[..., 2] - cum[..., 2]
     l_g2 = sum_g - r_g2
     l_h2 = sum_h2 - r_h2
-    l_c2 = num_data - r_c2
+    l_c2 = cum[..., 2] if hp.count_lb else num_data - r_c2
     max_t2 = torch.where(use_na, nb - 3, nb - 2)
     valid2 = (bidx <= max_t2) & ~(skip_db & (bidx == db - 1))
 
@@ -208,12 +254,21 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     def pick(a2, a1):
         return torch.where(is_dir2, a2[rows, fi, t], a1[rows, fi, t])
 
-    lg = pick(l_g2, l_g1)
+    if sum_scale is None:
+        lg = pick(l_g2, l_g1)
+    else:
+        # XLA recomputes the product q * scale inside the fusions that
+        # pick the winner's sums and contracts it into their
+        # subtractions (one rounding); the gains round it first
+        q_g0 = q_g[:, 0, 0]
+        lg = torch.where(is_dir2,
+                         fma(q_g0, sum_scale[0], -r_g2[rows, fi, t]),
+                         l_g1[rows, fi, t])
     lh = pick(l_h2, l_h1)
     lc = pick(l_c2, l_c1)
     sg = sum_g[:, 0, 0]
     sh2 = sum_h2[:, 0, 0]
-    rg = sg - lg
+    rg = sg - lg if sum_scale is None else fma(q_g0, sum_scale[0], -lg)
     rh = sh2 - lh
     rc = num_data[:, 0, 0] - lc
     # single-scan NaN edge: report default_left = False (hpp:103-106)

@@ -1,4 +1,4 @@
-"""Wave-batched leaf-wise tree grower (serial learner, exact f32 tier).
+"""Wave-batched leaf-wise tree grower (serial learner).
 
 The JAX package's ``ops/wave_grower.py`` ``make_wave_grower`` (:224)
 with its default seams and the fused route (:761-780); reference
@@ -8,6 +8,16 @@ ops/hist_wave.py) moves their rows to the new leaves and builds the W
 smaller-child histograms; the siblings come from parent - smaller
 subtraction out of a per-leaf histogram pool. The root histogram is one
 K2 pass.
+
+Histogram tiers (``WaveGrowerConfig.precision``): "f32", the exact
+tier, or "int8", where each tree's gradients are quantized
+(ops/quantize.py) and the histogram passes sum integers, dequantized on
+the way out (the JAX package's :531-584, :610-668). With
+``count_proxy`` the int8 passes carry no count channel: the grower fills
+it with per-bin lower bounds from the g/h sums (``bound_counts``, :477),
+K1 returns each slot's exact in-bag moved-right count, and the leaf
+counts the trees record stay exact (:820-835). With ``packed4`` the bins
+are [ceil(F/2), N], two 4-bit bins per byte, read by K1 and K2 only.
 
 Leaf numbering matches Tree::Split: the left child keeps the parent's
 index, the right child takes the next free index, assigned within a
@@ -26,7 +36,9 @@ import numpy as np
 import torch
 
 from .grower import TreeRecord
-from .hist_wave import fused_partition_histogram, wave_histogram
+from .f32math import fma
+from .hist_wave import dequantize, fused_partition_histogram, wave_histogram
+from .quantize import INV127, quantize
 from .split import (KMIN_SCORE, FeatureMeta, SplitParams, _f32,
                     calculate_leaf_output, find_best_split)
 
@@ -37,6 +49,20 @@ class WaveGrowerConfig(NamedTuple):
     wave_size: int = 16
     max_depth: int = -1
     hp: SplitParams = SplitParams()
+    precision: str = "f32"   # "f32" or "int8" (tpu_quantized_hist)
+    count_proxy: bool = False
+    packed4: bool = False
+
+
+def bound_counts(hist: torch.Tensor, sg, sh) -> torch.Tensor:
+    """Count-proxy: [..., >= 2] dequantized g/h sums -> [..., 3] with
+    the count channel set to each bin's lower bound max(|sum gq|, sum
+    hq) / 127 (|gq|, hq <= 127 per row), the JAX package's
+    ``bound_counts`` (wave_grower.py:477). XLA multiplies by f32(1/127)
+    for its division by 127, and so does this."""
+    h2 = hist[..., :2]
+    lb = torch.maximum(h2[..., 0].abs() / sg, h2[..., 1] / sh) * INV127
+    return torch.cat([h2, lb[..., None]], dim=-1)
 
 
 _SUM_BLOCK = 8192
@@ -90,36 +116,61 @@ class WaveGrower:
     def grow(self, bins_t: torch.Tensor, grad: torch.Tensor,
              hess: torch.Tensor, sample_mask: torch.Tensor,
              feature_mask: torch.Tensor):
-        """One tree. bins_t [F, N]; grad, hess, sample_mask [N] f32
-        (mask 0/1 from bagging); feature_mask [F] bool. Returns
-        (TreeRecord, leaf ids [N] int32 of every row, out-of-bag rows
-        included, for the score update)."""
+        """One tree. bins_t [F, N] (packed4: [ceil(F/2), N]); grad, hess,
+        sample_mask [N] f32 (mask 0/1 from bagging); feature_mask [F]
+        bool. Returns (TreeRecord, leaf ids [N] int32 of every row,
+        out-of-bag rows included, for the score update)."""
         cfg, meta, L, W = self.cfg, self.meta, self.L, self.W
         hp = cfg.hp
         B = cfg.num_bins
         dev = bins_t.device
-        F, n = bins_t.shape
+        F = int(feature_mask.shape[0])
+        n = bins_t.shape[1]
         f32, i32, i64 = torch.float32, torch.int32, torch.int64
         l1, l2, mds = _f32(hp.lambda_l1), _f32(hp.lambda_l2), \
             float(hp.max_delta_step)
         grad = grad.to(f32) * sample_mask
         hess = hess.to(f32) * sample_mask
         in_bag = sample_mask > 0
+        proxy = cfg.count_proxy
+        tier = dict(precision=cfg.precision, count_proxy=proxy,
+                    packed4=cfg.packed4, num_features=F)
+        if cfg.precision == "int8":
+            q = quantize(grad, hess)
+            hg, hh, scale = q.gq, q.hq, (q.sg, q.sh)
+            qscale = torch.stack([q.sg, q.sh, torch.ones_like(q.sg)])
+        else:
+            hg, hh, scale = grad, hess, None
 
         # root: one K2 pass over the in-bag rows (out-of-bag rows read
         # as leaf -1). The JAX package passes W slots with only slot 0
         # active; the other slots' histograms are zeros never read.
         leaf_ids = torch.zeros(n, dtype=i32, device=dev)
         root_hist = wave_histogram(
-            bins_t, grad, hess, torch.where(in_bag, leaf_ids, -1),
-            torch.zeros(1, dtype=i32, device=dev), B)
-        root_g = _stable_sum(grad)
-        root_h = _stable_sum(hess)
+            bins_t, hg, hh, torch.where(in_bag, leaf_ids, -1),
+            torch.zeros(1, dtype=i32, device=dev), B, gh_scale=scale,
+            **tier)
+        if scale is None:
+            root_g = _stable_sum(grad)
+            root_h = _stable_sum(hess)
+            sums = (root_g[None], root_h[None])
+        else:
+            # dequantized sums of the integers the passes add: exact
+            # (|sum| <= 127 n < 2^31, which the kernels' guard holds),
+            # converted to f32 once; the split search takes the integer
+            # sums and the scales (ops/split.py sum_scale)
+            sums = (hg.to(i64).sum().to(f32)[None],
+                    hh.to(i64).sum().to(f32)[None])
+            root_g = sums[0][0] * scale[0]
+            root_h = sums[1][0] * scale[1]
         root_c = sample_mask.sum()
-        res = find_best_split(root_hist, root_g[None], root_h[None],
-                              root_c[None], feature_mask, meta, hp,
+        if proxy:
+            root_hist = bound_counts(root_hist, *scale)
+        res = find_best_split(root_hist, *sums, root_c[None], feature_mask,
+                              meta, hp,
                               self._depth_ok(torch.zeros(1, dtype=i32,
-                                                         device=dev)))
+                                                         device=dev)),
+                              sum_scale=scale)
 
         def table(fill, dtype, first):
             t = torch.full((L,), fill, dtype=dtype, device=dev)
@@ -184,9 +235,33 @@ class WaveGrower:
                 wl, new_ids, feat, t["threshold_bin"][wl], dleft,
                 meta.missing_type[feat], meta.default_bin[feat],
                 meta.num_bin[feat], small_ids)])      # TBL_* rows
-            leaf_ids, hist_small = fused_partition_histogram(
-                bins_t, grad, hess, sample_mask, leaf_ids, tbl, B)
-            hist_large = pool[wl] - hist_small
+            # int8 with exact counts: raw sums, so that the sibling's
+            # subtraction fuses the dequantization as XLA contracts
+            # ``parent - hist * scale`` (one rounding)
+            fuse_sub = scale is not None and not proxy
+            out = fused_partition_histogram(
+                bins_t, hg, hh, sample_mask, leaf_ids, tbl, B,
+                gh_scale=None if fuse_sub else scale, **tier)
+            leaf_ids, hist_small = out[0], out[1]
+            if fuse_sub:
+                raw = hist_small
+                hist_small = dequantize(raw, scale)
+            if proxy:
+                # exact child counts from the partition; the count
+                # channel holds lower bounds, which do not survive the
+                # subtraction: each child's is recomputed from its own
+                # g/h sums
+                lcnt_x = leaf_count[wl] - out[2]
+                rcnt_x = out[2]
+                hist_small = bound_counts(hist_small, *scale)
+            else:
+                lcnt_x, rcnt_x = lcnt, rcnt
+            if fuse_sub:
+                hist_large = fma(raw.to(f32), -qscale, pool[wl])
+            else:
+                hist_large = pool[wl] - hist_small
+            if proxy:
+                hist_large = bound_counts(hist_large, *scale)
             ls4 = left_smaller[:, None, None, None]
             hist_left = torch.where(ls4, hist_small, hist_large)
             hist_right = torch.where(ls4, hist_large, hist_small)
@@ -207,7 +282,7 @@ class WaveGrower:
             # 6. per-leaf aggregates (the left child keeps the parent id)
             child_depth = leaf_depth[wl] + 1
             for arr, lv, rv in ((leaf_output, lo, ro),
-                                (leaf_count, lcnt, rcnt),
+                                (leaf_count, lcnt_x, rcnt_x),
                                 (leaf_sum_g, lg, rg), (leaf_sum_h, lh, rh),
                                 (leaf_depth, child_depth, child_depth)):
                 arr[wl] = lv
@@ -217,7 +292,7 @@ class WaveGrower:
             can = self._depth_ok(child_depth)
             res = find_best_split(
                 torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
-                torch.cat([lh, rh]), torch.cat([lcnt, rcnt]), feature_mask,
+                torch.cat([lh, rh]), torch.cat([lcnt_x, rcnt_x]), feature_mask,
                 meta, hp, torch.cat([can, can]))
             idx2 = torch.cat([wl, new_ids])
             for name in t:

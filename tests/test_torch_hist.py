@@ -4,9 +4,10 @@ ops.predict (K3) against lightgbm_tpu.ops.
 Bars: on the CPU the plain versions are bit-equal to the JAX package's
 XLA formulations (``wave_histogram_xla``, ``fused_partition_histogram_xla``,
 ``add_leaf_outputs``): ``index_add_`` adds each histogram cell in row
-order, as XLA's scatter does, and the score update rounds the table
-product and the add separately (the table is built first, as the JAX
-package's step builds its folded table). K3 is compared on in-range leaf
+order, as XLA's scatter does, and the score update with a shrinkage
+rounds once, as XLA contracts ``scores + shrink * table[leaf]`` into a
+fused multiply-add. The int8 and packed variants are held in
+test_torch_quant.py. K3 is compared on in-range leaf
 ids only, the two JAX paths disagree outside. The kernels run only on a
 CUDA card: the tests that hold them against the plain versions skip
 without one.
@@ -117,6 +118,14 @@ def test_leaf_gather_add_plain_bit_equal(L, n):
                               torch.from_numpy(leaf),
                               torch.from_numpy(table))
     np.testing.assert_array_equal(got.numpy(), want)
+    # the shrinkage fused into the add: XLA's contraction, one rounding
+    want = np.asarray(j_add_leaf_outputs(jnp.asarray(scores),
+                                         jnp.asarray(leaf),
+                                         jnp.asarray(out), shrink))
+    got = pr.add_leaf_outputs(torch.from_numpy(scores.copy()),
+                              torch.from_numpy(leaf),
+                              torch.from_numpy(out), float(shrink))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_leaf_gather_out_of_range_adds_nothing():
@@ -195,6 +204,66 @@ def test_leaf_gather_kernel(cuda):
     scores = torch.from_numpy(r.normal(size=n).astype(np.float32)).to(cuda)
     leaf = torch.from_numpy(r.integers(-2, L + 2, n).astype(np.int32)).to(cuda)
     table = torch.from_numpy(r.normal(size=L).astype(np.float32)).to(cuda)
-    got = pr.add_leaf_outputs(scores.clone(), leaf, table)
-    want = pr.add_leaf_outputs_plain(scores.clone(), leaf, table)
-    assert torch.equal(got, want)
+    for shrink in (1.0, 0.1):
+        got = pr.add_leaf_outputs(scores.clone(), leaf, table, shrink)
+        want = pr.add_leaf_outputs_plain(scores.clone(), leaf, table, shrink)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,W,proxy", [(64, 64, True), (256, 40, False),
+                                       (16, 64, True), (16, 30, False)])
+def test_int8_kernels_bit_equal_to_plain(cuda, B, W, proxy):
+    """K2q and K1q: integer sums do not depend on order, so two launches
+    and the plain version on the card agree bit for bit (every channel,
+    K1's leaf ids and cnt_r)."""
+    F, n = 7, 300_000
+    r, bins, g, h, mask, leaf = _inputs(F, n, B, W, seed=B + W)
+    gq = torch.from_numpy((r.integers(-127, 128, n) * mask).astype(np.int8))
+    hq = torch.from_numpy((r.integers(0, 128, n) * mask).astype(np.int8))
+    args = [torch.from_numpy(a).to(cuda) for a in (bins, mask, leaf)]
+    bins_d, mask_d, leaf_d = args
+    gq, hq = gq.to(cuda), hq.to(cuda)
+    kw = dict(precision="int8", count_proxy=proxy)
+    lb = torch.where(mask_d > 0, leaf_d, -1).to(torch.int32)
+    wl = torch.arange(W, dtype=torch.int32, device=cuda)
+    k2 = [hw.wave_histogram(bins_d, gq, hq, lb, wl, B, **kw) for _ in "ab"]
+    assert torch.equal(k2[0], k2[1])
+    assert torch.equal(k2[0], hw.wave_histogram_plain(bins_d, gq, hq, lb, wl,
+                                                      B, proxy))
+    tbl = _tbl(_split_table(r, F, B, W, 2 * W + 2, W - 2)).to(cuda)
+    k1 = [hw.fused_partition_histogram(bins_d, gq, hq, mask_d, leaf_d, tbl, B,
+                                       **kw) for _ in "ab"]
+    want = hw.fused_partition_histogram_plain(bins_d, gq, hq, mask_d, leaf_d,
+                                              tbl, B, proxy)
+    assert len(k1[0]) == len(want) == (3 if proxy else 2)
+    for a, b, c in zip(k1[0], k1[1], want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_packed_kernels_equal_unpacked_launch(cuda):
+    """A packed launch reads the same bins in the same order as the
+    unpacked one: the f32 and int8 kernels give its bits."""
+    F, n, B, W = 9, 300_000, 16, 24
+    r, bins, g, h, mask, leaf = _inputs(F, n, B, W, seed=21)
+    d = [torch.from_numpy(a).to(cuda) for a in (bins, g, h, mask, leaf)]
+    bins_d, g_d, h_d, mask_d, leaf_d = d
+    packed = hw.pack4(bins_d)
+    tbl = _tbl(_split_table(r, F, B, W, 2 * W + 2, W)).to(cuda)
+    gq = torch.from_numpy((r.integers(-127, 128, n) * mask).astype(np.int8))
+    hq = torch.from_numpy((r.integers(0, 128, n) * mask).astype(np.int8))
+    for gg, hh, kw in ((g_d, h_d, {}),
+                       (gq.to(cuda), hq.to(cuda),
+                        dict(precision="int8", count_proxy=True))):
+        lb = torch.where(mask_d > 0, leaf_d, -1).to(torch.int32)
+        wl = torch.arange(W, dtype=torch.int32, device=cuda)
+        assert torch.equal(
+            hw.wave_histogram(bins_d, gg, hh, lb, wl, B, **kw),
+            hw.wave_histogram(packed, gg, hh, lb, wl, B, packed4=True,
+                              num_features=F, **kw))
+        a = hw.fused_partition_histogram(bins_d, gg, hh, mask_d, leaf_d, tbl,
+                                         B, **kw)
+        b = hw.fused_partition_histogram(packed, gg, hh, mask_d, leaf_d, tbl,
+                                         B, packed4=True, num_features=F,
+                                         **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
