@@ -58,10 +58,36 @@ the entry points a user calls:
    ``index_add_`` library call (int32 for the int8 tiers) and its bound;
 14. card vs CPU on the quantized tier: the LRB parameters with
    ``tpu_quantized_hist`` at 100,000 rows, 20 iterations; trees equal up
-   to a near tie of the quantized gains, train AUC within 4e-4.
+   to a near tie of the quantized gains, train AUC within 4e-4;
+15. categorical training at full width: 10,000,000 rows (and a 500,000
+   row holdout) in the column layout of the airline on-time data of
+   szilard/benchm-ml (``make_airline_like``: six categorical columns,
+   two numerical), 255 leaves, max_bin 255, the default categorical
+   parameters, 10 iterations through ``train`` on the exact tier: ms per
+   iteration, K1 launches per iteration and those with categorical
+   slots, the card's busy share, the holdout AUC (scored through
+   ``Booster.predict``, the forest kernel with no fallback) beside the
+   same rows trained with every column numerical;
+16. the same rows on ``tpu_quantized_hist`` with ``tpu_count_proxy=1``:
+   the tier resolves to int8 with exact counts (W=40) and logs the JAX
+   package's warning; 10 iterations;
+17. K1 with categorical rows against its plain version at phases 15-16's
+   captured inputs (the root pass and the widest wave with a
+   categorical slot): the f32 kernel bit for bit against the plain
+   version run on the CPU in the kernels' order (every channel, the
+   leaf ids; two launches bit-identical), the int8 kernel bit for bit
+   against its plain version on the card; times, bounds and the
+   ``index_add_`` of one pass; phase 8's K1 time on phase 7's inputs
+   (the launch without categorical rows) within 10% of its 7.583 ms
+   before the categorical rows existed (PERF.md's kernel table)
+   when the card's power limit is 700 W;
+18. card vs CPU at 100,000 rows of phase 15's generator, 20 iterations
+   of 31 leaves (phase 15's 255 take the CPU about 20 s an iteration),
+   on the exact and the int8 tier: trees equal up to a near tie, train
+   AUC within 4e-4.
 
-Phases 6-7 and 10-12 check that the main path launched each kernel (and
-each histogram variant) of its tier. Prints a JSON line of the kernels,
+Phases 6-7, 10-12 and 15-16 check that the main path launched each
+kernel (and each histogram variant) of its tier. Prints a JSON line of the kernels,
 then the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the
 script exits non-zero without that line. The model generators are
@@ -121,6 +147,17 @@ AUC_TOL = 4e-4
 PROXY_AUC_TOL = 0.01            # the count-proxy tier's cost is about 1e-3
 PACKED_MAX_BIN = 15             # 16 bins: 4-bit packed
 CPU_Q_ITERS = 20
+# szilard/benchm-ml's airline set: Month, DayofMonth, DayOfWeek, DepTime,
+# UniqueCarrier, Origin, Dest, Distance; None marks a numerical column
+AIRLINE_CATEGORIES = (12, 31, 7, None, 22, 300, 300, None)
+AIRLINE_CAT_COLUMNS = [j for j, k in enumerate(AIRLINE_CATEGORIES) if k]
+AIRLINE_ROWS = 10_000_000
+AIRLINE_PARAMS = {"objective": "binary", "metric": "auc", "max_bin": 255,
+                  "num_leaves": 255, "learning_rate": 0.1, "verbose": -1}
+AIRLINE_ITERS = 10
+CAT_CPU_ITERS = 20
+CAT_CPU_LEAVES = 31
+K1_MS_BEFORE_CAT = 7.583        # PERF.md's table: phase 8's K1, 700 W
 
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 7):
@@ -159,6 +196,42 @@ def lrb_labels(X: np.ndarray, seed: int) -> np.ndarray:
     soon = (X[:, 0] > 0) & (X[:, 0] < 15_000)
     y = soon ^ (X[:, HISTFEATURES] < 2200)
     return (y ^ (r.random(X.shape[0]) < 0.05)).astype(np.float32)
+
+
+def make_airline_like(n_rows: int, seed: int) -> np.ndarray:
+    """Rows in the column layout of the airline on-time data
+    (``AIRLINE_CATEGORIES``): each categorical column's codes drawn with
+    Zipf-like frequencies (p ~ rank^-1.5) under one fixed shuffle of its
+    codes, DepTime as hhmm in 1-2400, Distance in miles (30-4962). At
+    that skew the 255 most frequent of Origin's and Dest's 300 codes
+    hold over 99% of the rows: they get a bin each, the last bin also
+    holds the other 45 (bin.cpp's 99% cut), and the bins fit a byte."""
+    r = np.random.default_rng(seed)
+    shuffle = np.random.default_rng(40)
+    X = np.empty((n_rows, len(AIRLINE_CATEGORIES)), np.float64)
+    for j, k in enumerate(AIRLINE_CATEGORIES):
+        if k:
+            p = np.arange(1, k + 1) ** -1.5
+            X[:, j] = shuffle.permutation(k)[r.choice(k, n_rows,
+                                                      p=p / p.sum())]
+    hour = np.clip(np.rint(r.normal(13.5, 4.5, n_rows)), 0, 23)
+    X[:, 3] = np.clip(hour * 100 + r.integers(0, 60, n_rows), 1, 2400)
+    X[:, 7] = np.clip(np.rint(r.lognormal(6.4, 0.6, n_rows)), 30, 4962)
+    return X
+
+
+def airline_labels(X: np.ndarray, seed: int) -> np.ndarray:
+    """dep_delayed_15min from a seeded rule: a scrambled 30% of the
+    origins and of the carriers, later departures, logistic noise
+    (``seed``)."""
+    rule = np.random.default_rng(42)
+    late_origin = rule.random(AIRLINE_CATEGORIES[5]) < 0.3
+    late_carrier = rule.random(AIRLINE_CATEGORIES[4]) < 0.3
+    logit = (1.1 * late_origin[X[:, 5].astype(np.int64)]
+             + 0.8 * late_carrier[X[:, 4].astype(np.int64)]
+             + 0.0009 * (X[:, 3] - 1400.0) - 1.0)
+    noise = np.random.default_rng(seed).logistic(size=X.shape[0])
+    return (logit + noise > 0).astype(np.float32)
 
 
 def random_model_text(X: np.ndarray, n_trees: int, n_leaves: int,
@@ -360,9 +433,11 @@ class Capture:
         self.args = None
         self.kw = {}
         self.best = None
+        self.hits = 0          # calls whose key is >= 0
 
     def __call__(self, *args, **kw):
         k = None if self.key is None else self.key(args)
+        self.hits += k is not None and k >= 0
         if self.args is None or (k is not None and k > self.best):
             self.args = _clone(args)
             self.kw = {name: _clone(v) for name, v in kw.items()}
@@ -370,18 +445,32 @@ class Capture:
         return self.fn(*args, **kw)
 
 
+def _categorical_width(args) -> int:
+    """A K1 call's wave width if its split table has a categorical slot,
+    else -1 (reads the slots' flags back from the card)."""
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    tbl = args[5]
+    if tbl.shape[0] <= hw.TBL_ROWS_NUM or not bool(
+            tbl[hw.TBL_ISCAT].any()):
+        return -1
+    return tbl.shape[1]
+
+
 @contextlib.contextmanager
 def capturing():
     """While active, the grower's K1 and K2 calls and the boosting loop's
     K3 call go through Captures: K2's first call (the first root pass),
-    K1's first and its widest, K3's first. Yields them by name."""
+    K1's first, its widest and its widest with a categorical slot ("K1c",
+    whose ``hits`` count the waves with categorical slots), K3's first.
+    Yields them by name."""
     from lightgbm_tpu_torch.models import gbdt as gbdt_mod
     from lightgbm_tpu_torch.ops import wave_grower as wg
     k1 = Capture(wg.fused_partition_histogram)
     caps = {"K1": k1, "K2": Capture(wg.wave_histogram),
             "K3": Capture(gbdt_mod.add_leaf_outputs),
             "K1w": Capture(k1, key=lambda a: a[5].shape[1])}
-    wg.fused_partition_histogram = caps["K1w"]
+    caps["K1c"] = Capture(caps["K1w"], key=_categorical_width)
+    wg.fused_partition_histogram = caps["K1c"]
     wg.wave_histogram = caps["K2"]
     gbdt_mod.add_leaf_outputs = caps["K3"]
     try:
@@ -455,8 +544,8 @@ def plain_in_kernel_order(plain, args):
 
 def plain_kw(kw: dict) -> dict:
     """A wrapper's keyword arguments as its plain version takes them."""
-    return {k: kw[k] for k in ("count_proxy", "packed4", "num_features")
-            if k in kw}
+    return {k: kw[k] for k in ("count_proxy", "packed4", "num_features",
+                               "any_cat") if k in kw}
 
 
 def kernel_raw(kernel, kw: dict):
@@ -615,7 +704,9 @@ def explain_difference(runs: dict, t: int, i: int,
     The verdict is a near tie when the candidates' float64 gains differ
     by less than the f32 rounding that the two runs' own gains carry:
     each run's recorded f32 gain of its choice against that choice's
-    float64 gain on its inputs, added over the two runs. A leaf's f32
+    float64 gain on its inputs, added over the two runs (a categorical
+    candidate's gain adds cat_l2 to l2 in sorted mode, as the split
+    search does). A leaf's f32
     histogram comes from its ancestors' by subtraction and carries their
     rounding, and two orders of addition can rank candidates that close
     either way. It is a hessian-boundary tie when a side's hessian sum
@@ -633,11 +724,12 @@ def explain_difference(runs: dict, t: int, i: int,
     recs = {w: runs[w][0]._gbdt.records[t].to_numpy() for w in runs}
     cand = {w: tuple(int(r[k][i]) for k in ("split_leaf", "split_feature",
                                              "split_bin",
-                                             "split_default_left"))
+                                             "split_default_left",
+                                             "split_is_cat"))
+            + (tuple(int(x) for x in r["split_cat_words"][i]),)
             for w, r in recs.items()}
     leaf = replay_partition(gb.records[t]._replace(num_leaves=i + 1), bins,
                             meta)
-    l2 = cfg.lambda_l2
     table = {}
     for src in runs:
         g, h, mask = runs[src][3][t][:3]
@@ -647,12 +739,17 @@ def explain_difference(runs: dict, t: int, i: int,
             h = q.hq.double() * float(q.sh)
         else:
             g, h = g.double() * mask.double(), h.double() * mask.double()
-        for w, (lf, f, b, dl) in cand.items():
+        for w, (lf, f, b, dl, ic, cw) in cand.items():
             rows = (leaf == lf) & (mask > 0)
             right = row_goes_right(bins[f].to(torch.int32), b, bool(dl),
                                    int(meta.missing_type[f]),
                                    int(meta.default_bin[f]),
-                                   int(meta.num_bin[f]))
+                                   int(meta.num_bin[f]), bool(ic),
+                                   torch.tensor(cw, dtype=torch.int32,
+                                                device=bins.device))
+            # a categorical split in sorted mode adds cat_l2
+            l2 = cfg.lambda_l2 + (cfg.cat_l2 if ic and int(meta.num_bin[f])
+                                  > cfg.max_cat_to_onehot else 0.0)
             side = {}
             for name, m in (("left", rows & ~right), ("right", rows & right)):
                 side[name] = (float(g[m].sum()), float(h[m].sum()),
@@ -662,8 +759,8 @@ def explain_difference(runs: dict, t: int, i: int,
             gain = (gl * gl / (hl + l2) + gr * gr / (hr + l2)
                     - (gl + gr) ** 2 / (hl + hr + l2))
             table[(src, w)] = {"leaf": lf, "feature": f, "bin": b,
-                               "gain": gain, "hess": (hl, hr),
-                               "count": (nl, nr)}
+                               "categorical": bool(ic), "gain": gain,
+                               "hess": (hl, hr), "count": (nl, nr)}
     rounding = sum(abs(float(recs[w]["split_gain"][i]) - table[(w, w)]["gain"])
                    for w in runs)
     gap = max(abs(table[(src, "cuda")]["gain"] - table[(src, "cpu")]["gain"])
@@ -673,6 +770,68 @@ def explain_difference(runs: dict, t: int, i: int,
                    for v in table.values() for hs in v["hess"])
     return {"table": table, "gap": gap, "rounding": rounding,
             "gain_tie": gap <= rounding, "hessian_boundary": boundary}
+
+
+def card_and_cpu(params: dict, X, y, iters: int, **ds_kw) -> dict:
+    """``iters`` ``Booster.update`` calls from the same rows on the card
+    and with ``device="cpu"``: {"cuda" | "cpu": (booster, train metrics,
+    seconds, each tree's grower inputs on the CPU)}; the inputs let
+    ``explain_difference`` attribute a first difference."""
+    import lightgbm_tpu_torch as lgt
+    runs = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        b = lgt.Booster(params, lgt.Dataset(X, label=y, **ds_kw),
+                        device=None if where == "cuda" else "cpu")
+        grower = b._gbdt._grower
+        inputs = []
+
+        def grow(*args, _grow=grower.grow, _inputs=inputs):
+            _inputs.append([a.cpu() for a in args[1:]])
+            return _grow(*args)
+        grower.grow = grow
+        for _ in range(iters):
+            b.update()
+        b.model_to_string()
+        runs[where] = (b, dict((m, v) for _, m, v, _ in b.eval_train()),
+                       time.perf_counter() - t0, inputs)
+    return runs
+
+
+def judge_trees(runs: dict, quantized: bool = False) -> tuple:
+    """The card's trees against the CPU's: equal, or equal up to a first
+    difference that ``explain_difference`` finds a near tie; train AUC
+    within AUC_TOL. Returns (tree_diff's result, a line saying where the
+    trees part)."""
+    gm, cm = runs["cuda"][0]._gbdt.models, runs["cpu"][0]._gbdt.models
+    assert len(gm) == len(cm), (len(gm), len(cm))
+    diff = tree_diff(gm, cm)
+    d_auc = abs(runs["cuda"][1]["auc"] - runs["cpu"][1]["auc"])
+    assert d_auc <= AUC_TOL, f"card vs CPU auc differs by {d_auc}"
+    if diff is None:
+        where = f"all {len(gm)} trees equal in structure and counts"
+        if (runs["cuda"][0].model_to_string()
+                == runs["cpu"][0].model_to_string()):
+            where += "; model text byte-equal"
+        return diff, where
+    t, i, ga, gc = diff
+    why = explain_difference(runs, t, i, quantized)
+    for (src, w), v in why["table"].items():
+        rule = ("in a categorical left set" if v["categorical"]
+                else f"<= bin {v['bin']}")
+        print(f"  tree {t} split {i} chosen on the {w}: leaf {v['leaf']}, "
+              f"feature {v['feature']} {rule}; on the {src} run's "
+              f"gradients: gain {v['gain']:.9g}, hessian sums "
+              f"{v['hess'][0]:.9g} | {v['hess'][1]:.9g}, rows "
+              f"{v['count'][0]} | {v['count'][1]}")
+    print(f"  float64 gain gap {why['gap']:.6g}; the f32 rounding of the "
+          f"two runs' own gains {why['rounding']:.6g}")
+    assert why["gain_tie"] or why["hessian_boundary"], \
+        f"card and CPU trees differ at tree {t} split {i}, not a tie"
+    kind = ("a near tie in gain" if why["gain_tie"] else
+            "a hessian sum at min_sum_hessian_in_leaf")
+    return diff, (f"trees equal up to tree {t}, split {i}, {kind} (split "
+                  f"gains {ga:.7g} on the card, {gc:.7g} on the CPU)")
 
 
 def check_leaf_gather(args) -> dict:
@@ -776,7 +935,7 @@ def _counters() -> dict:
     from lightgbm_tpu_torch.ops import hist_wave as hw
     from lightgbm_tpu_torch.ops import predict as pr
     out = {"K2": hw.k2_launches, "K1": hw.k1_launches, "K3": pr.launches,
-           "K4": forest_ops.launches}
+           "K4": forest_ops.launches, "K1/cat": hw.k1_cat_launches}
     for v in hw.VARIANTS:
         out[f"K2/{v}"] = hw.k2_variant_launches[v]
         out[f"K1/{v}"] = hw.k1_variant_launches[v]
@@ -912,27 +1071,10 @@ def train_phases(dev) -> tuple:
     # kept to attribute the first difference
     X = make_lrb_rows(CPU_ROWS, seed=31)
     y = lrb_labels(X, seed=32)
-    runs = {}
-    for where in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        b = lgt.Booster(TRAIN_PARAMS, lgt.Dataset(X, label=y),
-                        device=None if where == "cuda" else "cpu")
-        grower = b._gbdt._grower
-        inputs = []
-
-        def grow(*args, _grow=grower.grow, _inputs=inputs):
-            _inputs.append([a.cpu() for a in args[1:]])
-            return _grow(*args)
-        grower.grow = grow
-        for _ in range(int(TRAIN_PARAMS["num_iterations"])):
-            b.update()
-        b.model_to_string()
-        runs[where] = (b, dict((m, v) for _, m, v, _ in b.eval_train()),
-                       time.perf_counter() - t0, inputs)
-    gm, cm = runs["cuda"][0]._gbdt.models, runs["cpu"][0]._gbdt.models
-    assert len(gm) == len(cm), (len(gm), len(cm))
-    diff = tree_diff(gm, cm)
-    d_auc = abs(runs["cuda"][1]["auc"] - runs["cpu"][1]["auc"])
+    runs = card_and_cpu(TRAIN_PARAMS, X, y,
+                        int(TRAIN_PARAMS["num_iterations"]))
+    diff, where = judge_trees(runs)
+    gm = runs["cuda"][0]._gbdt.models
     # the card's tree at the first difference (else its last), grown
     # again with the histograms in the kernels' order: bit for bit
     t = len(gm) - 1 if diff is None else diff[0]
@@ -944,29 +1086,9 @@ def train_phases(dev) -> tuple:
             f"card tree {t}: {k} differs from the kernel-order plain grower"
     print(f"  card tree {t} grown again with K1/K2 as their plain versions "
           f"in the kernels' order: the record is equal bit for bit")
-    if diff is None:
-        where = f"all {len(gm)} trees equal in structure and counts"
-    else:
-        t, i, ga, gc = diff
-        why = explain_difference(runs, t, i)
-        for (src, w), v in why["table"].items():
-            print(f"  tree {t} split {i} chosen on the {w}: leaf {v['leaf']}"
-                  f", feature {v['feature']} <= bin {v['bin']}; on the "
-                  f"{src} run's gradients: gain {v['gain']:.9g}, hessian "
-                  f"sums {v['hess'][0]:.9g} | {v['hess'][1]:.9g}, rows "
-                  f"{v['count'][0]} | {v['count'][1]}")
-        print(f"  float64 gain gap {why['gap']:.6g}; the f32 rounding of "
-              f"the two runs' own gains {why['rounding']:.6g}")
-        assert why["gain_tie"] or why["hessian_boundary"], \
-            f"card and CPU trees differ at tree {t} split {i}, not a tie"
-        kind = ("a near tie in gain" if why["gain_tie"] else
-                "a hessian sum at min_sum_hessian_in_leaf")
-        where = (f"trees equal up to tree {t}, split {i}, {kind} (split "
-                 f"gains {ga:.7g} on the card, {gc:.7g} on the CPU)")
-    assert d_auc <= AUC_TOL, f"card vs CPU auc differs by {d_auc}"
     print(f"card vs CPU, {CPU_ROWS} LRB rows x {len(gm)} iterations: {where};"
           f" train auc {runs['cuda'][1]['auc']:.6f} vs "
-          f"{runs['cpu'][1]['auc']:.6f} (|diff| {d_auc:.2g} <= {AUC_TOL}); "
+          f"{runs['cpu'][1]['auc']:.6f} (within {AUC_TOL}); "
           f"{runs['cuda'][2]:.1f} s on the card, {runs['cpu'][2]:.1f} s on "
           f"the CPU")
 
@@ -1067,7 +1189,7 @@ def time_histogram(kid, caps_key, caps, dev) -> dict:
     W = a[4].shape[0] if kid == "K2" else a[5].shape[1]
     bin_bytes = ((F + 1) // 2 if kw.get("packed4") else F) * n
     io_bytes = (2 * g.element_size() + (4 if kid == "K2" else 12)) * n
-    nbytes = (bin_bytes + io_bytes + (4 if kid == "K2" else 40) * W
+    nbytes = (bin_bytes + io_bytes + 4 * a[4 if kid == "K2" else 5].numel()
               + W * F * B * C * 4)
     ops = C * F * counted + (n if kid == "K1" else 0)
     raw = kernel_raw(fn, kw)
@@ -1262,47 +1384,13 @@ def quant_phases(dev, higgs: dict) -> list:
     yc = lrb_labels(Xc, seed=32)
     params = {**TRAIN_PARAMS, "tpu_quantized_hist": "true",
               "num_iterations": str(CPU_Q_ITERS)}
-    cmp_runs = {}
-    for where in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        b = lgt.Booster(params, lgt.Dataset(Xc, label=yc),
-                        device=None if where == "cuda" else "cpu")
-        grower = b._gbdt._grower
-        inputs = []
-
-        def grow(*args, _grow=grower.grow, _inputs=inputs):
-            _inputs.append([a.cpu() for a in args[1:]])
-            return _grow(*args)
-        grower.grow = grow
-        for _ in range(CPU_Q_ITERS):
-            b.update()
-        b.model_to_string()
-        cmp_runs[where] = (b, dict((m, v) for _, m, v, _ in b.eval_train()),
-                           time.perf_counter() - t0, inputs)
-    gm, cm = cmp_runs["cuda"][0]._gbdt.models, cmp_runs["cpu"][0]._gbdt.models
-    assert len(gm) == len(cm), (len(gm), len(cm))
-    diff = tree_diff(gm, cm)
-    d_auc = abs(cmp_runs["cuda"][1]["auc"] - cmp_runs["cpu"][1]["auc"])
-    if diff is None:
-        where = f"all {len(gm)} trees equal in structure and counts"
-        same_text = (cmp_runs["cuda"][0].model_to_string()
-                     == cmp_runs["cpu"][0].model_to_string())
-        where += ("; model text byte-equal" if same_text else "")
-    else:
-        t, i, ga, gc = diff
-        why = explain_difference(cmp_runs, t, i, quantized=True)
-        print(f"  float64 gain gap {why['gap']:.6g}; the f32 rounding of the "
-              f"two runs' own gains {why['rounding']:.6g}")
-        assert why["gain_tie"] or why["hessian_boundary"], \
-            f"quantized card and CPU trees differ at tree {t} split {i}"
-        where = (f"trees equal up to tree {t}, split {i}, a near tie "
-                 f"(split gains {ga:.7g} on the card, {gc:.7g} on the CPU)")
-    assert d_auc <= AUC_TOL, f"quantized card vs CPU auc differs by {d_auc}"
-    print(f"quantized card vs CPU, {CPU_ROWS} LRB rows x {len(gm)} "
+    cmp_runs = card_and_cpu(params, Xc, yc, CPU_Q_ITERS)
+    _, where = judge_trees(cmp_runs, quantized=True)
+    print(f"quantized card vs CPU, {CPU_ROWS} LRB rows x {CPU_Q_ITERS} "
           f"iterations (count-proxy): {where}; train auc "
           f"{cmp_runs['cuda'][1]['auc']:.6f} vs "
-          f"{cmp_runs['cpu'][1]['auc']:.6f} (|diff| {d_auc:.2g} <= "
-          f"{AUC_TOL}); {cmp_runs['cuda'][2]:.1f} s on the card, "
+          f"{cmp_runs['cpu'][1]['auc']:.6f} (within {AUC_TOL}); "
+          f"{cmp_runs['cuda'][2]:.1f} s on the card, "
           f"{cmp_runs['cpu'][2]:.1f} s on the CPU")
 
     entries = []
@@ -1332,6 +1420,219 @@ def quant_phases(dev, higgs: dict) -> list:
     return entries
 
 
+def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> list:
+    """Phases 15-18 of the module docstring: categorical features.
+    ``k1_ms_phase7`` is phase 8's K1 time on phase 7's inputs (no
+    categorical rows). Returns the kernels-line entries of K1 with
+    categorical rows, f32 and int8."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    from lightgbm_tpu_torch.ops import stacked_predict as sp
+    from lightgbm_tpu_torch.utils import log as tlog
+    X = make_airline_like(AIRLINE_ROWS, seed=41)
+    y = airline_labels(X, seed=42)
+    Xt = make_airline_like(HOLDOUT_ROWS, seed=43)
+    yt = airline_labels(Xt, seed=44)
+    runs = {}
+
+    def train_airline(label, params, cats):
+        """train() on the airline rows with ``cats`` categorical,
+        capturing the root pass and the widest categorical wave; the
+        holdout scored through Booster.predict."""
+        lines = []
+        tlog.set_callback(lines.append)
+        try:
+            with capturing() as caps:
+                reset_counts()
+                t0 = time.perf_counter()
+                ds = lgt.Dataset(X, label=y, categorical_feature=cats,
+                                 params=params).construct()
+                torch.cuda.synchronize()
+                bin_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                bst = lgt.train(params, ds, num_boost_round=AIRLINE_ITERS)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                counts = read_counts()
+        finally:
+            tlog.set_callback(None)
+        torch.cuda.synchronize()
+        forest_ops.launches.reset()
+        sp.fallbacks.reset()
+        prob = bst.predict(Xt)
+        torch.cuda.synchronize()
+        k4, fallbacks = forest_ops.launches.value, sp.fallbacks.value
+        assert k4 > 0 and fallbacks == 0, (label, k4, fallbacks)
+        assert prob.shape == (HOLDOUT_ROWS,) and np.isfinite(prob).all()
+        auc = auc_np(yt, prob)
+        cfg = bst._gbdt._grower_cfg
+        iters = bst.current_iteration()
+        leaves = [t.num_leaves for t in bst._gbdt.models]
+        n_cat = sum(t.num_cat for t in bst._gbdt.models)
+        wall, busy = device_busy(bst.update, 2)
+        top = host_ops(bst.update, 2)
+        cat_waves = caps["K1c"].hits
+        print(f"{label}: {AIRLINE_ROWS} x 8 ({len(cats)} categorical), "
+              f"{iters} iterations of {leaves} leaves ({n_cat} categorical "
+              f"splits), W={cfg.wave_size}, B={cfg.num_bins}, precision "
+              f"{cfg.precision}, count-proxy {cfg.count_proxy}; binning "
+              f"{bin_s:.2f} s; {1e3 * train_s / iters:.1f} ms/iteration; "
+              f"K1 {counts['K1'] / iters:.1f} launches/iteration, "
+              f"{cat_waves / iters:.1f} of them with categorical slots; "
+              f"holdout auc {auc:.5f} (predict: {k4} forest launches, "
+              f"{fallbacks} fallbacks); profile of 2 iterations: wall "
+              f"{wall:.1f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / wall:.1f}%); host time per iteration by "
+              f"operator: {top}; launches {counts}")
+        runs[label] = {"caps": caps, "counts": counts, "iters": iters,
+                       "cat_waves": cat_waves, "auc": auc, "cfg": cfg,
+                       "lines": lines, "n_cat": n_cat,
+                       "mappers": bst._gbdt.train_data.mappers}
+
+    # 15. categorical training at full width, and the same rows numerical
+    train_airline("airline categorical", AIRLINE_PARAMS, AIRLINE_CAT_COLUMNS)
+    cat = runs["airline categorical"]
+    assert cat["cfg"].hp.has_cat and cat["cfg"].precision == "f32"
+    assert cat["counts"].get("K1/cat", 0) > 0 and cat["cat_waves"] > 0
+    assert cat["n_cat"] > 0
+    origin = cat["mappers"][5]          # no column is trivial here
+    assert origin.bin_type == 1 and origin.num_bin < AIRLINE_CATEGORIES[5]
+    train_airline("airline numerical", AIRLINE_PARAMS, [])
+    num = runs.pop("airline numerical")
+    assert not num["cfg"].hp.has_cat and "K1/cat" not in num["counts"]
+    print(f"  holdout auc: categorical {cat['auc']:.5f}, every column "
+          f"numerical {num['auc']:.5f}; Origin: {origin.num_bin} bins for "
+          f"{AIRLINE_CATEGORIES[5]} codes (the rest share the last bin)")
+    del num
+
+    # 16. the int8 tier: count-proxy asked for, exact counts resolved
+    train_airline("airline int8", {**AIRLINE_PARAMS,
+                                   "tpu_quantized_hist": True,
+                                   "tpu_count_proxy": 1},
+                  AIRLINE_CAT_COLUMNS)
+    q = runs["airline int8"]
+    assert (q["cfg"].precision, q["cfg"].count_proxy) == ("int8", False)
+    assert q["cfg"].wave_size <= 40, q["cfg"]
+    assert any("tpu_count_proxy needs" in ln and "no categorical features"
+               in ln for ln in q["lines"]), q["lines"]
+    assert q["counts"].get("K1/int8", 0) > 0 and q["cat_waves"] > 0
+    print(f"  int8 tier: W={q['cfg'].wave_size}, the count-proxy warning "
+          f"logged; holdout auc {q['auc']:.5f} (exact tier "
+          f"{cat['auc']:.5f})")
+
+    # 17. the kernels on those captures
+    t0 = time.perf_counter()
+    out = []
+    for label, variant in (("airline categorical", "f32"),
+                           ("airline int8", "int8")):
+        caps = runs[label]["caps"]
+        assert caps["K1c"].best > 0, f"{label}: no categorical wave"
+        k1c = caps["K1c"]
+        assert k1c.kw.get("any_cat"), k1c.kw
+        if variant == "f32":
+            a2, kw2, kw1 = caps["K2"].args, caps["K2"].kw, k1c.kw
+            check_histogram(
+                f"{label} K2", lambda *a: hw.wave_histogram(*a, **kw2),
+                lambda *a: hw.wave_histogram_plain(*a, **plain_kw(kw2)),
+                a2, lambda o: o, None)
+            st = check_histogram(
+                f"{label} K1",
+                lambda *a: hw.fused_partition_histogram(*a, **kw1),
+                lambda *a: hw.fused_partition_histogram_plain(
+                    *a, **plain_kw(kw1)),
+                k1c.args, lambda o: o[1], lambda o: o[0])
+        else:
+            for key, fn, plain, outs_of in (
+                    ("K2", hw.wave_histogram, hw.wave_histogram_plain,
+                     lambda o: (o,)),
+                    ("K1c", hw.fused_partition_histogram,
+                     hw.fused_partition_histogram_plain, tuple)):
+                check_int_histogram(f"{label} {key}", fn, plain,
+                                    caps[key].args, caps[key].kw, outs_of)
+        t = time_histogram("K1", "K1c", caps, dev)
+        lib = lib_index_add(caps["K2"].args, dev, caps["K2"].kw)
+        # the same launch without its categorical rows (CAT=false, the
+        # categorical slots taken as numerical ones)
+        a = list(k1c.args)
+        a[5] = a[5][:hw.TBL_ROWS_NUM].contiguous()
+        no_cat = kernel_raw(hw.fused_partition_histogram,
+                            dict(k1c.kw, any_cat=False))
+        t["no_cat_ms"] = cuda_ms(lambda: no_cat(*a), 5)
+        n_cat = int((k1c.args[5][hw.TBL_ISCAT] != 0).sum())
+        it = runs[label]["iters"]
+        launches = runs[label]["counts"]["K1/cat"]
+        print(f"{label} K1 with categorical rows [{t['shape']}, {n_cat} "
+              f"categorical slots]: {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, library none ({lib:.3f} ms: "
+              f"index_add_ of one pass), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); the same launch without its "
+              f"categorical rows {t['no_cat_ms']:.3f} ms; "
+              f"{launches / it:.2f} launches/iteration;"
+              + (f" bit-equal to the plain version in the kernels' order "
+                 f"(sums, counts, leaf ids), g/h within "
+                 f"{st['max_abs_err_f64']:.3g} of float64"
+                 if variant == "f32" else
+                 " bit-equal to the plain version on the card")
+              + "; two launches bit-identical")
+        out.append({
+            "name": f"fused_partition_histogram_{variant}_cat",
+            "route": "cuda", "source": "lightgbm_tpu_torch/csrc/hist_wave.cu",
+            "replaces": "lightgbm_tpu/ops/hist_wave.py:984",
+            "launches": launches, "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "index_add_ms": lib,
+            "no_cat_ms": t["no_cat_ms"],
+            "library_note": ("no single PyTorch call partitions rows and "
+                             "builds their histograms; index_add_ms is one "
+                             "pass's index_add_ at the root's shape"),
+            "shape": t["shape"], "categorical_slots": n_cat,
+            "launches_per_iteration": launches / it,
+            "categorical_waves_per_iteration": runs[label]["cat_waves"] / it,
+            "vs_plain": ("bitwise against the plain version run in the "
+                         "kernels' order of addition" if variant == "f32"
+                         else "bitwise against the plain version on the "
+                         "card")})
+    del runs
+    gap = k1_ms_phase7 / K1_MS_BEFORE_CAT - 1.0
+    if abs(power_limit_w - 700.0) < 1.0:
+        assert abs(gap) <= 0.10, \
+            f"K1 without categorical rows {k1_ms_phase7:.3f} ms vs " \
+            f"{K1_MS_BEFORE_CAT} ms"
+        verdict = "within 10%"
+    else:
+        verdict = f"not held: the card's power limit is {power_limit_w} W"
+    print(f"  K1 without categorical rows on phase 7's inputs (phase 8): "
+          f"{k1_ms_phase7:.3f} ms, {100 * gap:+.1f}% of the earlier "
+          f"{K1_MS_BEFORE_CAT} ms ({verdict})")
+    print(f"categorical kernel checks: {time.perf_counter() - t0:.1f} s")
+    del X, y, Xt, yt
+
+    # 18. card vs CPU at 100,000 rows of the airline generator
+    Xc = make_airline_like(CPU_ROWS, seed=51)
+    yc = airline_labels(Xc, seed=52)
+    for tier, extra in (("exact", {}),
+                        ("int8", {"tpu_quantized_hist": True})):
+        cmp_runs = card_and_cpu({**AIRLINE_PARAMS, **extra,
+                                 "num_leaves": CAT_CPU_LEAVES}, Xc, yc,
+                                CAT_CPU_ITERS,
+                                categorical_feature=AIRLINE_CAT_COLUMNS)
+        _, where = judge_trees(cmp_runs, quantized=bool(extra))
+        n_cat = sum(t.num_cat for t in cmp_runs["cuda"][0]._gbdt.models)
+        assert n_cat > 0
+        print(f"categorical card vs CPU ({tier} tier), {CPU_ROWS} airline "
+              f"rows x {CAT_CPU_ITERS} iterations of {CAT_CPU_LEAVES} "
+              f"leaves, {n_cat} categorical "
+              f"splits: {where}; train auc "
+              f"{cmp_runs['cuda'][1]['auc']:.6f} vs "
+              f"{cmp_runs['cpu'][1]['auc']:.6f} (within {AUC_TOL}); "
+              f"{cmp_runs['cuda'][2]:.1f} s on the card, "
+              f"{cmp_runs['cpu'][2]:.1f} s on the CPU")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1353,6 +1654,7 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
+    power_limit_w = float(smi.split(",")[-1].strip().split()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -1512,6 +1814,10 @@ def main() -> None:
     train, higgs_data = train_phases(dev)
     quant = quant_phases(dev, higgs_data)
     del higgs_data
+    # 15-18: categorical features
+    k1_ms = next(e["ms"] for e in train
+                 if e["name"] == "fused_partition_histogram")
+    cat = cat_phases(dev, k1_ms, power_limit_w)
 
     # kernels line
     forest = {
@@ -1525,7 +1831,7 @@ def main() -> None:
         "rows": higgs["rows"], "serve_launches": serve_launches,
         "lrb": {k: lrb[k] for k in ("rows", "ms", "plain_ms", "bound_ms",
                                     "bound_by")}}
-    print(json.dumps({"kernels": [forest] + train + quant}))
+    print(json.dumps({"kernels": [forest] + train + quant + cat}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

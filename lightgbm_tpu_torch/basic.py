@@ -15,15 +15,22 @@ from .objectives import create_objective
 from .utils.log import LightGBMError
 
 
-def _data_to_2d(data) -> np.ndarray:
-    """Normalize prediction input to ndarray[N, F] float64. Pandas
-    categorical/object columns become their category codes, with code -1
-    (missing) as NaN, like the reference's _data_from_pandas."""
+def _data_to_2d(data, feature_name="auto", categorical_feature="auto"):
+    """(ndarray[N, F] float32 or float64, feature names or None, sorted
+    categorical column indices) of an input matrix (the JAX package's
+    basic.py:52). Pandas categorical/object columns become their
+    category codes, with code -1 (missing) as NaN, like the reference's
+    _data_from_pandas, and are the categorical columns under "auto"; a
+    list names them by index or feature name."""
     try:
         import pandas as pd
     except ImportError:
         pd = None
+    names = None
+    cat_idx: List[int] = []
     if pd is not None and isinstance(data, pd.DataFrame):
+        if feature_name == "auto":
+            names = [str(c) for c in data.columns]
         X = np.empty((len(data), data.shape[1]), np.float64)
         for i, c in enumerate(data.columns):
             col = data[c]
@@ -35,14 +42,31 @@ def _data_to_2d(data) -> np.ndarray:
                 X[:, i] = col.to_numpy(np.float64)
                 continue
             X[:, i] = np.where(codes < 0, np.nan, codes)
-        return X
-    if hasattr(data, "tocsr"):
-        raise LightGBMError("sparse prediction input is not ported yet; "
-                            "pass a dense array")
-    X = np.asarray(data, np.float64)
-    if X.ndim == 1:
-        X = X.reshape(-1, 1)
-    return X
+            if categorical_feature == "auto":
+                cat_idx.append(i)
+    elif hasattr(data, "tocsr"):
+        raise LightGBMError("sparse input is not ported yet; pass a dense "
+                            "array")
+    else:
+        X = np.asarray(data)
+        if X.dtype not in (np.float32, np.float64):
+            X = X.astype(np.float64)
+        if X.ndim == 1:
+            X = X.reshape(-1, 1)
+    if isinstance(feature_name, (list, tuple)):
+        names = [str(x) for x in feature_name]
+    if isinstance(categorical_feature, (list, tuple)):
+        cat_idx = []
+        for c in categorical_feature:
+            if isinstance(c, str):
+                if names is None or c not in names:
+                    raise LightGBMError(f"categorical_feature {c!r} not "
+                                        "found in feature names")
+                cat_idx.append(names.index(c))
+            else:
+                cat_idx.append(int(c))
+    return X, names, sorted(set(cat_idx))
+
 
 
 class Dataset:
@@ -50,11 +74,13 @@ class Dataset:
     rows are binned on the device of the Booster that first uses it."""
 
     def __init__(self, data, label=None, weight=None, feature_name="auto",
+                 categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None):
         self.data = data
         self.label = label
         self.weight = weight
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._inner: Optional[BinnedDataset] = None
 
@@ -67,14 +93,11 @@ class Dataset:
             raise LightGBMError("the Dataset's raw data was freed")
         cfg = Config()
         cfg.set(self.params)
-        X = np.asarray(self.data)
-        if X.ndim == 1:
-            X = X.reshape(-1, 1)
-        names = (None if isinstance(self.feature_name, str)
-                 else list(self.feature_name))
+        X, names, cat_idx = _data_to_2d(self.data, self.feature_name,
+                                        self.categorical_feature)
         self._inner = BinnedDataset(cfg, device).construct_from_matrix(
             X, Metadata(label=self.label, weight=self.weight),
-            feature_names=names)
+            feature_names=names, categorical=cat_idx)
         self.data = None
         return self
 
@@ -140,7 +163,7 @@ class Booster:
         """Predictions [N] or [N, K]; raw scores with ``raw_score``, leaf
         indices [N, T] with ``pred_leaf``. ``pred_early_stop*`` keywords
         go to the host walk as in the reference."""
-        X = _data_to_2d(data)
+        X = np.asarray(_data_to_2d(data)[0], np.float64)
         if num_iteration < 0 and self.best_iteration > 0:
             num_iteration = self.best_iteration
         pred_kw = {k: v for k, v in kwargs.items()

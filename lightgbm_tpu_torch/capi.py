@@ -11,7 +11,7 @@ a booster trains on its dataset's device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -73,8 +73,18 @@ class _DatasetHandle:
             meta = Metadata(label=self.fields.get("label"),
                             weight=self.fields.get("weight"))
             self._inner = BinnedDataset(self.cfg, self.device) \
-                .construct_from_matrix(self.X, meta)
+                .construct_from_matrix(self.X, meta,
+                                       categorical=_parse_cat_spec(self.cfg))
         return self._inner
+
+
+def _parse_cat_spec(cfg: Config) -> List[int]:
+    """The dataset parameters' ``categorical_feature`` ("0,2"): column
+    indices."""
+    spec = cfg.categorical_feature
+    if not spec:
+        return []
+    return [int(x) for x in str(spec).split(",") if x.strip()]
 
 
 def LGBM_DatasetCreateFromMat(data, data_type=C_API_DTYPE_FLOAT64,

@@ -48,14 +48,14 @@ def stacked_from_numpy(arrays: Mapping, device=None
 
 
 def mapper_from_dict(d: Mapping) -> BinMapper:
-    """A numerical BinMapper from the JAX mapper's ``to_dict()``."""
-    if d["bin_type"] != 0:
-        raise NotImplementedError("categorical mappers are not ported yet")
+    """A BinMapper from the JAX mapper's ``to_dict()``."""
     m = BinMapper()
-    for k in ("num_bin", "missing_type", "is_trivial", "sparse_rate",
-              "min_val", "max_val", "default_bin"):
+    for k in ("num_bin", "missing_type", "bin_type", "is_trivial",
+              "sparse_rate", "min_val", "max_val", "default_bin"):
         setattr(m, k, d[k])
     m.bin_upper_bound = np.asarray(d["bin_upper_bound"], np.float64)
+    m.bin_2_categorical = [int(c) for c in d["bin_2_categorical"]]
+    m.categorical_2_bin = {c: i for i, c in enumerate(m.bin_2_categorical)}
     return m
 
 
@@ -83,8 +83,7 @@ def dataset_from_numpy(bins: np.ndarray, mappers: Sequence[Mapping],
 
 
 def tree_record_from_numpy(rec: Mapping, device=None) -> TreeRecord:
-    """The port's TreeRecord from a JAX TreeRecord's fields as numpy
-    (the categorical fields, all-False for numerical trees, dropped)."""
+    """The port's TreeRecord from a JAX TreeRecord's fields as numpy."""
     dev = resolve_device(device)
     fields = {}
     for k in TreeRecord._fields:

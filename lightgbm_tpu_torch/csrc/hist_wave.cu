@@ -19,7 +19,16 @@
 //   - packed4: bins are [ceil(F/2), N] bytes holding two 4-bit bins,
 //     feature f in byte row f/2, low nibble when f is even. Only how a
 //     bin is read changes, so a packed launch adds in the same order as
-//     the unpacked one and gives the same bits.
+//     the unpacked one and gives the same bits;
+//   - categorical rows (CAT, the TPU kernel's static any_cat,
+//     hist_wave.py:838-855 and K1g :1392-1401): K1's split table grows
+//     from 9 rows to 18, a categorical flag and an 8-word bitset over
+//     bins per slot. A categorical slot sends a row right when its bin's
+//     bit is not set, whatever the missing rule. Only the slot pass
+//     reads them: the histogram passes see which slot a row lands in and
+//     nothing else, so every variant of K1 takes them unchanged, and a
+//     launch without categorical features (CAT = false) runs the
+//     instructions it ran before.
 //
 // What bounds them on an H100: the bytes are few (each row's F bin
 // bytes, g, h, leaf id, mask: ~48 B/row at 28 features, 0.16 ms per
@@ -87,10 +96,13 @@ __device__ __forceinline__ int read_bin(const uint8_t* __restrict__ bins,
   return (f & 1) ? byte >> 4 : byte & 15;
 }
 
-// packed split table of K1, [kTblRows, W] int32 (ops/hist_wave.py TBL_*)
+// packed split table of K1, [kTblRows, W] int32 (ops/hist_wave.py TBL_*):
+// the numerical rows, then the categorical flag and bitset words (read
+// only by the CAT launch, which is given all kTblRows rows)
 constexpr int kTblParent = 0, kTblNew = 1, kTblFeat = 2, kTblBin = 3,
               kTblDleft = 4, kTblMiss = 5, kTblDefbin = 6, kTblNumbin = 7,
-              kTblSmall = 8, kTblRows = 9;
+              kTblSmall = 8, kTblNumRows = 9, kTblIscat = 9, kTblCatw = 10,
+              kTblRows = 18;
 
 __global__ void wave_slots_kernel(const int* __restrict__ leaf,
                                   const int* __restrict__ wl, int W,
@@ -112,8 +124,9 @@ __global__ void wave_slots_kernel(const int* __restrict__ leaf,
 // K1's slot pass: each row's new leaf id, and its slot when it lies in
 // the slot's smaller child and in bag (W otherwise). With cnt_r, also
 // each slot's in-bag rows moved right (count-proxy mode), added per
-// block in shared memory and then once per slot into cnt_r.
-template <bool PACKED>
+// block in shared memory and then once per slot into cnt_r. With CAT,
+// categorical slots decide by their left-set bitset.
+template <bool PACKED, bool CAT>
 __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
                                        const float* __restrict__ mask,
                                        const int* __restrict__ leaf,
@@ -121,9 +134,10 @@ __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
                                        int64_t n, int* __restrict__ leaf_out,
                                        uint8_t* __restrict__ slot,
                                        int* __restrict__ cnt_r) {
-  __shared__ int s_tbl[kTblRows * kMaxWave];
+  constexpr int rows = CAT ? kTblRows : kTblNumRows;
+  __shared__ int s_tbl[rows * kMaxWave];
   __shared__ int s_cnt[kMaxWave];
-  for (int e = threadIdx.x; e < kTblRows * W; e += blockDim.x)
+  for (int e = threadIdx.x; e < rows * W; e += blockDim.x)
     s_tbl[e] = tbl[e];
   for (int k = threadIdx.x; k < W; k += blockDim.x) s_cnt[k] = 0;
   __syncthreads();
@@ -139,8 +153,13 @@ __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
       const bool is_missing =
           (miss == kMissingNan && col == s_tbl[kTblNumbin * W + k] - 1) ||
           (miss == kMissingZero && col == s_tbl[kTblDefbin * W + k]);
-      const bool right = is_missing ? s_tbl[kTblDleft * W + k] == 0
-                                    : col > s_tbl[kTblBin * W + k];
+      bool right = is_missing ? s_tbl[kTblDleft * W + k] == 0
+                              : col > s_tbl[kTblBin * W + k];
+      if (CAT && s_tbl[kTblIscat * W + k] != 0) {
+        // the bin's bit in the slot's left set: set goes left
+        const unsigned word = (unsigned)s_tbl[(kTblCatw + (col >> 5)) * W + k];
+        right = ((word >> (col & 31)) & 1u) == 0u;
+      }
       const int new_id = s_tbl[kTblNew * W + k];
       const int small = s_tbl[kTblSmall * W + k];
       const bool in_bag = mask[i] > 0.0f;
@@ -348,21 +367,36 @@ int launch_int_histogram(bool packed, int C, const uint8_t* bins,
                                          rows_per_range, out, stream);
 }
 
-int launch_partition(bool packed, const uint8_t* bins, const float* mask,
-                     const int* leaf, const int* tbl, int W, int64_t n,
-                     int* leaf_out, uint8_t* slot, int* cnt_r,
-                     cudaStream_t stream) {
+template <bool PACKED, bool CAT>
+void launch_partition_t(const uint8_t* bins, const float* mask,
+                        const int* leaf, const int* tbl, int W, int64_t n,
+                        int* leaf_out, uint8_t* slot, int* cnt_r,
+                        cudaStream_t stream) {
+  partition_slots_kernel<PACKED, CAT><<<row_blocks(n), 256, 0, stream>>>(
+      bins, mask, leaf, tbl, W, n, leaf_out, slot, cnt_r);
+}
+
+int launch_partition(bool packed, bool any_cat, const uint8_t* bins,
+                     const float* mask, const int* leaf, const int* tbl,
+                     int W, int64_t n, int* leaf_out, uint8_t* slot,
+                     int* cnt_r, cudaStream_t stream) {
   if (cnt_r != nullptr) {
     const cudaError_t err =
         cudaMemsetAsync(cnt_r, 0, (size_t)W * sizeof(int), stream);
     if (err != cudaSuccess) return (int)err;
   }
-  if (packed)
-    partition_slots_kernel<true><<<row_blocks(n), 256, 0, stream>>>(
-        bins, mask, leaf, tbl, W, n, leaf_out, slot, cnt_r);
+  if (packed && any_cat)
+    launch_partition_t<true, true>(bins, mask, leaf, tbl, W, n, leaf_out,
+                                   slot, cnt_r, stream);
+  else if (packed)
+    launch_partition_t<true, false>(bins, mask, leaf, tbl, W, n, leaf_out,
+                                    slot, cnt_r, stream);
+  else if (any_cat)
+    launch_partition_t<false, true>(bins, mask, leaf, tbl, W, n, leaf_out,
+                                    slot, cnt_r, stream);
   else
-    partition_slots_kernel<false><<<row_blocks(n), 256, 0, stream>>>(
-        bins, mask, leaf, tbl, W, n, leaf_out, slot, cnt_r);
+    launch_partition_t<false, false>(bins, mask, leaf, tbl, W, n, leaf_out,
+                                     slot, cnt_r, stream);
   return (int)cudaGetLastError();
 }
 
@@ -395,21 +429,21 @@ int wave_histogram_launch(const uint8_t* bins, const float* g,
                           rows_per_range, part, out, s);
 }
 
-// K1: applies the wave's splits (tbl, [9, W] int32) to leaf -> leaf_out
-// and builds the [W, F, B, 3] histograms of each slot's smaller child
-// over in-bag rows (mask > 0).
+// K1: applies the wave's splits (tbl, [9, W] int32, or [18, W] with
+// any_cat) to leaf -> leaf_out and builds the [W, F, B, 3] histograms of
+// each slot's smaller child over in-bag rows (mask > 0).
 int fused_partition_histogram_launch(const uint8_t* bins, const float* g,
                                      const float* h, const float* mask,
                                      const int* leaf, const int* tbl,
                                      int W, long long n, int F, int B,
-                                     int packed, int* leaf_out,
+                                     int packed, int any_cat, int* leaf_out,
                                      uint8_t* slot, float* part, int R,
                                      long long rows_per_range, float* out,
                                      void* stream) {
   if (bad_shape(W, B, packed)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = launch_partition(packed, bins, mask, leaf, tbl, W, n,
-                                   leaf_out, slot, nullptr, s);
+  const int err = launch_partition(packed, any_cat, bins, mask, leaf, tbl,
+                                   W, n, leaf_out, slot, nullptr, s);
   if (err != 0) return err;
   return launch_histogram(packed, bins, g, h, slot, n, F, B, W, R,
                           rows_per_range, part, out, s);
@@ -438,13 +472,14 @@ int wave_histogram_int_launch(const uint8_t* bins, const int8_t* gq,
 int fused_partition_histogram_int_launch(
     const uint8_t* bins, const int8_t* gq, const int8_t* hq,
     const float* mask, const int* leaf, const int* tbl, int W, long long n,
-    int F, int B, int C, int packed, int* leaf_out, uint8_t* slot,
-    int* cnt_r, int R, long long rows_per_range, int* out, void* stream) {
+    int F, int B, int C, int packed, int any_cat, int* leaf_out,
+    uint8_t* slot, int* cnt_r, int R, long long rows_per_range, int* out,
+    void* stream) {
   if (bad_shape(W, B, packed) || (C != 2 && C != 3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = launch_partition(packed, bins, mask, leaf, tbl, W, n,
-                                   leaf_out, slot, cnt_r, s);
+  const int err = launch_partition(packed, any_cat, bins, mask, leaf, tbl,
+                                   W, n, leaf_out, slot, cnt_r, s);
   if (err != 0) return err;
   return launch_int_histogram(packed, C, bins, gq, hq, slot, n, F, B, W, R,
                               rows_per_range, out, s);

@@ -3,7 +3,8 @@
 The JAX package's ``models/gbdt.py`` (gbdt.cpp, gbdt_model_text.cpp,
 gbdt_prediction.cpp of the reference). Training is the serial gbdt path
 on the exact f32 tier or the int8 quantized tiers (count-proxy or exact
-counts), with 4-bit packed bins where the JAX package packs them:
+counts), with 4-bit packed bins where the JAX package packs them, on
+numerical and categorical features:
 ``init`` sets up the wave grower on the train set's device, and
 ``train_one_iter`` runs one boosting iteration there
 (the step body of the JAX package's ``ops/step_cache.py:324-406``:
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..io.binning import BinType
 from .tree import Tree, tree_from_record
 from ..objectives import ObjectiveFunction, parse_objective_from_model_string
 from ..ops.f32math import fma
@@ -132,12 +134,22 @@ class GBDT:
             max_delta_step=cfg.max_delta_step,
             min_data_in_leaf=float(cfg.min_data_in_leaf),
             min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
-            min_gain_to_split=cfg.min_gain_to_split)
+            min_gain_to_split=cfg.min_gain_to_split,
+            max_cat_to_onehot=cfg.max_cat_to_onehot,
+            max_cat_threshold=cfg.max_cat_threshold,
+            cat_l2=cfg.cat_l2, cat_smooth=cfg.cat_smooth,
+            min_data_per_group=float(cfg.min_data_per_group),
+            has_cat=any(m.bin_type == BinType.CATEGORICAL
+                        for m in td.mappers))
         quant = cfg.tpu_quantized_hist
         forced = bool(cfg.forcedsplits_filename)
-        # count-proxy: int8 only, no forced splits (nor EFB bundles,
-        # categorical features or the sparse tier, none ported)
-        proxy = quant and not forced and cfg.tpu_count_proxy != 0
+        # count-proxy: int8 only, no forced splits and no categorical
+        # features, whose search takes a side's count as num_data minus
+        # the other's, which would turn the proxy's lower bounds into
+        # over-estimates (EFB bundles and the sparse tier, which it also
+        # excludes, are not ported)
+        proxy = (quant and not forced and not hp.has_cat
+                 and cfg.tpu_count_proxy != 0)
         if cfg.tpu_count_proxy == 1 and not proxy:
             log.warning("tpu_count_proxy needs tpu_quantized_hist with "
                         "tree_learner serial/data, no EFB bundles, no "

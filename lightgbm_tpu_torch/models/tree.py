@@ -62,6 +62,39 @@ class Tree:
               threshold_real: float, left_value: float, right_value: float,
               left_count: int, right_count: int, gain: float,
               missing_type: int, default_left: bool) -> int:
+        dtype = (missing_type & 3) << 2
+        if default_left:
+            dtype |= K_DEFAULT_LEFT_MASK
+        return self._add_node(leaf, feature, threshold_bin,
+                              avoid_inf(threshold_real), dtype, left_value,
+                              right_value, left_count, right_count, gain)
+
+    def split_categorical(self, leaf: int, feature: int, cat_values,
+                          left_value: float, right_value: float,
+                          left_count: int, right_count: int, gain: float,
+                          missing_type: int) -> int:
+        """Tree::SplitCategorical (src/io/tree.cpp): the left set is a
+        bitset over CATEGORY values, its words appended to cat_threshold;
+        threshold_in_bin and threshold hold the split's index into
+        cat_boundaries."""
+        cat_values = sorted(int(v) for v in cat_values if v >= 0)
+        words = [0] * (max(cat_values, default=0) // 32 + 1)
+        for v in cat_values:
+            words[v // 32] |= 1 << (v % 32)
+        ci = self.num_cat
+        self.cat_boundaries.append(self.cat_boundaries[-1] + len(words))
+        self.cat_threshold.extend(words)
+        self.num_cat += 1
+        return self._add_node(leaf, feature, ci, float(ci),
+                              K_CATEGORICAL_MASK | ((missing_type & 3) << 2),
+                              left_value, right_value, left_count,
+                              right_count, gain)
+
+    def _add_node(self, leaf, feature, threshold_in_bin, threshold, dtype,
+                  left_value, right_value, left_count, right_count,
+                  gain) -> int:
+        """The node that splits ``leaf``: the left child keeps the leaf's
+        index, the right child takes the next one."""
         node = self.num_leaves - 1
         # fix parent pointer that referenced `leaf`
         ptr = self._leaf_ptr.get(leaf)
@@ -71,14 +104,10 @@ class Tree:
                 self.left_child[pnode] = node
             else:
                 self.right_child[pnode] = node
-        dtype = 0
-        if default_left:
-            dtype |= K_DEFAULT_LEFT_MASK
-        dtype |= (missing_type & 3) << 2
         self.split_feature.append(feature)
         self.split_gain.append(gain)
-        self.threshold_in_bin.append(threshold_bin)
-        self.threshold.append(avoid_inf(threshold_real))
+        self.threshold_in_bin.append(threshold_in_bin)
+        self.threshold.append(threshold)
         self.decision_type.append(dtype)
         self.left_child.append(~leaf)
         self.right_child.append(~self.num_leaves)
@@ -280,7 +309,8 @@ def tree_from_record(rec: dict, mappers, real_features, max_leaves: int
     """A host Tree from a grown record's host arrays
     (``TreeRecord.to_numpy``; the JAX package's tree.py:564): thresholds
     become the split bins' real upper bounds, features their real
-    column indices. Numerical splits only."""
+    column indices, and a categorical split's bin bitset the set of its
+    bins' categories (``bin_2_categorical``)."""
     nl = int(rec["num_leaves"])
     t = Tree(max_leaves)
     for i in range(nl - 1):
@@ -290,13 +320,24 @@ def tree_from_record(rec: dict, mappers, real_features, max_leaves: int
         feat = int(rec["split_feature"][i])
         tbin = int(rec["split_bin"][i])
         mapper = mappers[feat]
-        node = t.split(leaf=leaf, feature=int(real_features[feat]),
-                       threshold_bin=tbin,
-                       threshold_real=mapper.bin_to_value(tbin),
-                       left_value=0.0, right_value=0.0, left_count=0,
-                       right_count=0, gain=float(rec["split_gain"][i]),
-                       missing_type=mapper.missing_type,
-                       default_left=bool(rec["split_default_left"][i]))
+        if bool(rec["split_is_cat"][i]):
+            words = np.asarray(rec["split_cat_words"][i]).astype(np.int64)
+            cats = [c for b, c in enumerate(mapper.bin_2_categorical)
+                    if (words[b // 32] >> (b % 32)) & 1]
+            node = t.split_categorical(
+                leaf=leaf, feature=int(real_features[feat]),
+                cat_values=cats, left_value=0.0, right_value=0.0,
+                left_count=0, right_count=0,
+                gain=float(rec["split_gain"][i]),
+                missing_type=mapper.missing_type)
+        else:
+            node = t.split(leaf=leaf, feature=int(real_features[feat]),
+                           threshold_bin=tbin,
+                           threshold_real=mapper.bin_to_value(tbin),
+                           left_value=0.0, right_value=0.0, left_count=0,
+                           right_count=0, gain=float(rec["split_gain"][i]),
+                           missing_type=mapper.missing_type,
+                           default_left=bool(rec["split_default_left"][i]))
         t.internal_value[node] = float(rec["internal_value"][i])
         t.internal_count[node] = int(round(float(rec["internal_count"][i])))
     for leaf in range(nl):

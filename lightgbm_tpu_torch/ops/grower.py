@@ -20,6 +20,8 @@ class TreeRecord(NamedTuple):
     leaf_sum_h: object             # [L] f32
     internal_value: object         # [L-1] f32 parent output at split time
     internal_count: object         # [L-1] f32
+    split_is_cat: object           # [L-1] bool
+    split_cat_words: object        # [L-1, 8] int32 left-set bin bitset
 
     def to_numpy(self) -> dict:
         """Host arrays keyed by field name (one copy per field)."""

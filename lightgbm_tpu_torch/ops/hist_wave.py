@@ -9,7 +9,12 @@ Counterparts of the JAX package's ``ops/hist_wave.py``:
 - ``fused_partition_histogram`` replaces
   ``fused_partition_histogram_pallas`` (:984) and its twin (:1454): it
   applies a wave of W splits to the rows' leaf ids (``row_goes_right``)
-  and builds each slot's smaller-child histogram over in-bag rows.
+  and builds each slot's smaller-child histogram over in-bag rows. With
+  ``any_cat`` the split table carries each slot's categorical flag and
+  left-set bitset (``TBL_ISCAT``, ``TBL_CATW``: 18 rows in the JAX
+  package's row order); without it the categorical rows are not read
+  and may be left out (9 rows), as the JAX kernel's static ``any_cat``
+  compiles them out.
 
 Both come in the JAX kernels' variants:
 
@@ -55,10 +60,14 @@ from ..utils import cuda_build
 from ..utils.device import Counter
 from ..utils.log import LightGBMError
 
-# rows of K1's packed per-slot split table ([TBL_ROWS, W] int32)
+# rows of K1's packed per-slot split table ([TBL_ROWS, W] int32): the
+# numerical rows, then the categorical flag and NCAT_WORDS bitset words
 TBL_PARENT, TBL_NEW, TBL_FEAT, TBL_BIN, TBL_DLEFT = 0, 1, 2, 3, 4
 TBL_MISS, TBL_DEFBIN, TBL_NUMBIN, TBL_SMALL = 5, 6, 7, 8
-TBL_ROWS = 9
+TBL_ROWS_NUM = 9
+TBL_ISCAT = 9
+TBL_CATW = 10
+TBL_ROWS = 18
 
 MAX_WAVE = 64            # slot ids are one byte (csrc/hist_wave.cu)
 MAX_BINS = 256           # the kernels read uint8 bins
@@ -73,6 +82,8 @@ k2_launches = Counter()
 k1_launches = Counter()
 k2_variant_launches = {v: Counter() for v in VARIANTS}
 k1_variant_launches = {v: Counter() for v in VARIANTS}
+# K1 launches that read the categorical rows (``any_cat``)
+k1_cat_launches = Counter()
 
 
 def variant(precision: str, count_proxy: bool, packed4: bool) -> str:
@@ -89,13 +100,13 @@ def _library():
                                           p, i, ll, p, p]
     lib.wave_histogram_launch.restype = i
     lib.fused_partition_histogram_launch.argtypes = [
-        p, p, p, p, p, p, i, ll, i, i, i, p, p, p, i, ll, p, p]
+        p, p, p, p, p, p, i, ll, i, i, i, i, p, p, p, i, ll, p, p]
     lib.fused_partition_histogram_launch.restype = i
     lib.wave_histogram_int_launch.argtypes = [
         p, p, p, p, p, i, ll, i, i, i, i, p, i, ll, p, p]
     lib.wave_histogram_int_launch.restype = i
     lib.fused_partition_histogram_int_launch.argtypes = [
-        p, p, p, p, p, p, i, ll, i, i, i, i, p, p, p, i, ll, p, p]
+        p, p, p, p, p, p, i, ll, i, i, i, i, i, p, p, p, i, ll, p, p]
     lib.fused_partition_histogram_int_launch.restype = i
     return lib
 
@@ -202,11 +213,13 @@ def wave_histogram_plain(bins_t, g, h, leaf_ids, wave_leaves, num_bins,
 
 def fused_partition_histogram_plain(bins_t, g, h, sample_mask, leaf_ids, tbl,
                                     num_bins, count_proxy=False,
-                                    packed4=False, num_features=None):
-    """``fused_partition_histogram_xla`` (hist_wave.py:150) in PyTorch,
-    numerical splits: returns (new leaf ids [N], hist [W, F, B, C]) with
-    raw sums in the tier of g's dtype, and with ``count_proxy`` also
-    cnt_r [W] f32, each slot's in-bag rows moved right."""
+                                    packed4=False, num_features=None,
+                                    any_cat=False):
+    """``fused_partition_histogram_xla`` (hist_wave.py:150) in PyTorch:
+    returns (new leaf ids [N], hist [W, F, B, C]) with raw sums in the
+    tier of g's dtype, and with ``count_proxy`` also cnt_r [W] f32, each
+    slot's in-bag rows moved right. With ``any_cat``, slots whose
+    ``TBL_ISCAT`` row is set split categorically on their bitset."""
     from .partition import row_goes_right
     if packed4:
         bins_t = unpack4(bins_t, num_features)
@@ -215,10 +228,14 @@ def fused_partition_histogram_plain(bins_t, g, h, sample_mask, leaf_ids, tbl,
     W = tbl.shape[1]
     wl, new_ids, small_ids = tbl[TBL_PARENT], tbl[TBL_NEW], tbl[TBL_SMALL]
     cols = bins_t[tbl[TBL_FEAT].to(torch.int64)].to(torch.int32)  # [W, N]
+    cat = {}
+    if any_cat:
+        cat = dict(is_cat=tbl[TBL_ISCAT][:, None] != 0,
+                   cat_words=tbl[TBL_CATW:TBL_ROWS].T)
     right = row_goes_right(cols, tbl[TBL_BIN][:, None],
                            tbl[TBL_DLEFT][:, None] != 0,
                            tbl[TBL_MISS][:, None], tbl[TBL_DEFBIN][:, None],
-                           tbl[TBL_NUMBIN][:, None])
+                           tbl[TBL_NUMBIN][:, None], **cat)
     eq = (leaf_ids[None, :] == wl[:, None]) & (wl >= 0)[:, None]
     moved = eq & right
     # rows match at most one slot: the masked sum is the select chain
@@ -371,27 +388,30 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                               num_bins: int, *, precision: str = "f32",
                               count_proxy: bool = False,
                               packed4: bool = False, num_features=None,
-                              gh_scale=None):
+                              gh_scale=None, any_cat: bool = False):
     """Apply one wave of splits and build its smaller-child histograms:
     (new leaf ids [N] int32, hist [W, F, B, C]), and with ``count_proxy``
     also cnt_r [W] f32, each slot's in-bag rows moved right. ``tbl`` is
     the packed [TBL_ROWS, W] int32 split table (TBL_* rows; inactive
-    slots have parent -1 and safe feature 0). g and h are pre-masked;
-    out-of-bag rows (sample_mask 0) move but are never counted."""
+    slots have parent -1 and safe feature 0); without ``any_cat`` its
+    first TBL_ROWS_NUM rows suffice. g and h are pre-masked; out-of-bag
+    rows (sample_mask 0) move but are never counted."""
     n = bins_t.shape[1]
     _check_tier(n, num_bins, precision, count_proxy, packed4, num_features,
                 g)
+    rows = TBL_ROWS if any_cat else TBL_ROWS_NUM
+    if tbl.shape[0] not in (rows, TBL_ROWS):
+        raise LightGBMError(f"split table must be [{rows}, W] or "
+                            f"[{TBL_ROWS}, W]; got {tuple(tbl.shape)}")
     if bins_t.device.type == "cpu":
         out = fused_partition_histogram_plain(
             bins_t, g, h, sample_mask, leaf_ids, tbl, num_bins, count_proxy,
-            packed4, num_features)
+            packed4, num_features, any_cat)
         return (out[0], _finish(out[1], gh_scale, precision)) + out[2:]
     if bins_t.device.type != "cuda":
         raise LightGBMError(f"no histogram kernel for {bins_t.device}")
     F = _logical_features(bins_t, packed4, num_features)
     W = tbl.shape[1]
-    if tbl.shape[0] != TBL_ROWS:
-        raise LightGBMError(f"split table must be [{TBL_ROWS}, W]")
     gdt = torch.int8 if precision == "int8" else torch.float32
     _check_cuda(bins_t, [("bins_t", bins_t, torch.uint8),
                          ("g", g, gdt), ("h", h, gdt),
@@ -416,7 +436,8 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                     bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
                     sample_mask.data_ptr(), leaf_ids.data_ptr(),
                     tbl.data_ptr(), W, n, F, num_bins, out.shape[-1],
-                    int(packed4), leaf_out.data_ptr(), slot.data_ptr(),
+                    int(packed4), int(any_cat), leaf_out.data_ptr(),
+                    slot.data_ptr(),
                     cnt.data_ptr() if count_proxy else None, R, per,
                     out.data_ptr(), stream)
             else:
@@ -426,12 +447,14 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                     bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
                     sample_mask.data_ptr(), leaf_ids.data_ptr(),
                     tbl.data_ptr(), W, n, F, num_bins, int(packed4),
-                    leaf_out.data_ptr(), slot.data_ptr(), part.data_ptr(),
-                    R, per, out.data_ptr(), stream)
+                    int(any_cat), leaf_out.data_ptr(), slot.data_ptr(),
+                    part.data_ptr(), R, per, out.data_ptr(), stream)
         if err != 0:
             raise LightGBMError(f"fused partition+histogram kernel failed: "
                                 f"CUDA error {err}")
         k1_launches.add()
         k1_variant_launches[variant(precision, count_proxy, packed4)].add()
+        if any_cat:
+            k1_cat_launches.add()
     res = (leaf_out, _finish(out, gh_scale, precision))
     return res + ((cnt.to(torch.float32),) if count_proxy else ())

@@ -41,7 +41,8 @@ def _library():
 def replay_partition(rec, bins_t: torch.Tensor, meta) -> torch.Tensor:
     """Leaf ids [N] int32 of the rows of ``bins_t`` [F, N] in a grown
     tree, by replaying its splits in order (the JAX package's
-    predict.py:22; split i's right child is leaf i + 1)."""
+    predict.py:22; split i's right child is leaf i + 1), categorical
+    ones by their bitsets."""
     from .partition import apply_split
     leaf_ids = torch.zeros(bins_t.shape[1], dtype=torch.int32,
                            device=bins_t.device)
@@ -51,7 +52,8 @@ def replay_partition(rec, bins_t: torch.Tensor, meta) -> torch.Tensor:
             leaf_ids, bins_t[f].to(torch.int32), int(rec.split_leaf[i]),
             i + 1, int(rec.split_bin[i]), bool(rec.split_default_left[i]),
             int(meta.missing_type[f]), int(meta.default_bin[f]),
-            int(meta.num_bin[f]))
+            int(meta.num_bin[f]), bool(rec.split_is_cat[i]),
+            rec.split_cat_words[i])
     return leaf_ids
 
 

@@ -25,7 +25,18 @@ bit-equal to the JAX package's einsum, where ``torch.cumsum`` is not.
 XLA's einsum adds in bin order from width 64 up; at widths 16 and 32 it
 keeps 4 and 2 lane accumulators (bins j with j % L == l, in order) and
 adds them pairwise at the end, and the port adds in that order there.
-Categorical features raise ``NotImplementedError``.
+
+Categorical features (``SplitParams.has_cat``; FindBestThresholdCategorical,
+feature_histogram.hpp:112-234, the JAX package's ``_categorical_tables``)
+add two candidate tables per feature: one-hot (a single bin goes left,
+when ``num_bin <= max_cat_to_onehot``) in the dir=+1 slot, and k-vs-rest
+over the bins sorted by g / (h + cat_smooth) from either end, with
+``l2 + cat_l2``. The argmax then runs over [M, F, 4, B]: numerical
+dir=-1, dir=+1, categorical dir=+1, dir=-1. The winner's left set is a
+bitset over bins, ``NCAT_WORDS`` int32 words, set bit = bin goes left.
+The sorted prefix sums add as XLA's CPU cumsum does (``xla_cumsum``).
+With ``has_cat`` False the table keeps its two numerical branches, and
+categorical features never split.
 """
 from __future__ import annotations
 
@@ -43,6 +54,8 @@ MISSING_NONE = 0
 MISSING_ZERO = 1
 MISSING_NAN = 2
 
+NCAT_WORDS = 8              # 256-bin bitset of a categorical left set
+
 
 class SplitParams(NamedTuple):
     """Split hyperparameters of one training run."""
@@ -52,6 +65,16 @@ class SplitParams(NamedTuple):
     min_data_in_leaf: float = 20.0
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
+    # categorical search (feature_histogram.hpp:112-234)
+    max_cat_to_onehot: int = 4
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    min_data_per_group: float = 100.0
+    # the categorical tables are built only with has_cat (models/gbdt.py
+    # sets it when a mapper is categorical). The JAX package defaults it
+    # to True; here a caller with categorical features says so
+    has_cat: bool = False
     # count-proxy tier: the count channel holds per-bin lower bounds, so
     # both sides of the min_data gate come from prefix/suffix sums of the
     # channel (num_data - one side would over-estimate the other)
@@ -65,6 +88,8 @@ class FeatureMeta(NamedTuple):
     default_bin: object      # int32
     monotone: object         # int32 (-1, 0, +1)
     penalty: object          # float32 (feature_contri; 1.0 default)
+    # int32, 1 = categorical; the scalar default broadcasts over features
+    is_cat: object = np.zeros((), np.int32)
 
     def to(self, device) -> "FeatureMeta":
         return FeatureMeta(*[torch.as_tensor(np.asarray(x)).to(device)
@@ -85,6 +110,8 @@ class SplitResult(NamedTuple):
     left_sum_h: torch.Tensor
     right_sum_g: torch.Tensor
     right_sum_h: torch.Tensor
+    is_cat: torch.Tensor          # [M] bool
+    cat_words: torch.Tensor       # [M, NCAT_WORDS] int32 left-set bitset
 
 
 def threshold_l1(s, l1: float):
@@ -150,6 +177,178 @@ def prefix_sums(x: torch.Tensor) -> torch.Tensor:
                      for i in range(len(parts) // 2)]
         outs.append(parts[0])
     return torch.stack(outs, dim=2).reshape(*lead, B, C)
+
+
+_SCAN_BLOCK = 16
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last axis in the order of XLA's
+    CPU cumsum (a ``reduce_window``), which ``torch.cumsum`` does not
+    give: blocks of 16, added in sequence within each block; each
+    block's running total then comes from the same scan over the block
+    totals and is added once to the block's local prefixes."""
+    *lead, n = x.shape
+    K = _SCAN_BLOCK
+    nb = -(-n // K)
+    if nb * K != n:
+        x = torch.cat([x, x.new_zeros(*lead, nb * K - n)], dim=-1)
+    xb = x.reshape(*lead, nb, K)
+    acc = xb[..., 0]
+    local = [acc]
+    for j in range(1, K):
+        acc = acc + xb[..., j]
+        local.append(acc)
+    out = torch.stack(local, dim=-1)                       # [..., nb, K]
+    if nb > 1:
+        carry = xla_cumsum(out[..., -1])                   # [..., nb]
+        out = torch.cat([out[..., :1, :],
+                         out[..., 1:, :] + carry[..., :-1, None]], dim=-2)
+    return out.reshape(*lead, nb * K)[..., :n]
+
+
+def _fused_leaf_gain(sum_g, sum_h, l1: float, l2, mds: float):
+    """GetLeafSplitGain as XLA's CPU fusion of the categorical tables
+    rounds it: ``2 * g * output`` contracted into one fused multiply-add
+    with ``(sum_h + l2) * output * output``."""
+    out = calculate_leaf_output(sum_g, sum_h, l1, l2, mds)
+    return -fma(2.0 * threshold_l1(sum_g, l1), out,
+                (sum_h + l2) * out * out)
+
+
+def _pair_gain(lg, lh, rg, rh, l1, l2, mds):
+    return (_fused_leaf_gain(lg, lh, l1, l2, mds)
+            + _fused_leaf_gain(rg, rh, l1, l2, mds))
+
+
+def _categorical_tables(hist, sum_g, sum_h2, num_data, fmask, meta,
+                        hp: SplitParams, min_gain_shift):
+    """The categorical candidates of M leaves (the JAX package's
+    ``_categorical_tables``, split.py:256-380): (gc1, gc2, ctx) with
+    gc1, gc2 [M, F, B] the dir=+1 (one-hot included) and dir=-1 gains,
+    -inf where invalid. ``fmask`` [M, F, 1] is the feature mask and the
+    leaves' can_split; sum_g, sum_h2 (parent + 2 kEpsilon), num_data and
+    min_gain_shift are [M, 1, 1].
+
+    Sorted mode keeps the bins with count >= cat_smooth, sorted stably
+    by g / (h + cat_smooth) (the others sort last), and scans prefixes
+    from either end. A prefix longer than max_cat_threshold is never a
+    candidate, so the scans stop there: P = min(B, max_cat_threshold)
+    positions, each prefix sum the same as over all B. Both directions
+    and the three channels ride one ``xla_cumsum``; the right-side
+    checks break the scan (a prefix mask), and min_data_per_group
+    chunking is a sequential loop over the P positions that resets the
+    group's count at each emitted candidate."""
+    M, F, B, _ = hist.shape
+    dev = hist.device
+    f32 = torch.float32
+    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
+    nb = meta.num_bin.to(torch.int64)[None, :, None]
+    mt = meta.missing_type.to(torch.int64)[None, :, None]
+    ic = (meta.is_cat.to(torch.int64).expand(F) > 0)[None, :, None]
+    bidx = torch.arange(B, device=dev)[None, None, :]
+    l1 = _f32(hp.lambda_l1)
+    l2c = _f32(hp.lambda_l2 + hp.cat_l2)
+    l2n = _f32(hp.lambda_l2)
+    mds = float(hp.max_delta_step)
+    mdl = _f32(hp.min_data_in_leaf)
+    msh = _f32(hp.min_sum_hessian_in_leaf)
+    mdpg = _f32(hp.min_data_per_group)
+    eps = _f32(KEPSILON)
+
+    # the trailing missing bin is no candidate unless MissingType.NONE
+    used_bin = nb - 1 + (mt == MISSING_NONE).to(torch.int64)
+    bin_ok = bidx < used_bin
+    use_onehot = nb <= hp.max_cat_to_onehot                # [1, F, 1]
+
+    # one-hot: left = the single bin t, plain l2 (hpp:133-163)
+    lh_o = h + eps
+    rh_o = sum_h2 - lh_o
+    rc_o = num_data - c
+    gain_o = _pair_gain(g, lh_o, sum_g - g, rh_o, l1, l2n, mds)
+    ok_o = (bin_ok & (c >= mdl) & (h >= msh) & (rc_o >= mdl)
+            & (rh_o >= msh) & (gain_o > min_gain_shift)
+            & ic & use_onehot & fmask)
+    gain_o = torch.where(ok_o, gain_o, KMIN_SCORE)
+
+    # sorted k-vs-rest, l2 + cat_l2 (hpp:164-234)
+    elig = bin_ok & (c >= _f32(hp.cat_smooth))
+    ratio = torch.where(elig, g / (h + _f32(hp.cat_smooth)), float("inf"))
+    order = torch.argsort(ratio, dim=-1, stable=True)     # [M, F, B]
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(B, device=dev).expand(M, F, B))
+    used = elig.sum(dim=-1, keepdim=True)                  # [M, F, 1]
+    P = min(B, max(int(hp.max_cat_threshold), 1))
+    pos = torch.arange(P, device=dev)[None, None, :]
+    in_use = pos < used
+    # the sorted bins of each direction: dir=+1 from the smallest ratio,
+    # dir=-1 from the last eligible one back
+    back = order.gather(-1, (used - 1 - pos).clamp(0, B - 1))
+    idx = torch.stack([order[..., :P], back])              # [2, M, F, P]
+    srt = torch.gather(hist.expand(2, M, F, B, 3), 3,
+                       idx[..., None].expand(2, M, F, P, 3))
+    srt = torch.where(in_use[..., None], srt, 0.0)
+    cum = xla_cumsum(srt.transpose(-1, -2)).transpose(-1, -2)
+    lg, lh, lc = cum[..., 0], cum[..., 1] + eps, cum[..., 2]
+    rg, rh, rc = sum_g - lg, sum_h2 - lh, num_data - lc
+    left_ok = (lc >= mdl) & (lh >= msh)
+    # a right-side failure breaks the reference's scan: a prefix mask
+    right_ok = ((rc >= mdl) & (rc >= mdpg) & (rh >= msh)).to(
+        torch.int32).cumprod(dim=-1) > 0
+    cnt = torch.zeros((2, M, F), dtype=f32, device=dev)
+    emits = []
+    for p in range(P):
+        cnt = cnt + srt[..., p, 2]
+        e = left_ok[..., p] & (cnt >= mdpg)
+        cnt = torch.where(e, 0.0, cnt)
+        emits.append(e)
+    emit = torch.stack(emits, dim=-1)
+    gain = _pair_gain(lg, lh, rg, rh, l1, l2c, mds)
+    max_num_cat = torch.clamp((used + 1) // 2, max=hp.max_cat_threshold)
+    ok = (emit & right_ok & in_use & (pos < max_num_cat)
+          & (gain > min_gain_shift) & ic & ~use_onehot & fmask)
+    gain = torch.where(ok, gain, KMIN_SCORE)
+    if P < B:
+        gain = torch.cat([gain, gain.new_full((2, M, F, B - P),
+                                              KMIN_SCORE)], dim=-1)
+    # a feature is in one mode: one-hot rides the dir=+1 slot
+    gc1 = torch.maximum(gain[0], gain_o)
+    ctx = dict(rank=rank, used=used, elig=elig, use_onehot=use_onehot,
+               lg_o=g, lh_o=lh_o, lc_o=c, lg=lg, lh=lh, lc=lc, l2c=l2c,
+               P=P)
+    return gc1, gain[1], ctx
+
+
+def _cat_left_bitset(fi, t, cat_p1, ctx, B: int) -> torch.Tensor:
+    """[M, NCAT_WORDS] int32 left-set bitsets of the winners (feature
+    fi, position t; the JAX package's ``_cat_left_bitset``): one-hot the
+    bin t, dir=+1 the first t + 1 sorted bins, dir=-1 the last t + 1."""
+    M = fi.shape[0]
+    dev = fi.device
+    rows = torch.arange(M, device=dev)
+    rank = ctx["rank"][rows, fi]                           # [M, B]
+    used = ctx["used"][rows, fi]                           # [M, 1]
+    elig = ctx["elig"][rows, fi]
+    onehot = ctx["use_onehot"][0, fi]                      # [M, 1]
+    tt = t[:, None]
+    bidx = torch.arange(B, device=dev)[None, :]
+    member = torch.where(
+        onehot, bidx == tt,
+        torch.where(cat_p1[:, None], (rank <= tt) & elig,
+                    (rank >= used - 1 - tt) & elig))
+    nbits = NCAT_WORDS * 32
+    member = member[:, :nbits]
+    if member.shape[1] < nbits:
+        member = torch.cat([member, member.new_zeros(
+            M, nbits - member.shape[1])], dim=1)
+    bit = torch.bitwise_left_shift(
+        torch.ones((), dtype=torch.int64, device=dev),
+        torch.arange(32, device=dev))
+    words = (member.reshape(M, NCAT_WORDS, 32).to(torch.int64)
+             * bit).sum(dim=-1)
+    # the uint32 words as int32, two's complement
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return words.to(torch.int32)
 
 
 def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
@@ -237,16 +436,25 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
         & (gains2 > min_gain_shift)
     fmask = feature_mask.to(torch.bool)[None, :, None] \
         & can_split.to(torch.bool)[:, None, None]
-    g1 = torch.where(ok1 & fmask, gains1, KMIN_SCORE)
-    g2 = torch.where(ok2 & fmask, gains2, KMIN_SCORE)
+    ic = (meta.is_cat.to(torch.int64).expand(F) > 0)[None, :, None]
+    g1 = torch.where(ok1 & fmask & ~ic, gains1, KMIN_SCORE)
+    g2 = torch.where(ok2 & fmask & ~ic, gains2, KMIN_SCORE)
 
-    # flat [M, F, 2, B]: dir=-1 with reversed thresholds, then dir=+1
-    cand = torch.stack([g2.flip(-1), g1], dim=2).reshape(M, -1)
+    # flat [M, F, nbranch, B]: dir=-1 with reversed thresholds, then
+    # dir=+1, then the categorical dir=+1 and dir=-1 tables
+    branches = [g2.flip(-1), g1]
+    if hp.has_cat:
+        gc1, gc2, cctx = _categorical_tables(
+            hist, sum_g, sum_h2, num_data, fmask, meta, hp, min_gain_shift)
+        branches += [gc1, gc2]
+    nbr = len(branches)
+    cand = torch.stack(branches, dim=2).reshape(M, -1)
     idx = torch.argmax(cand, dim=1)                        # [M]
     best_gain = cand.gather(1, idx[:, None])[:, 0]
-    fi = idx // (2 * B)
-    rem = idx % (2 * B)
-    is_dir2 = rem // B == 0
+    fi = idx // (nbr * B)
+    rem = idx % (nbr * B)
+    d = rem // B
+    is_dir2 = d == 0
     tb = rem % B
     t = torch.where(is_dir2, B - 1 - tb, tb)
     rows = torch.arange(M, device=dev)
@@ -266,6 +474,31 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
                          l_g1[rows, fi, t])
     lh = pick(l_h2, l_h1)
     lc = pick(l_c2, l_c1)
+    has = torch.isfinite(best_gain)
+    l2_eff = l2
+    if hp.has_cat:
+        is_cat = d >= 2
+        cat_p1 = d == 2
+        onehot = cctx["use_onehot"][0, fi, 0]
+        # a one-hot winner sits at its bin t; a sorted one at t < P
+        tp = t.clamp(max=cctx["P"] - 1)
+        dirs = torch.where(cat_p1, 0, 1)
+
+        def pick_cat(one, srt):
+            return torch.where(onehot, one[rows, fi, t],
+                               srt[dirs, rows, fi, tp])
+        lg = torch.where(is_cat, pick_cat(cctx["lg_o"], cctx["lg"]), lg)
+        lh = torch.where(is_cat, pick_cat(cctx["lh_o"], cctx["lh"]), lh)
+        lc = torch.where(is_cat, pick_cat(cctx["lc_o"], cctx["lc"]), lc)
+        # sorted mode uses l2 + cat_l2 for the outputs too (hpp:233-246)
+        l2_eff = torch.where(is_cat & ~onehot, cctx["l2c"], l2)
+        cat_words = _cat_left_bitset(fi, t, cat_p1, cctx, B)
+        is_cat = is_cat & has
+        cat_words = torch.where(is_cat[:, None], cat_words, 0)
+    else:
+        is_cat = torch.zeros(M, dtype=torch.bool, device=dev)
+        cat_words = torch.zeros((M, NCAT_WORDS), dtype=torch.int32,
+                                device=dev)
     sg = sum_g[:, 0, 0]
     sh2 = sum_h2[:, 0, 0]
     rg = sg - lg if sum_scale is None else fma(q_g0, sum_scale[0], -lg)
@@ -273,18 +506,19 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     rc = num_data[:, 0, 0] - lc
     # single-scan NaN edge: report default_left = False (hpp:103-106)
     single_nan = (~two_scan[0, fi, 0]) & (mt[0, fi, 0] == MISSING_NAN)
-    has = torch.isfinite(best_gain)
     return SplitResult(
         gain=torch.where(has, best_gain - min_gain_shift[:, 0, 0],
                          KMIN_SCORE) * meta.penalty.to(f32)[fi],
         feature=torch.where(has, fi, -1).to(torch.int32),
         threshold_bin=torch.where(has, t, 0).to(torch.int32),
-        default_left=is_dir2 & ~single_nan & has,
-        left_output=calculate_leaf_output(lg, lh, l1, l2, mds),
-        right_output=calculate_leaf_output(rg, rh, l1, l2, mds),
+        default_left=is_dir2 & ~single_nan & ~is_cat & has,
+        left_output=calculate_leaf_output(lg, lh, l1, l2_eff, mds),
+        right_output=calculate_leaf_output(rg, rh, l1, l2_eff, mds),
         left_count=lc,
         right_count=rc,
         left_sum_g=lg,
         left_sum_h=lh - eps,          # the reference stores sum - kEpsilon
         right_sum_g=rg,
-        right_sum_h=rh - eps)
+        right_sum_h=rh - eps,
+        is_cat=is_cat,
+        cat_words=cat_words)

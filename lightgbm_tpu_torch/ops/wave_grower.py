@@ -19,6 +19,11 @@ K1 returns each slot's exact in-bag moved-right count, and the leaf
 counts the trees record stay exact (:820-835). With ``packed4`` the bins
 are [ceil(F/2), N], two 4-bit bins per byte, read by K1 and K2 only.
 
+With categorical features (``SplitParams.has_cat``) each leaf also
+carries its best split's categorical flag and left-set bitset (the JAX
+package's ``t_is_cat``, ``t_cat_words``, :152-153); they ride into K1's
+split table (its 18-row form) and into the record.
+
 Leaf numbering matches Tree::Split: the left child keeps the parent's
 index, the right child takes the next free index, assigned within a
 wave in gain-rank order, so split i's right child is leaf i + 1.
@@ -39,8 +44,8 @@ from .grower import TreeRecord
 from .f32math import fma
 from .hist_wave import dequantize, fused_partition_histogram, wave_histogram
 from .quantize import INV127, quantize
-from .split import (KMIN_SCORE, FeatureMeta, SplitParams, _f32,
-                    calculate_leaf_output, find_best_split)
+from .split import (KMIN_SCORE, NCAT_WORDS, FeatureMeta, SplitParams,
+                    _f32, calculate_leaf_output, find_best_split)
 
 
 class WaveGrowerConfig(NamedTuple):
@@ -187,7 +192,10 @@ class WaveGrower:
                  ("left_output", 0.0, f32), ("right_output", 0.0, f32),
                  ("left_count", 0.0, f32), ("right_count", 0.0, f32),
                  ("left_sum_g", 0.0, f32), ("left_sum_h", 0.0, f32),
-                 ("right_sum_g", 0.0, f32), ("right_sum_h", 0.0, f32))}
+                 ("right_sum_g", 0.0, f32), ("right_sum_h", 0.0, f32),
+                 ("is_cat", False, torch.bool))}
+        t["cat_words"] = torch.zeros((L, NCAT_WORDS), dtype=i32, device=dev)
+        t["cat_words"][0] = res.cat_words[0]
         leaf_output = torch.zeros(L, dtype=f32, device=dev)
         leaf_count = table(0.0, f32, root_c[None])
         leaf_sum_g = table(0.0, f32, root_g[None])
@@ -201,7 +209,10 @@ class WaveGrower:
             split_default_left=torch.zeros(L - 1, dtype=torch.bool,
                                            device=dev),
             internal_value=torch.zeros(L - 1, dtype=f32, device=dev),
-            internal_count=torch.zeros(L - 1, dtype=f32, device=dev))
+            internal_count=torch.zeros(L - 1, dtype=f32, device=dev),
+            split_is_cat=torch.zeros(L - 1, dtype=torch.bool, device=dev),
+            split_cat_words=torch.zeros((L - 1, NCAT_WORDS), dtype=i32,
+                                        device=dev))
         num_leaves = 1
 
         while num_leaves < L:
@@ -226,6 +237,7 @@ class WaveGrower:
             rg, rh = t["right_sum_g"][wl], t["right_sum_h"][wl]
             lo, ro = t["left_output"][wl], t["right_output"][wl]
             dleft = t["default_left"][wl]
+            iscat, catw = t["is_cat"][wl], t["cat_words"][wl]
 
             # 3+4. partition and smaller-child histograms in one K1
             # call; siblings by subtraction from the parents' histograms
@@ -235,13 +247,16 @@ class WaveGrower:
                 wl, new_ids, feat, t["threshold_bin"][wl], dleft,
                 meta.missing_type[feat], meta.default_bin[feat],
                 meta.num_bin[feat], small_ids)])      # TBL_* rows
+            if hp.has_cat:
+                tbl = torch.cat([tbl, iscat.to(i32)[None], catw.T])
             # int8 with exact counts: raw sums, so that the sibling's
             # subtraction fuses the dequantization as XLA contracts
             # ``parent - hist * scale`` (one rounding)
             fuse_sub = scale is not None and not proxy
             out = fused_partition_histogram(
                 bins_t, hg, hh, sample_mask, leaf_ids, tbl, B,
-                gh_scale=None if fuse_sub else scale, **tier)
+                gh_scale=None if fuse_sub else scale, any_cat=hp.has_cat,
+                **tier)
             leaf_ids, hist_small = out[0], out[1]
             if fuse_sub:
                 raw = hist_small
@@ -275,6 +290,8 @@ class WaveGrower:
             rec["split_bin"][pos] = t["threshold_bin"][wl]
             rec["split_gain"][pos] = top_gain[:k]
             rec["split_default_left"][pos] = dleft
+            rec["split_is_cat"][pos] = iscat
+            rec["split_cat_words"][pos] = catw
             rec["internal_value"][pos] = calculate_leaf_output(
                 leaf_sum_g[wl], leaf_sum_h[wl], l1, l2, mds)
             rec["internal_count"][pos] = leaf_count[wl]

@@ -107,17 +107,23 @@ def test_all_trivial_gives_one_dummy_feature():
     assert list(meta.num_bin) == [1]
 
 
-def test_categorical_mappers_refused():
+def test_categorical_mappers_converted():
     X = np.zeros((300, 2))
     X[:, 0] = np.arange(300) % 7
     X[:, 1] = np.arange(300) * 0.5
     jd = TpuDataset(JConfig().set({"categorical_feature": "0"})) \
         .construct_from_matrix(X, JMeta(label=np.zeros(300)),
                                categorical=[0])
-    with pytest.raises(NotImplementedError):
-        mapper_from_dict(jd.mappers[0].to_dict())
-    assert mapper_from_dict(jd.mappers[1].to_dict()).num_bin \
-        == jd.mappers[1].num_bin
+    for jm in jd.mappers:
+        tm = mapper_from_dict(jm.to_dict())
+        for k in MAPPER_FIELDS + ("bin_type", "bin_2_categorical",
+                                  "categorical_2_bin"):
+            assert getattr(tm, k) == getattr(jm, k), k
+        np.testing.assert_array_equal(tm.bin_upper_bound, jm.bin_upper_bound)
+        assert tm.feature_info() == jm.feature_info()
+        np.testing.assert_array_equal(tm.value_to_bin(X[:, 0]),
+                                      jm.value_to_bin(X[:, 0]))
+    assert jd.mappers[0].bin_type == 1 and jd.mappers[1].bin_type == 0
 
 
 def test_dataset_from_jax_state():
