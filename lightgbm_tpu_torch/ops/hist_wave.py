@@ -34,13 +34,17 @@ version for CPU tensors; there is no other route. The plain versions are
 the JAX package's XLA formulations (``wave_histogram_xla``,
 ``fused_partition_histogram_xla``): one ``index_add_`` of the three
 channels, which on the CPU adds each cell's values in row order, bit-equal
-to the JAX package's scatter. The kernel adds each cell in row order
+to the JAX package's scatter. The f32 kernel adds each cell in row order
 within a row range (``row_ranges``) and the ranges in order: the same
-bits on every run, and the bits of the plain version run on the CPU one
-range at a time with the partials added in range order, which
-chip_smoke.py holds it to. The hi/lo
-bf16 channel layouts of the TPU kernels exist to pack MXU lanes; here
-each channel is one f32 sum, and the layout only set the wave-width cap.
+bits on every run, and the bits of the plain version run on the CPU with
+``kernel_order=True`` (``scatter_in_ranges``: one range at a time, the
+partials added in range order; ``plain_in_kernel_order``), which the
+card tests and chip_smoke.py hold it to. ``hist_plan`` is the f32 pass's
+launch plan (feature groups, slot classes, warps, ranges); it and
+``row_ranges`` are pure functions of the shapes, so the CPU computes the
+kernel's ranges without a card. The hi/lo bf16 channel layouts of the
+TPU kernels exist to pack MXU lanes; here each channel is one f32 sum,
+and the layout only set the wave-width cap.
 
 The int8 plain versions add int64 in one ``index_add_`` per channel and
 cast to int32, the TPU kernel's exact int32 sums. The JAX package's CPU
@@ -53,11 +57,13 @@ bins in the same order as an unpacked one and gives its bits.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..utils import cuda_build
-from ..utils.device import Counter
+from ..utils.device import Counter, on_device
 from ..utils.log import LightGBMError
 
 # rows of K1's packed per-slot split table ([TBL_ROWS, W] int32): the
@@ -72,8 +78,23 @@ TBL_ROWS = 18
 MAX_WAVE = 64            # slot ids are one byte (csrc/hist_wave.cu)
 MAX_BINS = 256           # the kernels read uint8 bins
 MAX_BINS_PACKED = 16     # two 4-bit bins per byte
-TARGET_BLOCKS = 8 * 132  # histogram blocks per launch: 8 per H100 SM
-TILE_ROWS = 1024         # rows a block stages at a time
+INT_TARGET_BLOCKS = 8 * 132  # int8 histogram blocks: 8 per H100 SM
+TILE_ROWS = 1024         # rows an f32 histogram block stages at a time
+# the f32 pass's limits and the card's (csrc/hist_wave.cu; an H100 SM)
+WARP_COUNTS = (4, 8, 16)  # warps per f32 histogram block
+MAX_WARPS = WARP_COUNTS[-1]
+MAX_CLASSES = 16         # slot classes per feature
+SMEM_MAX = 232_448       # dynamic shared memory a block may use
+SMEM_PER_SM = 233_472    # shared memory of one SM
+SMEM_RESERVED = 1024     # taken per resident block
+THREADS_PER_SM = 2048
+REGISTERS_PER_SM = 65_536
+# registers a thread of the f32 histogram kernel may use, by warps a
+# block (its launch bounds)
+THREAD_REGISTERS = {4: 80, 8: 64, 16: 64}
+NUM_SMS = 132            # H100 SXM: sizes the ranges, not the grid
+TARGET_WARPS = 32        # resident warps per SM the plan aims for
+ITEM_WAVES = 4           # work items per resident block, about
 
 # kernel launches since the last reset (plain versions never count), in
 # all and by variant
@@ -93,31 +114,193 @@ def variant(precision: str, count_proxy: bool, packed4: bool) -> str:
     return base + ("_packed4" if packed4 else "")
 
 
-def _library():
-    lib = cuda_build.library("hist_wave")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.wave_histogram_launch.argtypes = [p, p, p, p, p, i, ll, i, i, i, p,
-                                          p, i, ll, p, p]
-    lib.wave_histogram_launch.restype = i
-    lib.fused_partition_histogram_launch.argtypes = [
-        p, p, p, p, p, p, i, ll, i, i, i, i, p, p, p, i, ll, p, p]
-    lib.fused_partition_histogram_launch.restype = i
-    lib.wave_histogram_int_launch.argtypes = [
-        p, p, p, p, p, i, ll, i, i, i, i, p, i, ll, p, p]
-    lib.wave_histogram_int_launch.restype = i
-    lib.fused_partition_histogram_int_launch.argtypes = [
-        p, p, p, p, p, p, i, ll, i, i, i, i, i, p, p, p, i, ll, p, p]
-    lib.fused_partition_histogram_int_launch.restype = i
-    return lib
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "hist_wave_pass_events": [_P],
+    "hist_wave_smem_bytes": [_I, _I, _I, _I],
+    "hist_wave_resident_blocks": [_I, _I, _I, _I, _I, _I],
+    "wave_histogram_launch": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
+                              _I, _I, _I, _P, _P, _I, _LL, _P, _P],
+    "fused_partition_histogram_launch": [
+        _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _I, _LL, _P, _P],
+    "wave_histogram_int_launch": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                                  _I, _P, _I, _LL, _P, _P],
+    "fused_partition_histogram_int_launch": [
+        _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+        _LL, _P, _P],
+}
+_fns = {}
 
 
-def row_ranges(n: int, num_features: int):
-    """(ranges R, rows per range) of the histogram pass: about
-    TARGET_BLOCKS blocks of (feature, range), each range at least one
-    tile, R * rows >= n > (R - 1) * rows."""
-    want = -(-TARGET_BLOCKS // max(num_features, 1))
+def _fn(name: str):
+    """The library's C function ``name``, its types bound once."""
+    fn = _fns.get(name)
+    if fn is None:
+        lib = cuda_build.library("hist_wave")
+        for sym, argtypes in _SIGNATURES.items():
+            f = getattr(lib, sym)
+            f.argtypes = argtypes
+            f.restype = _I
+            _fns[sym] = f
+        fn = _fns[name]
+    return fn
+
+
+def hist_smem_bytes(W: int, B: int, fg: int, classes: int) -> int:
+    """Dynamic shared memory of one f32 histogram block: ``fg`` [W, B, 3]
+    f32 tiles and the staging of a TILE_ROWS tile (the counted rows' g,
+    h, slot and row index, each slot class's count per 32-row chunk, fg
+    bin rows); the library's ``hist_wave_smem_bytes``."""
+    return (fg * W * B * 12 + TILE_ROWS * 8
+            + (TILE_ROWS // 32 + 1) * classes * 4 + TILE_ROWS * 3
+            + fg * TILE_ROWS)
+
+
+def _blocks_per_sm(smem: int, warps: int) -> int:
+    """Blocks of ``warps`` warps and ``smem`` bytes one SM holds, by its
+    shared memory, threads and registers (the card's own count is
+    ``hist_wave_resident_blocks``)."""
+    return min(SMEM_PER_SM // (smem + SMEM_RESERVED),
+               THREADS_PER_SM // (32 * warps),
+               REGISTERS_PER_SM // (THREAD_REGISTERS[warps] * 32 * warps))
+
+
+def _group_plan(F: int, W: int, B: int):
+    """(features per group Fg, slot classes K, warps) of the f32 pass,
+    a warp per job (feature, class), 4, 8 or 16 warps: the most resident
+    warps per SM (up to TARGET_WARPS), then the fewest classes (classes
+    split the rows unevenly), then the fewest warps without a job, then
+    the fewest idle feature slots in the last group, then the largest
+    groups (each group stages the rows again)."""
+    best = None
+    K = 1
+    while K <= min(W, MAX_CLASSES):
+        for fg in range(1, min(F, MAX_WARPS // K) + 1):
+            smem = hist_smem_bytes(W, B, fg, K)
+            if smem > SMEM_MAX:
+                break
+            warps = next(w for w in WARP_COUNTS if w >= fg * K)
+            resident = min(_blocks_per_sm(smem, warps) * warps,
+                           TARGET_WARPS)
+            idle = -(-F // fg) * fg - F
+            key = (resident, -K, fg * K - warps, -idle, fg)
+            if best is None or key > best[0]:
+                best = (key, (fg, K, warps))
+        K *= 2
+    return best[1]
+
+
+class HistPlan(NamedTuple):
+    fg: int              # features per group
+    classes: int         # slot classes (jobs per feature)
+    warps: int           # warps per block
+    groups: int          # feature groups, ceil(F / fg)
+    ranges: int          # row ranges R
+    rows_per_range: int
+    smem: int            # dynamic shared memory per block
+
+
+@functools.lru_cache(maxsize=4096)
+def hist_plan(n: int, num_features: int, num_slots: int,
+              num_bins: int) -> HistPlan:
+    """The f32 histogram pass's launch plan for n rows of F features
+    into W slots of B bins: a block walks work items (feature group,
+    row range); about ITEM_WAVES items per block resident on the card,
+    unless the ranges' partial tiles (R * F * W * B * 12 bytes, written
+    and read again by the reduction) would outweigh the rows' own bytes
+    (n * (F + 12)): then fewer, longer ranges."""
+    F, W, B = max(num_features, 1), num_slots, num_bins
+    fg, K, warps = _group_plan(F, W, B)
+    smem = hist_smem_bytes(W, B, fg, K)
+    groups = -(-F // fg)
+    want = ITEM_WAVES * NUM_SMS * _blocks_per_sm(smem, warps)
+    tiles = max(-(-n // TILE_ROWS), 1)
+    by_bytes = n * (F + 12) // (F * W * B * 12)
+    R = max(min(-(-want // groups), tiles, by_bytes), 1)
+    per = -(-tiles // R) * TILE_ROWS
+    return HistPlan(fg, K, warps, groups, max(-(-n // per), 1), per, smem)
+
+
+def row_ranges(n: int, num_features: int, num_slots: int, num_bins: int):
+    """(ranges R, rows per range) of the f32 histogram pass, the one
+    definition of its order of addition: R * rows >= n > (R - 1) * rows
+    (R = 1 when n = 0), rows a multiple of TILE_ROWS."""
+    p = hist_plan(n, num_features, num_slots, num_bins)
+    return p.ranges, p.rows_per_range
+
+
+def int_row_ranges(n: int, num_features: int):
+    """(ranges R, rows per range) of the int8 pass: about
+    INT_TARGET_BLOCKS blocks of (feature, range), each range at least one
+    tile; its sums do not depend on them."""
+    want = -(-INT_TARGET_BLOCKS // max(num_features, 1))
     per = max(-(-n // max(1, min(want, -(-n // TILE_ROWS)))), 1)
     return max(-(-n // per), 1), per
+
+
+_resident = {}
+_sms = {}
+_launches = {}
+
+
+def launch_plan(n: int, F: int, W: int, B: int, packed4: bool,
+                dev: torch.device) -> dict:
+    """``hist_plan`` and the grid of an f32 launch on ``dev``: one wave
+    of the blocks the card holds resident (its own occupancy count),
+    at most one per work item."""
+    key = (n, F, W, B, bool(packed4), dev.index)
+    got = _launches.get(key)
+    if got is not None:
+        return got
+    plan = hist_plan(n, F, W, B)
+    rkey = (dev.index, bool(packed4), W, B, plan.fg, plan.classes,
+            plan.warps)
+    resident = _resident.get(rkey)
+    if resident is None:
+        with on_device(dev):
+            lib_smem = _fn("hist_wave_smem_bytes")(W, B, plan.fg,
+                                                   plan.classes)
+            resident = _fn("hist_wave_resident_blocks")(
+                int(packed4), W, B, plan.fg, plan.classes, plan.warps)
+        if lib_smem != plan.smem:
+            raise LightGBMError(f"histogram plan: {plan.smem} bytes of "
+                                f"shared memory, the kernel's {lib_smem}")
+        if resident < 1:
+            raise LightGBMError(f"histogram plan {plan} fits no SM "
+                                f"({resident})")
+        _resident[rkey] = resident
+    sms = _sms.get(dev.index)
+    if sms is None:
+        sms = _sms[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = min(plan.groups * plan.ranges, resident * sms)
+    got = _launches[key] = dict(plan._asdict(), blocks_per_sm=resident,
+                                grid=grid)
+    return got
+
+
+def pass_times(fn, runs: int) -> dict:
+    """Card milliseconds of the f32 pass's slot, histogram and reduce
+    kernels, each averaged over ``runs`` calls of ``fn`` (one f32 K1 or
+    K2 launch on the current device): CUDA events that the launches
+    record at their pass boundaries while this runs."""
+    names = ("slot", "histogram", "reduce")
+    sums = dict.fromkeys(names, 0.0)
+    for _ in range(runs):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for e in events:
+            e.record()          # creates the event the launch records
+        handles = (ctypes.c_void_p * 4)(*[e.cuda_event for e in events])
+        _fn("hist_wave_pass_events")(handles)
+        try:
+            fn()
+        finally:
+            _fn("hist_wave_pass_events")(None)
+        events[3].synchronize()
+        for k, name in enumerate(names):
+            sums[name] += events[k].elapsed_time(events[k + 1])
+    return {name: v / runs for name, v in sums.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -165,12 +348,37 @@ def _scatter_hist_int(bins_t, gq, hq, base, num_bins: int, num_slots: int,
             .contiguous())
 
 
-def _scatter(bins_t, g, h, base, num_bins, num_slots, count_proxy):
+def scatter_in_ranges(bins_t, g, h, base, num_bins: int, num_slots: int,
+                      ranges):
+    """``_scatter_hist3`` in the f32 kernel's order of addition: each
+    row range of ``ranges`` = (R, rows per range) on its own, each cell
+    in row order, then the ranges' partial sums added in range order.
+    ``index_add_`` on the CPU adds in index order, so on CPU tensors
+    this is the kernel's sum bit for bit."""
+    n = bins_t.shape[1]
+    R, per = ranges
+    out = None
+    for r in range(R):
+        rows = slice(r * per, min(n, (r + 1) * per))
+        part = _scatter_hist3(bins_t[:, rows], g[rows], h[rows], base[rows],
+                              num_bins, num_slots)
+        out = part if out is None else out + part
+    return out
+
+
+def _scatter(bins_t, g, h, base, num_bins, num_slots, count_proxy,
+             kernel_order=False):
     """The tier's scatter: int8 g/h give exact int32 sums (2 channels
-    under count-proxy), f32 or f64 g/h their own dtype's sums."""
+    under count-proxy), f32 or f64 g/h their own dtype's sums, with
+    ``kernel_order`` in the f32 kernel's order (``scatter_in_ranges``
+    over ``row_ranges``)."""
     if g.dtype == torch.int8:
         return _scatter_hist_int(bins_t, g, h, base, num_bins, num_slots,
                                  2 if count_proxy else 3)
+    if kernel_order:
+        F, n = bins_t.shape
+        return scatter_in_ranges(bins_t, g, h, base, num_bins, num_slots,
+                                 row_ranges(n, F, num_slots, num_bins))
     return _scatter_hist3(bins_t, g, h, base, num_bins, num_slots)
 
 
@@ -196,9 +404,10 @@ def _first_slot(memb):
 
 def wave_histogram_plain(bins_t, g, h, leaf_ids, wave_leaves, num_bins,
                          count_proxy=False, packed4=False,
-                         num_features=None):
+                         num_features=None, kernel_order=False):
     """``wave_histogram_xla`` (hist_wave.py:85) in PyTorch: raw sums in
-    the tier of g's dtype (int8 -> int32)."""
+    the tier of g's dtype (int8 -> int32); f32 sums with
+    ``kernel_order`` in the kernel's order of addition."""
     if packed4:
         bins_t = unpack4(bins_t, num_features)
     F, n = bins_t.shape
@@ -208,18 +417,19 @@ def wave_histogram_plain(bins_t, g, h, leaf_ids, wave_leaves, num_bins,
           & (wave_leaves >= 0)[:, None])
     found, slot = _first_slot(eq)
     base = torch.where(found, slot * (F * B), W * F * B)
-    return _scatter(bins_t, g, h, base, B, W, count_proxy)
+    return _scatter(bins_t, g, h, base, B, W, count_proxy, kernel_order)
 
 
 def fused_partition_histogram_plain(bins_t, g, h, sample_mask, leaf_ids, tbl,
                                     num_bins, count_proxy=False,
                                     packed4=False, num_features=None,
-                                    any_cat=False):
+                                    any_cat=False, kernel_order=False):
     """``fused_partition_histogram_xla`` (hist_wave.py:150) in PyTorch:
     returns (new leaf ids [N], hist [W, F, B, C]) with raw sums in the
     tier of g's dtype, and with ``count_proxy`` also cnt_r [W] f32, each
     slot's in-bag rows moved right. With ``any_cat``, slots whose
-    ``TBL_ISCAT`` row is set split categorically on their bitset."""
+    ``TBL_ISCAT`` row is set split categorically on their bitset; with
+    ``kernel_order``, f32 sums in the kernel's order of addition."""
     from .partition import row_goes_right
     if packed4:
         bins_t = unpack4(bins_t, num_features)
@@ -247,11 +457,24 @@ def fused_partition_histogram_plain(bins_t, g, h, sample_mask, leaf_ids, tbl,
             & (small_ids >= 0)[:, None] & in_bag[None, :])
     found, slot = _first_slot(memb)
     base = torch.where(found, slot * (F * B), W * F * B)
-    hist = _scatter(bins_t, g, h, base, B, W, count_proxy)
+    hist = _scatter(bins_t, g, h, base, B, W, count_proxy, kernel_order)
     if not count_proxy:
         return leaf_new, hist
     cnt_r = (moved & in_bag[None, :]).sum(dim=1).to(torch.float32)
     return leaf_new, hist, cnt_r
+
+
+def plain_in_kernel_order(plain, *args, **kw):
+    """``plain(*args, **kw)``, a plain histogram version (or a function
+    passing ``kernel_order`` on to one), run on CPU copies of the tensor
+    arguments with ``kernel_order=True``: the f32 kernel's bits. The
+    outputs go back to the first argument's device."""
+    dev = args[0].device
+    out = plain(*[a.cpu() if torch.is_tensor(a) else a for a in args],
+                kernel_order=True, **kw)
+    if isinstance(out, tuple):
+        return tuple(o.to(dev) for o in out)
+    return out.to(dev)
 
 
 def dequantize(hist: torch.Tensor, gh_scale) -> torch.Tensor:
@@ -351,32 +574,33 @@ def wave_histogram(bins_t, g, h, leaf_ids, wave_leaves, num_bins: int, *,
                          ("leaf_ids", leaf_ids, torch.int32),
                          ("wave_leaves", wave_leaves, torch.int32)],
                 num_bins, W)
-    R, per = row_ranges(n, F)
     dev = bins_t.device
+    int8 = precision == "int8"
+    shape = (W, F, num_bins, 2 if count_proxy else 3)
+    dtype = torch.int32 if int8 else torch.float32
+    if n == 0:
+        return _finish(torch.zeros(shape, dtype=dtype, device=dev), gh_scale,
+                       precision)
+    out = torch.empty(shape, dtype=dtype, device=dev)
     slot = torch.empty(n, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    int8 = precision == "int8"
-    out = torch.zeros((W, F, num_bins, (2 if count_proxy else 3)),
-                      dtype=torch.int32 if int8 else torch.float32,
-                      device=dev)
-    if n == 0:
-        return _finish(out, gh_scale, precision)
-    lib = _library()
-    with torch.cuda.device(dev):
+    ptrs = (bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
+            leaf_ids.data_ptr(), wave_leaves.data_ptr())
+    with on_device(dev):
         if int8:
-            err = lib.wave_histogram_int_launch(
-                bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
-                leaf_ids.data_ptr(), wave_leaves.data_ptr(), W, n, F,
-                num_bins, out.shape[-1], int(packed4), slot.data_ptr(), R,
-                per, out.data_ptr(), stream)
+            R, per = int_row_ranges(n, F)
+            err = _fn("wave_histogram_int_launch")(
+                *ptrs, W, n, F, num_bins, shape[-1], int(packed4),
+                slot.data_ptr(), R, per, out.data_ptr(), stream)
         else:
-            part = torch.empty((R, F, W, num_bins, 3), dtype=torch.float32,
-                               device=dev)
-            err = lib.wave_histogram_launch(
-                bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
-                leaf_ids.data_ptr(), wave_leaves.data_ptr(), W, n, F,
-                num_bins, int(packed4), slot.data_ptr(), part.data_ptr(), R,
-                per, out.data_ptr(), stream)
+            lp = launch_plan(n, F, W, num_bins, packed4, dev)
+            part = torch.empty((lp["ranges"], F, W, num_bins, 3),
+                               dtype=torch.float32, device=dev)
+            err = _fn("wave_histogram_launch")(
+                *ptrs, W, n, F, num_bins, int(packed4), lp["fg"],
+                lp["classes"], lp["warps"], lp["grid"], slot.data_ptr(),
+                part.data_ptr(), lp["ranges"], lp["rows_per_range"],
+                out.data_ptr(), stream)
     if err != 0:
         raise LightGBMError(f"wave histogram kernel failed: CUDA error {err}")
     k2_launches.add()
@@ -418,37 +642,42 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                          ("sample_mask", sample_mask, torch.float32),
                          ("leaf_ids", leaf_ids, torch.int32),
                          ("tbl", tbl, torch.int32)], num_bins, W)
-    R, per = row_ranges(n, F)
     dev = bins_t.device
-    slot = torch.empty(n, dtype=torch.uint8, device=dev)
-    leaf_out = torch.empty_like(leaf_ids)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     int8 = precision == "int8"
-    cnt = torch.zeros(W, dtype=torch.int32, device=dev)
-    out = torch.zeros((W, F, num_bins, (2 if count_proxy else 3)),
-                      dtype=torch.int32 if int8 else torch.float32,
-                      device=dev)
-    if n > 0:
-        lib = _library()
-        with torch.cuda.device(dev):
+    shape = (W, F, num_bins, 2 if count_proxy else 3)
+    dtype = torch.int32 if int8 else torch.float32
+    leaf_out = torch.empty_like(leaf_ids)
+    if n == 0:
+        out = torch.zeros(shape, dtype=dtype, device=dev)
+        cnt = torch.zeros(W, dtype=torch.int32, device=dev)
+    else:
+        # every cell and count is written by the launch (the f32 reduce
+        # pass, the int8 pass's and the slot pass's own memsets)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        cnt = torch.empty(W, dtype=torch.int32, device=dev) \
+            if count_proxy else None
+        slot = torch.empty(n, dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = (bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
+                sample_mask.data_ptr(), leaf_ids.data_ptr(), tbl.data_ptr())
+        with on_device(dev):
             if int8:
-                err = lib.fused_partition_histogram_int_launch(
-                    bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
-                    sample_mask.data_ptr(), leaf_ids.data_ptr(),
-                    tbl.data_ptr(), W, n, F, num_bins, out.shape[-1],
-                    int(packed4), int(any_cat), leaf_out.data_ptr(),
-                    slot.data_ptr(),
+                R, per = int_row_ranges(n, F)
+                err = _fn("fused_partition_histogram_int_launch")(
+                    *ptrs, W, n, F, num_bins, shape[-1], int(packed4),
+                    int(any_cat), leaf_out.data_ptr(), slot.data_ptr(),
                     cnt.data_ptr() if count_proxy else None, R, per,
                     out.data_ptr(), stream)
             else:
-                part = torch.empty((R, F, W, num_bins, 3),
+                lp = launch_plan(n, F, W, num_bins, packed4, dev)
+                part = torch.empty((lp["ranges"], F, W, num_bins, 3),
                                    dtype=torch.float32, device=dev)
-                err = lib.fused_partition_histogram_launch(
-                    bins_t.data_ptr(), g.data_ptr(), h.data_ptr(),
-                    sample_mask.data_ptr(), leaf_ids.data_ptr(),
-                    tbl.data_ptr(), W, n, F, num_bins, int(packed4),
-                    int(any_cat), leaf_out.data_ptr(), slot.data_ptr(),
-                    part.data_ptr(), R, per, out.data_ptr(), stream)
+                err = _fn("fused_partition_histogram_launch")(
+                    *ptrs, W, n, F, num_bins, int(packed4), int(any_cat),
+                    lp["fg"], lp["classes"], lp["warps"], lp["grid"],
+                    leaf_out.data_ptr(), slot.data_ptr(), part.data_ptr(),
+                    lp["ranges"], lp["rows_per_range"], out.data_ptr(),
+                    stream)
         if err != 0:
             raise LightGBMError(f"fused partition+histogram kernel failed: "
                                 f"CUDA error {err}")

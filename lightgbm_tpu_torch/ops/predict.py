@@ -20,22 +20,26 @@ import ctypes
 import torch
 
 from ..utils import cuda_build
-from ..utils.device import Counter
+from ..utils.device import Counter, on_device
 from ..utils.log import LightGBMError
 
 MAX_LEAVES = 4096        # the table lives in shared memory
 
 # kernel launches since the last reset (the plain version never counts)
 launches = Counter()
+_launch = None
 
 
-def _library():
-    lib = cuda_build.library("leaf_gather")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.leaf_gather_add_launch.argtypes = [p, p, p, i, ctypes.c_float, ll,
-                                           p]
-    lib.leaf_gather_add_launch.restype = i
-    return lib
+def _launch_fn():
+    """The library's launch function, its types bound once."""
+    global _launch
+    if _launch is None:
+        fn = cuda_build.library("leaf_gather").leaf_gather_add_launch
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, i, ctypes.c_float, ll, p]
+        fn.restype = i
+        _launch = fn
+    return _launch
 
 
 def replay_partition(rec, bins_t: torch.Tensor, meta) -> torch.Tensor:
@@ -79,25 +83,28 @@ def add_leaf_outputs(scores: torch.Tensor, leaf_ids: torch.Tensor,
         return add_leaf_outputs_plain(scores, leaf_ids, table, shrink)
     if scores.device.type != "cuda":
         raise LightGBMError(f"no leaf-gather kernel for {scores.device}")
+    dev = scores.device
     L = table.shape[0]
     if not 1 <= L <= MAX_LEAVES:
         raise LightGBMError(f"leaf table of {L} entries; the kernel takes "
                             f"1..{MAX_LEAVES}")
-    for name, t, dtype in (("scores", scores, torch.float32),
-                           ("leaf_ids", leaf_ids, torch.int32),
-                           ("table", table, torch.float32)):
-        if t.device != scores.device:
-            raise LightGBMError(f"{name} is on {t.device}, scores on "
-                                f"{scores.device}")
-        if t.dtype != dtype or not t.is_contiguous():
-            raise LightGBMError(f"{name} must be contiguous {dtype}")
+    if leaf_ids.device != dev or table.device != dev:
+        raise LightGBMError(f"leaf_ids on {leaf_ids.device}, table on "
+                            f"{table.device}, scores on {dev}")
+    if (scores.dtype != torch.float32 or leaf_ids.dtype != torch.int32
+            or table.dtype != torch.float32):
+        raise LightGBMError("scores and table must be float32, leaf_ids "
+                            "int32")
+    if not (scores.is_contiguous() and leaf_ids.is_contiguous()
+            and table.is_contiguous()):
+        raise LightGBMError("scores, leaf_ids and table must be contiguous")
     if leaf_ids.shape != scores.shape:
         raise LightGBMError("leaf_ids and scores differ in shape")
-    with torch.cuda.device(scores.device):
-        err = _library().leaf_gather_add_launch(
+    with on_device(dev):
+        err = _launch_fn()(
             scores.data_ptr(), leaf_ids.data_ptr(), table.data_ptr(), L,
             float(shrink), scores.numel(),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise LightGBMError(f"leaf gather kernel failed: CUDA error {err}")
     launches.add()

@@ -7,6 +7,7 @@ to the CPU quietly.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional, Union
 
@@ -29,6 +30,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise LightGBMError(f"unsupported device {device!r}")
     return dev
+
+
+def on_device(dev: torch.device):
+    """A context that makes ``dev`` the current CUDA device for a kernel
+    launch: nothing when it already is (the usual case, and the cheap
+    one), else ``torch.cuda.device(dev)``."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 class Counter:

@@ -672,9 +672,8 @@ def cuda():
 def test_categorical_kernel_equals_plain(cuda, tier):
     """K1 with categorical slots: leaf ids equal to the plain version;
     int8 sums bit for bit, f32 sums equal to the plain version run on the
-    CPU in the kernels' order (chip_smoke.kernel_order); two launches
-    bit-identical."""
-    from chip_smoke import plain_in_kernel_order
+    CPU in the kernels' order (hist_wave.plain_in_kernel_order); two
+    launches bit-identical."""
     F, n, W = 6, 300_000, 24
     B = 16 if tier.endswith("packed4") else 256
     r = np.random.default_rng(5)
@@ -703,9 +702,8 @@ def test_categorical_kernel_equals_plain(cuda, tier):
     if int8:
         want = hw.fused_partition_histogram_plain(*args, B, **pkw)
     else:
-        want = plain_in_kernel_order(
-            lambda *a: hw.fused_partition_histogram_plain(*a, **pkw),
-            args + [B])
+        want = hw.plain_in_kernel_order(hw.fused_partition_histogram_plain,
+                                        *args, B, **pkw)
     for a, b, c in zip(k1, k2, want):
         assert torch.equal(a, b) and torch.equal(a, c)
     assert hw.k1_cat_launches.value >= 2

@@ -8,9 +8,13 @@ order, as XLA's scatter does, and the score update with a shrinkage
 rounds once, as XLA contracts ``scores + shrink * table[leaf]`` into a
 fused multiply-add. The int8 and packed variants are held in
 test_torch_quant.py. K3 is compared on in-range leaf
-ids only, the two JAX paths disagree outside. The kernels run only on a
-CUDA card: the tests that hold them against the plain versions skip
-without one.
+ids only, the two JAX paths disagree outside. The f32 kernels' launch
+plan (``hist_plan``: feature groups, slot classes, row ranges) is
+checked here on the CPU: it covers every (feature, row) once and fits
+a block's shared memory, and the plain version in the kernels' order of
+addition stays within the f32 summation bound of the JAX oracle. The
+kernels run only on a CUDA card: the tests that hold them against the
+plain versions skip without one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,10 +140,122 @@ def test_leaf_gather_out_of_range_adds_nothing():
 
 
 def test_row_ranges_cover_every_row():
-    for n, F in ((1, 1), (1000, 28), (11_000_000, 28), (1_000_000, 53),
-                 (5000, 2000)):
-        ranges, per = hw.row_ranges(n, F)
-        assert ranges * per >= n > (ranges - 1) * per
+    for n, F, W, B in ((1, 1, 1, 16), (1000, 28, 32, 64),
+                       (11_000_000, 28, 32, 64), (1_000_000, 53, 15, 256),
+                       (5000, 2000, 1, 256), (0, 4, 1, 16)):
+        ranges, per = hw.row_ranges(n, F, W, B)
+        assert ranges * per >= n > (ranges - 1) * per or n == ranges - 1 == 0
+        assert per % hw.TILE_ROWS == 0
+        ranges, per = hw.int_row_ranges(n, F)
+        assert ranges * per >= n > (ranges - 1) * per or n == ranges - 1 == 0
+
+
+def _covered(plan, n, F):
+    """[F, n] counts of the work items (feature group, row range) of a
+    launch plan that take each (feature, row)."""
+    cover = np.zeros((F, n), np.int32)
+    for q in range(plan.groups * plan.ranges):
+        r, grp = divmod(q, plan.groups)
+        f0 = grp * plan.fg
+        cover[f0:f0 + plan.fg, r * plan.rows_per_range:
+              (r + 1) * plan.rows_per_range] += 1
+    return cover
+
+
+@pytest.mark.parametrize("n,F,W,B", [
+    (1, 1, 1, 16), (5000, 3, 1, 16), (300_000, 7, 16, 64),
+    (200_003, 5, 64, 256), (100_000, 28, 32, 64), (60_000, 53, 15, 256),
+    (120_000, 8, 32, 256), (70_000, 28, 1, 64), (90_001, 9, 24, 16)])
+def test_hist_plan_covers_every_feature_and_row_once(n, F, W, B):
+    p = hw.hist_plan(n, F, W, B)
+    assert (_covered(p, n, F) == 1).all()
+    assert p.warps in hw.WARP_COUNTS and p.warps >= p.fg * p.classes
+    assert p.warps < 2 * p.fg * p.classes or p.warps == hw.WARP_COUNTS[0]
+    assert p.classes & (p.classes - 1) == 0 and p.classes <= max(W, 1)
+    assert p.groups == -(-F // p.fg)
+    assert (p.ranges, p.rows_per_range) == hw.row_ranges(n, F, W, B)
+
+
+@pytest.mark.parametrize("n,F,W,B", [
+    (11_000_000, 28, 32, 64), (11_000_000, 28, 1, 64),
+    (1_000_000, 52, 15, 256), (10_000_000, 8, 32, 256),
+    (10_000_000, 8, 1, 256), (11_000_000, 28, 32, 16)])
+def test_hist_plan_at_the_main_path_shapes(n, F, W, B):
+    """The main path's launches: whole groups and ranges, every SM given
+    work items (at least one per block the plan's estimate holds
+    resident), and partial tiles no heavier than the rows' own bytes."""
+    p = hw.hist_plan(n, F, W, B)
+    assert p.groups * p.fg >= F > (p.groups - 1) * p.fg
+    assert p.ranges * p.rows_per_range >= n > \
+        (p.ranges - 1) * p.rows_per_range
+    resident = hw._blocks_per_sm(p.smem, p.warps) * hw.NUM_SMS
+    assert p.groups * p.ranges >= resident
+    assert p.ranges * F * W * B * 12 <= n * (F + 12)
+
+
+@pytest.mark.parametrize("F", [1, 3, 28, 53])
+def test_hist_plan_fits_shared_memory(F):
+    """Every (W, B) the wrappers accept (1 <= W <= 64, 1 <= B <= 256;
+    packed bins take B <= 16 and the same plan): the block's shared
+    memory fits the card's 232,448 bytes and at least one block fits an
+    SM."""
+    for W in range(1, hw.MAX_WAVE + 1):
+        for B in range(1, hw.MAX_BINS + 1):
+            p = hw.hist_plan(1_000_000, F, W, B)
+            assert p.smem == hw.hist_smem_bytes(W, B, p.fg, p.classes) \
+                <= hw.SMEM_MAX
+            assert hw._blocks_per_sm(p.smem, p.warps) >= 1
+            assert 1 <= p.fg <= F and p.classes <= W
+
+
+@pytest.mark.parametrize("F,n,B,W,active", [
+    (3, 600, 16, 1, 1), (6, 30_000, 64, 4, 3), (5, 25_000, 256, 8, 8),
+    (4, 40_000, 64, 32, 20), (5, 150_000, 256, 64, 60)])
+def test_kernel_order_plain_within_f32_bound_of_jax(F, n, B, W, active):
+    """The plain version in the kernels' order (row ranges of
+    ``row_ranges``, partials added in range order) against the JAX
+    oracle's row-order sums: counts equal, g and h within the f32
+    summation bound of any order, (count - 1) 2^-24 sum |v|."""
+    r, bins, g, h, mask, leaf = _inputs(F, n, B, W, seed=11 * n + W)
+    t = _split_table(r, F, B, W, 2 * W + 2, active)
+    _, want = fused_partition_histogram_xla(
+        jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h),
+        jnp.asarray(mask), jnp.asarray(leaf), jnp.asarray(t["wl"]),
+        jnp.asarray(t["new_ids"]), jnp.asarray(t["feat"]),
+        jnp.asarray(t["tbin"]), jnp.asarray(t["dleft"] != 0),
+        jnp.zeros(W, bool), jnp.zeros((W, 8), jnp.int32),
+        jnp.asarray(t["small"]), jnp.asarray(t["miss"]),
+        jnp.asarray(t["defb"]), jnp.asarray(t["nb"]), num_bins=B)
+    want = torch.from_numpy(np.array(want))
+    args = [torch.from_numpy(a) for a in (bins, g, h, mask, leaf)]
+    assert hw.row_ranges(n, F, W, B)[0] > 1 or n < 2 * hw.TILE_ROWS
+    _, got = hw.fused_partition_histogram_plain(*args, _tbl(t), B,
+                                                kernel_order=True)
+    _, p64 = hw.fused_partition_histogram_plain(
+        args[0], args[1].double(), args[2].double(), *args[3:], _tbl(t), B)
+    _, pabs = hw.fused_partition_histogram_plain(
+        args[0], args[1].double().abs(), args[2].double(), *args[3:],
+        _tbl(t), B)
+    assert torch.equal(got[..., 2], want[..., 2])
+    bound = _bound(p64[..., 2:3], pabs[..., :2])
+    for a in (got, want):
+        err = (a[..., :2].double() - p64[..., :2]).abs()
+        assert bool((err <= bound).all())
+    # the wave histogram's kernel order too
+    wl = torch.from_numpy(t["wl"])
+    lb = torch.where(args[3] > 0, args[4], -1).to(torch.int32)
+    got2 = hw.wave_histogram_plain(args[0], args[1], args[2], lb, wl, B,
+                                   kernel_order=True)
+    want2 = torch.from_numpy(np.array(wave_histogram_xla(
+        jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h), jnp.asarray(
+            lb.numpy()), jnp.asarray(t["wl"]), num_bins=B)))
+    assert torch.equal(got2[..., 2], want2[..., 2])
+    w64 = hw.wave_histogram_plain(args[0], args[1].double(),
+                                  args[2].double(), lb, wl, B)
+    wabs = hw.wave_histogram_plain(args[0], args[1].double().abs(),
+                                   args[2].double(), lb, wl, B)
+    err = (got2[..., :2].double() - w64[..., :2]).abs()
+    assert bool((err <= _bound(w64[..., 2:3], wabs[..., :2])).all())
 
 
 def test_wrappers_refuse_other_devices():
@@ -267,3 +383,97 @@ def test_packed_kernels_equal_unpacked_launch(cuda):
                                          **kw)
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+def _f32_case(case):
+    """Inputs of one f32 launch shape of the card tests: (bins as the
+    kernel reads them, g, h, mask, leaf ids, wave leaves, split table,
+    B, wrapper keywords)."""
+    F, n, B, W = dict(w1=(7, 300_000, 64, 1), w64_b256=(5, 200_003, 256, 64),
+                      skewed=(6, 300_000, 64, 8),
+                      no_counted=(4, 100_000, 64, 8),
+                      categorical=(6, 300_000, 256, 24),
+                      packed=(9, 300_000, 16, 24))[case]
+    r, bins, g, h, mask, leaf = _inputs(F, n, B, W, seed=len(case) + n)
+    t = _split_table(r, F, B, W, 2 * W + 2, max(W - 2, 1))
+    wl = np.arange(W, dtype=np.int32)
+    if case == "skewed":
+        # most rows in one cell: bin 3 of the first slot's leaf
+        bins = np.where(r.random((F, n)) < 0.95, 3, bins).astype(np.uint8)
+        leaf = np.where(r.random(n) < 0.95, t["wl"][0], leaf)
+        wl[0] = t["wl"][0]
+    if case == "no_counted":
+        wl += 10_000
+        t["wl"] = np.where(t["wl"] >= 0, t["wl"] + 10_000, -1)
+    tbl = _tbl(t)
+    kw = {}
+    if case == "categorical":
+        cat = np.stack([(r.random(W) < 0.5).astype(np.int32)]
+                       + [r.integers(-2 ** 31, 2 ** 31, W, dtype=np.int64)
+                          .astype(np.int32) for _ in range(8)])
+        tbl = torch.cat([tbl, torch.from_numpy(cat)])
+        kw = dict(any_cat=True)
+    bt = torch.from_numpy(bins)
+    if case == "packed":
+        bt = hw.pack4(bt)
+        kw = dict(packed4=True, num_features=F)
+    lb = np.where(mask > 0, leaf, -1).astype(np.int32)
+    return (bt, torch.from_numpy(g), torch.from_numpy(h),
+            torch.from_numpy(mask), torch.from_numpy(leaf.astype(np.int32)),
+            torch.from_numpy(lb), torch.from_numpy(wl), tbl, B, kw)
+
+
+@pytest.mark.parametrize("case", ["w1", "w64_b256", "skewed", "no_counted",
+                                  "categorical", "packed"])
+def test_f32_kernels_equal_kernel_order_plain(cuda, case):
+    """K2 and K1 on the f32 tier bit for bit against their plain
+    versions run on the CPU in the kernels' order of addition (every
+    channel, K1's leaf ids), two launches bit-identical: at W = 1 (one
+    slot class, the jobs split by feature), at W = 64 x B = 256 (one
+    feature per group), with most rows in one cell, with no counted
+    rows, with categorical slots and with packed bins."""
+    bt, g, h, mask, leaf, lb, wl, tbl, B, kw = [
+        a.to(cuda) if torch.is_tensor(a) else a for a in _f32_case(case)]
+    F = kw.get("num_features", bt.shape[0])
+    plan = hw.hist_plan(bt.shape[1], F, tbl.shape[1], B)
+    if case == "w64_b256":
+        assert plan.fg == 1
+    if case == "w1":
+        assert plan.classes == 1 and plan.fg > 1
+    kw2 = {k: v for k, v in kw.items() if k != "any_cat"}
+    k2 = [hw.wave_histogram(bt, g, h, lb, wl, B, **kw2) for _ in "ab"]
+    want = hw.plain_in_kernel_order(hw.wave_histogram_plain, bt, g, h, lb,
+                                    wl, B, **kw2)
+    assert torch.equal(k2[0], k2[1]) and torch.equal(k2[0], want)
+    k1 = [hw.fused_partition_histogram(bt, g, h, mask, leaf, tbl, B, **kw)
+          for _ in "ab"]
+    want = hw.plain_in_kernel_order(hw.fused_partition_histogram_plain, bt,
+                                    g, h, mask, leaf, tbl, B, **kw)
+    for a, b, c in zip(k1[0], k1[1], want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if case == "no_counted":
+        assert not k2[0].any() and not k1[0][1].any()
+
+
+@pytest.mark.parametrize("extra", [1, 2, 3])
+def test_leaf_gather_kernel_unaligned_row_views(cuda, extra):
+    """K3 on the rows of a [3, N] score matrix (rows 1 and 2 start off a
+    16-byte boundary), N % 4 = ``extra``, ids partly outside [0, L):
+    bit for bit against its plain version, the rows around untouched."""
+    r = np.random.default_rng(extra)
+    n, L = 1_000_000 + extra, 255
+    mat = torch.from_numpy(r.normal(size=(3, 1_000_003)).astype(np.float32)
+                           ).to(cuda)
+    table = torch.from_numpy(r.normal(size=L).astype(np.float32)).to(cuda)
+    for row in range(3):
+        leaf = torch.from_numpy(r.integers(-2, L + 2, n).astype(np.int32)
+                                ).to(cuda)
+        for shrink in (1.0, 0.1):
+            m = mat.clone()
+            got = pr.add_leaf_outputs(m[row, :n], leaf, table, shrink)
+            want = pr.add_leaf_outputs_plain(mat[row, :n].clone(), leaf,
+                                             table, shrink)
+            assert torch.equal(got, want)
+            assert torch.equal(m[row, n:], mat[row, n:])
+            others = [k for k in range(3) if k != row]
+            assert torch.equal(m[others], mat[others])
