@@ -62,6 +62,11 @@ the entry points a user calls:
    bit-identical; each packed launch bit-identical to the unpacked launch
    on the same rows; each variant's time, its plain version's, the
    ``index_add_`` library call (int32 for the int8 tiers) and its bound;
+   for the int8 pass its plan on this card (``int_plan``), the share of
+   rows it counts, its slot, histogram and flush kernels' card time
+   (CUDA events at the pass boundaries) and the host's microseconds a
+   call; each int8 launch not more than 10% above its time before the
+   pass's redesign (``INT8_MS_BEFORE``) when the power limit is 700 W;
 14. card vs CPU on the quantized tier: the LRB parameters with
    ``tpu_quantized_hist`` at 100,000 rows, 20 iterations; trees equal up
    to a near tie of the quantized gains, train AUC within 4e-4;
@@ -83,7 +88,8 @@ the entry points a user calls:
    version run on the CPU in the kernels' order (every channel, the
    leaf ids; two launches bit-identical), the int8 kernel bit for bit
    against its plain version on the card; times, bounds and the
-   ``index_add_`` of one pass; the root pass (K2) timed beside it;
+   ``index_add_`` of one pass, the int8 pass's plan and split as in
+   phase 13; the root pass (K2) timed beside it;
    phase 8's K1 time on phase 7's inputs (the launch without
    categorical rows) not more than 10% above its 7.583 ms before the
    categorical rows existed (PERF.md's kernel table) when the card's
@@ -166,7 +172,14 @@ CAT_CPU_ITERS = 20
 CAT_CPU_LEAVES = 31
 K1_MS_BEFORE_CAT = 7.583        # PERF.md's table: phase 8's K1, 700 W
 K3_RUNS = 200                   # K3 launches per timing window
-PASS_RUNS = 5                   # launches per timed f32 pass split
+PASS_RUNS = 5                   # launches per timed pass split
+# PERF.md's table: each int8 launch's card ms before the int8 pass's
+# redesign (700 W), at phases 13 and 17's captures; a launch may not be
+# more than 10% above it on a 700 W card
+INT8_MS_BEFORE = {("K1", "proxy"): 1.372, ("K1", "proxy_packed4"): 1.324,
+                  ("K1", "int8"): 0.193, ("K2", "proxy"): 1.257,
+                  ("K2", "proxy_packed4"): 1.240, ("K2", "int8"): 0.294,
+                  ("K1", "int8_cat"): 0.890}
 
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 7):
@@ -884,6 +897,43 @@ def pass_report(label: str, kid: str, fn, args, kw: dict,
                                          "rows_per_range")}}
 
 
+def int_pass_report(kid: str, fn, args, kw: dict, counted: int) -> dict:
+    """The int8 histogram pass of a captured K2q or K1q launch
+    (``fn(*args)``): its plan on this card (``hist_wave.int_plan``:
+    features per group Fg, slot classes, copies of each cell, the kernel
+    instance's byte rows and blocks an SM, units, row parts; blocks
+    resident per SM, grid, 8-byte loads or byte loads), the
+    share of rows it counts, and the card's time in its slot, histogram
+    and flush kernels, from CUDA events the launch records at its pass
+    boundaries (``hist_wave.pass_times``, PASS_RUNS launches). Returns
+    them and a line to print."""
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    bins_t, g, h, B = args[0], args[1], args[2], args[-1]
+    F = kw.get("num_features") or bins_t.shape[0]
+    n = bins_t.shape[1]
+    W = args[4].shape[0] if kid == "K2" else args[5].shape[1]
+    C = 2 if kw.get("count_proxy") else 3
+    vec = hw.int_aligned(bins_t, g, h)
+    lp = hw.launch_int_plan(n, F, W, B, C, bool(kw.get("packed4")), vec,
+                            bins_t.device)
+    fn(*args)
+    t = hw.pass_times(lambda: fn(*args), PASS_RUNS)
+    split = {"slot": t["slot"], "histogram": t["histogram"],
+             "flush": t["reduce"]}
+    plan = {k: lp[k] for k in ("fg", "classes", "copies", "byte_rows",
+                               "blocks", "units", "parts", "rows_per_part",
+                               "blocks_per_sm", "grid", "vec")}
+    line = (f"counts {counted / max(n, 1):.4f} of the rows; plan Fg "
+            f"{lp['fg']}, {lp['classes']} slot classes, {lp['copies']} "
+            f"copies, {lp['units']} units x {lp['parts']} parts, "
+            f"instance of {lp['byte_rows']} byte rows and {lp['blocks']} "
+            f"blocks/SM, {lp['blocks_per_sm']} resident, grid {lp['grid']}, "
+            f"{'8-byte' if vec else 'byte'} loads; card ms a launch: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    return {"counted_share": counted / max(n, 1), "split_ms": split,
+            "plan": plan, "pass_line": line}
+
+
 def check_kernels(caps, label: str, dev) -> dict:
     """K2, K1 and K3 against their plain versions on one training's
     captured inputs (check_histogram; K3 bit for bit), with each
@@ -1202,7 +1252,9 @@ def check_packed(name, kernel, args, kw, outs_of) -> None:
 def time_histogram(kid, caps_key, caps, dev, label="") -> dict:
     """Times (kernel, plain version on the card, library call) and the
     bound of a captured K2 or K1 launch of any tier, at its shapes, and
-    for the f32 tier its ``pass_report`` (under ``label``). The
+    its pass split and plan: ``pass_report`` (under ``label``) for the
+    f32 tier, ``int_pass_report`` and the host's microseconds a call for
+    the int8 tier. The
     bytes: each row's bins (one byte per feature, half under packed4),
     g and h (4 bytes each, 1 in the int8 tier), its leaf id (K1: in and
     out, and the bag mask), the split table and the output; the
@@ -1230,9 +1282,11 @@ def time_histogram(kid, caps_key, caps, dev, label="") -> dict:
               + W * F * B * C * 4)
     ops = C * F * counted + (n if kid == "K1" else 0)
     raw = kernel_raw(fn, kw)
-    extra = {}
     if g.dtype == torch.float32:
         extra = pass_report(label, kid, raw, a, kw, counted)
+    else:
+        extra = int_pass_report(kid, raw, a, kw, counted)
+        extra["host_us"] = host_us(lambda: raw(*a), 20)
     if kw.get("packed4"):
         flat = hw.unpack4(bins_t, F).contiguous()
         unpacked = kernel_raw(fn, dict(kw, packed4=False))
@@ -1246,11 +1300,27 @@ def time_histogram(kid, caps_key, caps, dev, label="") -> dict:
         **bound(nbytes, ops))
 
 
-def quant_phases(dev, higgs: dict) -> list:
+def int8_vs_before(key, ms: float, power_limit_w: float) -> str:
+    """An int8 launch's time against its reading before the int8 pass's
+    redesign (``INT8_MS_BEFORE``): not more than 10% above it on a 700 W
+    card (raises), else only reported."""
+    before = INT8_MS_BEFORE[key]
+    gap = ms / before - 1.0
+    if abs(power_limit_w - 700.0) < 1.0:
+        assert gap <= 0.10, f"int8 {key}: {ms:.3f} ms vs {before} ms before"
+        verdict = "not more than 10% above it"
+    else:
+        verdict = f"not held: the card's power limit is {power_limit_w} W"
+    return (f"{100 * gap:+.1f}% of the {before} ms before the int8 pass's "
+            f"redesign ({verdict})")
+
+
+def quant_phases(dev, higgs: dict, power_limit_w: float) -> list:
     """Phases 10-14 of the module docstring: the int8 tiers and 4-bit
     packed bins. ``higgs`` holds phase 7's rows and exact-tier holdout
-    AUC. Returns the kernels-line entries of every quantized and packed
-    histogram variant."""
+    AUC; ``power_limit_w`` the card's, for the check of the int8 times
+    against ``INT8_MS_BEFORE``. Returns the kernels-line entries of every
+    quantized and packed histogram variant."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import capi
@@ -1403,6 +1473,11 @@ def quant_phases(dev, higgs: dict) -> list:
                   f"{t['launches_per_iteration']:.2f} launches/iteration"
                   + (f"; the unpacked launch {t['unpacked_ms']:.3f} ms"
                      if "unpacked_ms" in t else ""))
+            if "pass_line" in t:
+                print(f"  {label} {kid} int8 pass: {t['pass_line']}; host "
+                      f"{t['host_us']:.1f} us a call; "
+                      + int8_vs_before((kid, variant), t["ms"],
+                                       power_limit_w))
         if variant == "proxy":
             cap = caps["K2"]
             root = kernel_raw(hw.wave_histogram, cap.kw)(*cap.args)
@@ -1453,8 +1528,8 @@ def quant_phases(dev, higgs: dict) -> list:
             "launches_per_iteration": t["launches_per_iteration"],
             **({"unpacked_ms": t["unpacked_ms"]} if "unpacked_ms" in t
                else {}),
-            **{k: t[k] for k in ("counted_share", "split_ms", "plan")
-               if k in t},
+            **{k: t[k] for k in ("counted_share", "split_ms", "plan",
+                                 "host_us") if k in t},
             "vs_plain": ("bitwise against the unpacked launch"
                          if variant == "f32_packed4" else
                          "bitwise against the plain version on the card")})
@@ -1626,6 +1701,11 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> list:
                  if variant == "f32" else
                  " bit-equal to the plain version on the card")
               + "; two launches bit-identical")
+        if "pass_line" in t:
+            print(f"  {label} K1 int8 pass: {t['pass_line']}; host "
+                  f"{t['host_us']:.1f} us a call; "
+                  + int8_vs_before(("K1", "int8_cat"), t["ms"],
+                                   power_limit_w))
         out.append({
             "name": f"fused_partition_histogram_{variant}_cat",
             "route": "cuda", "source": "lightgbm_tpu_torch/csrc/hist_wave.cu",
@@ -1640,7 +1720,7 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> list:
                              "pass's index_add_ at the root's shape"),
             "shape": t["shape"], "categorical_slots": n_cat,
             **{k: t[k] for k in ("counted_share", "split_ms", "plan",
-                                 "k2_root") if k in t},
+                                 "host_us", "k2_root") if k in t},
             "launches_per_iteration": launches / it,
             "categorical_waves_per_iteration": runs[label]["cat_waves"] / it,
             "vs_plain": ("bitwise against the plain version run in the "
@@ -1864,7 +1944,7 @@ def main() -> None:
 
     # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins
     train, higgs_data = train_phases(dev)
-    quant = quant_phases(dev, higgs_data)
+    quant = quant_phases(dev, higgs_data, power_limit_w)
     del higgs_data
     # 15-18: categorical features
     k1_ms = next(e["ms"] for e in train

@@ -86,12 +86,38 @@
 // The plain version run on the CPU one range at a time (ops/hist_wave.py
 // ``kernel_order``, ``scatter_in_ranges``) gives the same bits.
 //
-// The int8 tier needs none of that: integer adds do not depend on their
-// order, so its histogram pass (one block per (feature, row range), 512
-// threads over the range's rows) adds each row into a shared int32
-// [W, B, C] tile with shared atomics and flushes the tile's non-zero
-// cells into the zeroed output with global atomics. Every launch gives
-// the same bits, and so does any order of the same adds.
+// The int8 tier needs no fixed order: integer adds give the same bits in
+// any order, so its pass adds with shared atomics. What bounds it is
+// staging and the latency of the adds, not bytes: each row's F bin
+// bytes, gq, hq and slot byte (~31 B a row at 28 features) are read, a
+// few hundred MB a launch, and the counted rows' adds are few. Its
+// histogram pass, int_group_histogram_kernel:
+//   - gives a block of 16 warps a unit, a group of Fg features and a
+//     slot class c (the slots s with s % K == c, K a power of two), and
+//     a part of the rows. The unit's tile of C planes of [Fg][W/K][B]
+//     int32 cells stays in shared memory while the block walks its rows,
+//     and is written out once, as the item's partial tile. Each unit
+//     reads every row's slot, gq and hq again, so the plan takes the
+//     largest groups the tile allows: Fg up to 8 (16 packed) features;
+//   - lets each warp walk its own steps of 256 rows, 8 a lane, with no
+//     block barrier: the slot, gq, hq and each bin byte row as one 8-byte
+//     load a lane (byte loads where an array is not 8-byte aligned, and
+//     for a part's ragged end), the next step's loads issued before this
+//     step's adds;
+//   - has each lane add its own counted rows (slot < W, class c) from
+//     registers. Compacting the counted rows into a shared list first,
+//     and grouping a warp's lanes by cell with __match_any_sync, both
+//     measured slower on the H100 (PERF.md);
+//   - keeps ``copies`` copies of each cell side by side, lane l adding
+//     into copy l % copies: where a feature's tile is small (the root
+//     pass at W = 1), a warp's lanes would otherwise meet on one cell,
+//     by chance or because most rows share a bin, and wait on each
+//     other;
+//   - a reduction pass (the flush) adds the items' partial tiles into
+//     the [W, F, B, C] output, every cell written.
+// The grid is one wave of resident blocks; the plan (Fg, K, copies, row
+// parts) is ops/hist_wave.py int_plan, a pure function of the shapes,
+// and the grid its launch_int_plan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,7 +129,12 @@ namespace {
 constexpr int kTileRows = 1024;   // rows staged per shared-memory tile
 constexpr int kChunks = kTileRows / 32;
 constexpr int kMaxClasses = 16;   // slot classes per feature (a power of 2)
-constexpr int kIntThreads = 512;  // threads per int8-tier histogram block
+constexpr int kIntWarps = 16;     // warps per int8-tier histogram block
+constexpr int kIntThreads = kIntWarps * 32;
+constexpr int kIntLaneRows = 8;   // rows a lane loads a step: 8-byte vectors
+constexpr int kIntStep = 32 * kIntLaneRows;  // rows a warp takes a step
+constexpr int kIntByteRows = 8;   // bin byte rows a block stages
+constexpr int kIntCopies = 16;    // most copies of a cell
 constexpr int kMaxWave = 64;      // slot ids fit a byte, W is the dump
 constexpr int kMaxBins = 256;     // bins are uint8
 constexpr int kMapLeaves = 4096;  // leaf ids the slot passes map directly
@@ -177,8 +208,10 @@ __global__ void wave_slots_kernel(const int* __restrict__ leaf,
 // K1's slot pass: each row's new leaf id, and its slot when it lies in
 // the slot's smaller child and in bag (W otherwise). With cnt_r, also
 // each slot's in-bag rows moved right (count-proxy mode), added per
-// block in shared memory and then once per slot into cnt_r. With CAT,
-// categorical slots decide by their left-set bitset.
+// block in shared memory, each lane into its own counter of the slot (so
+// the lanes of a warp never add to one address), and then once per slot
+// into cnt_r. With CAT, categorical slots decide by their left-set
+// bitset.
 template <bool PACKED, bool CAT>
 __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
                                        const float* __restrict__ mask,
@@ -189,14 +222,16 @@ __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
                                        int* __restrict__ cnt_r) {
   constexpr int rows = CAT ? kTblRows : kTblNumRows;
   __shared__ int s_tbl[rows * kMaxWave];
-  __shared__ int s_cnt[kMaxWave];
+  __shared__ int s_cnt[kMaxWave * 32];     // [slot][lane]
   __shared__ __align__(4) uint8_t s_map[kMapLeaves];
   for (int e = threadIdx.x; e < rows * W; e += blockDim.x)
     s_tbl[e] = tbl[e];
-  for (int k = threadIdx.x; k < W; k += blockDim.x) s_cnt[k] = 0;
+  if (cnt_r != nullptr)
+    for (int e = threadIdx.x; e < W * 32; e += blockDim.x) s_cnt[e] = 0;
   __syncthreads();
   const int* parent = s_tbl + kTblParent * W;
   build_slot_map(s_map, parent, W);
+  const int lane = threadIdx.x & 31;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
     const int l = leaf[i];
@@ -220,15 +255,19 @@ __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
       const bool in_bag = mask[i] > 0.0f;
       if (right) out = new_id;
       if (small >= 0 && right == (small == new_id) && in_bag) s = k;
-      if (cnt_r != nullptr && right && in_bag) atomicAdd(&s_cnt[k], 1);
+      if (cnt_r != nullptr && right && in_bag)
+        atomicAdd(&s_cnt[k * 32 + lane], 1);
     }
     leaf_out[i] = out;
     slot[i] = (uint8_t)s;
   }
   if (cnt_r == nullptr) return;
   __syncthreads();
-  for (int k = threadIdx.x; k < W; k += blockDim.x)
-    if (s_cnt[k] != 0) atomicAdd(&cnt_r[k], s_cnt[k]);
+  for (int k = threadIdx.x; k < W; k += blockDim.x) {
+    int v = 0;
+    for (int j = 0; j < 32; ++j) v += s_cnt[k * 32 + ((j + k) & 31)];
+    if (v != 0) atomicAdd(&cnt_r[k], v);
+  }
 }
 
 // part[r][f][w][b][c] = sums over rows of range r in slot w with bin b,
@@ -392,38 +431,195 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part,
   }
 }
 
-// out[w][f][b][c] += the exact int32 sums of the rows of range r in slot
-// w with bin b: (gq, hq, 1) for C = 3, (gq, hq) for C = 2
-template <bool PACKED, int C>
-__global__ void __launch_bounds__(kIntThreads)
-int_histogram_kernel(const uint8_t* __restrict__ bins,
-                     const int8_t* __restrict__ gq,
-                     const int8_t* __restrict__ hq,
-                     const uint8_t* __restrict__ slot, int64_t n, int F,
-                     int B, int W, int64_t rows_per_range,
-                     int* __restrict__ out) {
-  extern __shared__ int itile[];                        // [W][B][C]
-  const int f = blockIdx.x;
-  const int64_t r0 = (int64_t)blockIdx.y * rows_per_range;
-  const int64_t r1 = i64min(n, r0 + rows_per_range);
-  const int cells = W * B * C;
-  for (int e = threadIdx.x; e < cells; e += blockDim.x) itile[e] = 0;
-  __syncthreads();
-  for (int64_t i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-    const int s = slot[i];
-    if (s >= W) continue;
-    int* cell = itile + (s * B + read_bin<PACKED>(bins, f, n, i)) * C;
-    atomicAdd(cell, (int)gq[i]);
-    atomicAdd(cell + 1, (int)hq[i]);
-    if (C == 3) atomicAdd(cell + 2, 1);
+// 8 bytes from p[i, i + valid): one vector load when VEC (p + i 8-byte
+// aligned) and the 8 are all there, else byte loads; missing bytes 0
+template <bool VEC>
+__device__ __forceinline__ uint2 load8(const uint8_t* __restrict__ p,
+                                       int64_t i, int valid) {
+  if (VEC && valid == kIntLaneRows)
+    return __ldg(reinterpret_cast<const uint2*>(p + i));
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int u = 0; u < kIntLaneRows; ++u)
+    if (u < valid) w[u >> 2] |= (uint32_t)__ldg(p + i + u) << (8 * (u & 3));
+  return make_uint2(w[0], w[1]);
+}
+
+// byte u (a constant once unrolled) of an 8-byte vector
+__device__ __forceinline__ int byte_of(const uint2& v, int u) {
+  return (int)(((u < 4 ? v.x : v.y) >> (8 * (u & 3))) & 0xFFu);
+}
+
+// one lane's rows of a warp step: slot, gq, hq and the group's NR bin
+// byte rows
+template <int NR>
+struct IntRows {
+  uint2 s, g, h, b[NR];
+};
+
+// feature fl's bin (fl, u constants once unrolled) in row u of a lane's
+// rows: its own byte row, or a nibble of byte row fl / 2 when packed
+template <bool PACKED, int NR>
+__device__ __forceinline__ int bin_of(const IntRows<NR>& r, int fl, int u) {
+  return PACKED ? (byte_of(r.b[fl >> 1], u) >> (4 * (fl & 1))) & 15
+                : byte_of(r.b[fl], u);
+}
+
+template <bool VEC, int NR>
+__device__ __forceinline__ void load_rows(IntRows<NR>& r,
+                                          const uint8_t* __restrict__ slot,
+                                          const uint8_t* __restrict__ g8,
+                                          const uint8_t* __restrict__ h8,
+                                          const uint8_t* __restrict__ brow,
+                                          int64_t n, int nrows, int64_t i,
+                                          int valid) {
+  r.s = load8<VEC>(slot, i, valid);
+  r.g = load8<VEC>(g8, i, valid);
+  r.h = load8<VEC>(h8, i, valid);
+#pragma unroll
+  for (int j = 0; j < NR; ++j)
+    r.b[j] = j < nrows ? load8<VEC>(brow + (int64_t)j * n, i, valid)
+                       : make_uint2(0u, 0u);
+}
+
+// Dynamic shared memory of one int8-tier histogram block: the unit's
+// tile, C planes of [Fg][ceil(W/K)][B] int32 cells with ``copies`` copies
+// of each cell side by side.
+__host__ __device__ inline int int_smem_bytes(int W, int B, int C, int Fg,
+                                              int K, int copies) {
+  return copies * C * Fg * ((W + K - 1) / K) * B * (int)sizeof(int);
+}
+
+// part[q] = the exact int32 sums of work item q = (row part r, unit u),
+// q = r * U + u: the rows of part r in unit u's slots (class c = u % K,
+// slot s at s / K) and features (group u / K: features f0 .. f0 + Fg),
+// (gq, hq, 1) for C = 3, (gq, hq) for C = 2, laid out [Fg][W/K][B][C]
+// (a short last group leaves its missing features' cells unwritten).
+// Each warp takes steps of kIntStep rows of the part, kIntLaneRows a
+// lane, independently of the other warps: it loads the next step's rows
+// while it adds this step's, each lane its own counted rows. Lane l adds
+// into copy l % copies of a cell, the copies of a cell in consecutive
+// banks, so that lanes of different copies never wait on one another.
+template <bool PACKED, int C, bool VEC, int NR, int MINB>
+__global__ void __launch_bounds__(kIntThreads, MINB)
+int_group_histogram_kernel(const uint8_t* __restrict__ bins,
+                           const int8_t* __restrict__ gq,
+                           const int8_t* __restrict__ hq,
+                           const uint8_t* __restrict__ slot, int64_t n,
+                           int F, int B, int W, int Fg, int K, int copies,
+                           int P, int64_t rows_per_part,
+                           int* __restrict__ part) {
+  constexpr int kGroup = PACKED ? 2 * NR : NR;
+  extern __shared__ int ismem[];
+  const int Wc = (W + K - 1) / K;
+  const int fcells = Wc * B;                 // a feature's cells a channel
+  const int plane = Fg * fcells;             // a channel's cells
+  int* tile = ismem;                         // [C][Fg][Wc][B][copies]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int U = (F + Fg - 1) / Fg * K;
+  const int shift = __ffs(K) - 1;            // log2 K
+  const int mine = lane & (copies - 1);
+  const int cstride = copies * plane;        // between channels
+  const uint8_t* g8 = reinterpret_cast<const uint8_t*>(gq);
+  const uint8_t* h8 = reinterpret_cast<const uint8_t*>(hq);
+  for (int q = blockIdx.x; q < U * P; q += gridDim.x) {
+    const int r = q / U;
+    const int grp = (q - r * U) >> shift;
+    const int c = (q - r * U) & (K - 1);
+    const int f0 = grp * Fg;                 // even when PACKED
+    const int nf = min(Fg, F - f0);
+    const int nrows = PACKED ? (nf + 1) >> 1 : nf;
+    const uint8_t* brow = bins + (int64_t)(PACKED ? f0 >> 1 : f0) * n;
+    const int64_t r0 = (int64_t)r * rows_per_part;
+    const int64_t r1 = i64min(n, r0 + rows_per_part);
+    __syncthreads();  // the previous item's tile is written out
+    for (int e = threadIdx.x; e < copies * C * plane; e += kIntThreads)
+      tile[e] = 0;
+    __syncthreads();
+    int64_t s0 = r0 + (int64_t)warp * kIntStep;
+    IntRows<NR> cur;
+    if (s0 < r1) {
+      const int64_t i = s0 + lane * kIntLaneRows;
+      load_rows<VEC, NR>(cur, slot, g8, h8, brow, n, nrows, i,
+                         (int)i64min(kIntLaneRows, i < r1 ? r1 - i : 0));
+    }
+    for (; s0 < r1; s0 += (int64_t)kIntWarps * kIntStep) {
+      // a. the next step's loads, in flight while this step is added
+      const int64_t s1 = s0 + (int64_t)kIntWarps * kIntStep;
+      IntRows<NR> nxt;
+      if (s1 < r1) {
+        const int64_t i = s1 + lane * kIntLaneRows;
+        load_rows<VEC, NR>(nxt, slot, g8, h8, brow, n, nrows, i,
+                           (int)i64min(kIntLaneRows, i < r1 ? r1 - i : 0));
+      }
+      // b. each lane adds its own rows that the unit counts (slot < W,
+      // in class c)
+      const int64_t i = s0 + lane * kIntLaneRows;
+      const int valid = (int)i64min(kIntLaneRows, i < r1 ? r1 - i : 0);
+#pragma unroll
+      for (int u = 0; u < kIntLaneRows; ++u) {
+        const int sl = byte_of(cur.s, u);
+        if (u < valid && sl < W && (sl & (K - 1)) == c) {
+          const int gv = (int)(int8_t)byte_of(cur.g, u);
+          const int hv = (int)(int8_t)byte_of(cur.h, u);
+          const int sb = (sl >> shift) * B;
+#pragma unroll
+          for (int fl = 0; fl < kGroup; ++fl) {
+            if (fl < nf) {
+              const int at =
+                  (fl * fcells + sb + bin_of<PACKED, NR>(cur, fl, u)) *
+                      copies +
+                  mine;
+              atomicAdd(tile + at, gv);
+              atomicAdd(tile + at + cstride, hv);
+              if (C == 3) atomicAdd(tile + at + 2 * cstride, 1);
+            }
+          }
+        }
+      }
+      cur = nxt;
+    }
+    __syncthreads();
+    // the item's partial tile, [Fg][Wc][B][C]: each cell's copies added
+    int* dst = part + (int64_t)q * C * plane;
+    for (int e = threadIdx.x; e < nf * fcells * C; e += kIntThreads) {
+      const int* src = tile + (e % C) * cstride + e / C * copies;
+      int v = 0;
+      for (int k = 0; k < copies; ++k) v += src[(k + e) & (copies - 1)];
+      dst[e] = v;
+    }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < cells; e += blockDim.x) {
-    const int v = itile[e];
-    if (v == 0) continue;
-    const int c = e % C;
-    const int q = e / C;
-    atomicAdd(out + (((int64_t)(q / B) * F + f) * B + q % B) * C + c, v);
+}
+
+// the flush: out[w][f][b][ch] = the sum over row parts r of the partial
+// tiles' cell (feature f, slot w, bin b, channel ch)
+__global__ void reduce_int_partials_kernel(const int* __restrict__ part,
+                                           int P, int F, int B, int W,
+                                           int C, int Fg, int K,
+                                           int* __restrict__ out) {
+  const int Wc = (W + K - 1) / K;
+  const int64_t ucells = (int64_t)Fg * Wc * B * C;
+  const int64_t U = (int64_t)(F + Fg - 1) / Fg * K;
+  const int shift = __ffs(K) - 1;
+  const int64_t per = (int64_t)W * F * B * C;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < per;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int ch = (int)(e % C);
+    int64_t q = e / C;
+    const int b = (int)(q % B);
+    q /= B;
+    const int f = (int)(q % F);
+    const int w = (int)(q / F);
+    const int grp = f / Fg;
+    const int64_t u = (int64_t)grp * K + (w & (K - 1));
+    const int64_t src = u * ucells +
+                        (((int64_t)(f - grp * Fg) * Wc + (w >> shift)) * B +
+                         b) * C + ch;
+    int acc = 0;
+#pragma unroll 4
+    for (int r = 0; r < P; ++r) acc += part[r * U * ucells + src];
+    out[e] = acc;
   }
 }
 
@@ -444,11 +640,11 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned>* done) {
 }
 
 std::atomic<unsigned> g_group_smem[6];
-std::atomic<unsigned> g_int_smem[4];
+std::atomic<unsigned> g_int_smem[32];
 
-// events an f32 launch records on its stream when set
+// events a launch records on its stream when set
 // (hist_wave_pass_events): before the slot pass, after it, after the
-// histogram pass and after the reduction
+// histogram pass and after the reduction (the int8 tier's flush)
 std::atomic<void* const*> g_pass_events{nullptr};
 
 void record_pass(int k, cudaStream_t stream) {
@@ -516,38 +712,95 @@ int launch_histogram(bool packed, const uint8_t* bins, const float* g,
   return (int)cudaGetLastError();
 }
 
-template <bool PACKED, int C>
-int launch_int_t(const uint8_t* bins, const int8_t* gq, const int8_t* hq,
-                 const uint8_t* slot, int64_t n, int F, int B, int W, int R,
-                 int64_t rows_per_range, int* out, cudaStream_t stream) {
-  const int smem = W * B * C * (int)sizeof(int);
-  cudaError_t err = allow_smem(int_histogram_kernel<PACKED, C>,
-                               &g_int_smem[2 * PACKED + (C - 2)]);
-  if (err != cudaSuccess) return (int)err;
-  int_histogram_kernel<PACKED, C>
-      <<<dim3(F, R), kIntThreads, smem, stream>>>(
-          bins, gq, hq, slot, n, F, B, W, rows_per_range, out);
-  return (int)cudaGetLastError();
+using IntKernel = void (*)(const uint8_t*, const int8_t*, const int8_t*,
+                           const uint8_t*, int64_t, int, int, int, int, int,
+                           int, int, int64_t, int*);
+
+template <bool PACKED, bool VEC, int NR, int MINB>
+IntKernel int_kernel_c(int C) {
+  return C == 2 ? int_group_histogram_kernel<PACKED, 2, VEC, NR, MINB>
+                : int_group_histogram_kernel<PACKED, 3, VEC, NR, MINB>;
 }
 
-// zeroes out [W, F, B, C] int32, then adds every range's tile into it
-int launch_int_histogram(bool packed, int C, const uint8_t* bins,
+template <int NR, int MINB>
+IntKernel int_kernel_m(bool packed, int C, bool vec) {
+  if (packed) return vec ? int_kernel_c<true, true, NR, MINB>(C)
+                         : int_kernel_c<true, false, NR, MINB>(C);
+  return vec ? int_kernel_c<false, true, NR, MINB>(C)
+             : int_kernel_c<false, false, NR, MINB>(C);
+}
+
+// the instance of the plan's byte rows (kIntByteRows / 2 or kIntByteRows)
+// and blocks an SM (1: 128 registers a thread, 2: 64)
+int int_instance(int byte_rows, int blocks) {
+  return 2 * (int)(byte_rows == kIntByteRows) + (int)(blocks == 2);
+}
+
+IntKernel int_kernel(bool packed, int C, bool vec, int byte_rows,
+                     int blocks) {
+  switch (int_instance(byte_rows, blocks)) {
+    case 0: return int_kernel_m<kIntByteRows / 2, 1>(packed, C, vec);
+    case 1: return int_kernel_m<kIntByteRows / 2, 2>(packed, C, vec);
+    case 2: return int_kernel_m<kIntByteRows, 1>(packed, C, vec);
+    default: return int_kernel_m<kIntByteRows, 2>(packed, C, vec);
+  }
+}
+
+cudaError_t allow_int_smem(bool packed, int C, bool vec, int byte_rows,
+                           int blocks) {
+  return allow_smem(int_kernel(packed, C, vec, byte_rows, blocks),
+                    &g_int_smem[8 * int_instance(byte_rows, blocks) +
+                                4 * (int)packed + 2 * (int)vec + (C - 2)]);
+}
+
+// vec asks for 8-byte loads: every array and bin row must allow them (a
+// single bin row of any length does: its ragged end takes byte loads)
+bool bad_vec(bool vec, const void* bins, const void* gq, const void* hq,
+             int64_t n, int rows) {
+  const auto off = [](const void* p) { return (uintptr_t)p % kIntLaneRows; };
+  return vec && (off(bins) || off(gq) || off(hq) ||
+                 (rows > 1 && n % kIntLaneRows));
+}
+
+bool bad_int_plan(int F, int W, int B, int C, bool packed, int Fg, int K,
+                  int copies, int byte_rows, int blocks, int P,
+                  int64_t rows_per_part, int grid) {
+  const int most = packed ? 2 * byte_rows : byte_rows;
+  return (C != 2 && C != 3) ||
+         (byte_rows != kIntByteRows / 2 && byte_rows != kIntByteRows) ||
+         (blocks != 1 && blocks != 2) || Fg < 1 || Fg > F || Fg > most ||
+         (packed && (Fg & 1) && Fg < F) || K < 1 || K > kMaxClasses ||
+         (K & (K - 1)) || copies < 1 || copies > kIntCopies ||
+         (copies & (copies - 1)) || P < 1 || grid < 1 ||
+         rows_per_part < 1 || rows_per_part % kIntLaneRows ||
+         int_smem_bytes(W, B, C, Fg, K, copies) > kSmemMax;
+}
+
+// the int8 tier's histogram pass over the rows' slots, then its flush,
+// which writes every cell of out [W, F, B, C]
+int launch_int_histogram(bool packed, int C, bool vec, const uint8_t* bins,
                          const int8_t* gq, const int8_t* hq,
                          const uint8_t* slot, int64_t n, int F, int B, int W,
-                         int R, int64_t rows_per_range, int* out,
-                         cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, (size_t)W * F * B * C * sizeof(int), stream);
+                         int Fg, int K, int copies, int byte_rows,
+                         int blocks, int grid, int P, int64_t rows_per_part,
+                         int* part, int* out, cudaStream_t stream) {
+  const int smem = int_smem_bytes(W, B, C, Fg, K, copies);
+  cudaError_t err = allow_int_smem(packed, C, vec, byte_rows, blocks);
   if (err != cudaSuccess) return (int)err;
-  if (C == 2)
-    return packed ? launch_int_t<true, 2>(bins, gq, hq, slot, n, F, B, W, R,
-                                          rows_per_range, out, stream)
-                  : launch_int_t<false, 2>(bins, gq, hq, slot, n, F, B, W, R,
-                                           rows_per_range, out, stream);
-  return packed ? launch_int_t<true, 3>(bins, gq, hq, slot, n, F, B, W, R,
-                                        rows_per_range, out, stream)
-                : launch_int_t<false, 3>(bins, gq, hq, slot, n, F, B, W, R,
-                                         rows_per_range, out, stream);
+  const IntKernel kernel = int_kernel(packed, C, vec, byte_rows, blocks);
+  record_pass(1, stream);
+  kernel<<<grid, kIntThreads, smem, stream>>>(bins, gq, hq, slot, n, F, B, W,
+                                              Fg, K, copies, P,
+                                              rows_per_part, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  record_pass(2, stream);
+  const int64_t per = (int64_t)W * F * B * C;
+  const int flush = (int)i64min((per + 255) / 256, 4096);
+  reduce_int_partials_kernel<<<flush, 256, 0, stream>>>(part, P, F, B, W, C,
+                                                        Fg, K, out);
+  record_pass(3, stream);
+  return (int)cudaGetLastError();
 }
 
 template <bool PACKED, bool CAT>
@@ -613,7 +866,36 @@ int hist_wave_resident_blocks(int packed, int W, int B, int Fg, int K,
   return err == cudaSuccess ? blocks : -1;
 }
 
-// Sets (events: 4 cudaEvent_t) or clears (nullptr) the events every f32
+// Bytes of dynamic shared memory one int8-tier histogram block asks
+// for: ``copies`` tiles of Fg features, ceil(W / K) slots, B bins and C
+// channels.
+int hist_wave_int_smem_bytes(int W, int B, int C, int Fg, int K,
+                             int copies) {
+  return int_smem_bytes(W, B, C, Fg, K, copies);
+}
+
+// Blocks of the int8-tier histogram pass resident on one SM with that
+// shared memory, in the kernel's instance of ``byte_rows`` bin byte rows
+// and the registers of ``blocks`` blocks an SM; 0 when none fit, -1 on an
+// error.
+int hist_wave_int_resident_blocks(int packed, int C, int vec, int W, int B,
+                                  int Fg, int K, int copies, int byte_rows,
+                                  int blocks) {
+  const int smem = int_smem_bytes(W, B, C, Fg, K, copies);
+  if ((C != 2 && C != 3) ||
+      (byte_rows != kIntByteRows / 2 && byte_rows != kIntByteRows) ||
+      (blocks != 1 && blocks != 2) ||
+      allow_int_smem(packed != 0, C, vec != 0, byte_rows, blocks) !=
+          cudaSuccess)
+    return -1;
+  int got = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &got, int_kernel(packed != 0, C, vec != 0, byte_rows, blocks),
+      kIntThreads, smem);
+  return err == cudaSuccess ? got : -1;
+}
+
+// Sets (events: 4 cudaEvent_t) or clears (nullptr) the events every
 // launch records at its pass boundaries, for timing the passes apart.
 void hist_wave_pass_events(void* const* events) {
   g_pass_events.store(events);
@@ -662,39 +944,60 @@ int fused_partition_histogram_launch(
 }
 
 // K2q: as K2 on int8 gq, hq; out: [W, F, B, C] int32 exact sums (C = 3:
-// g, h, count; C = 2: g, h).
+// g, h, count; C = 2: g, h). The histogram pass runs ``grid`` blocks over
+// P row parts of ``rows_per_part`` rows (a multiple of 8) and units of Fg
+// features and one of K slot classes, with ``copies`` copies of each
+// cell, in the kernel's instance of ``byte_rows`` (4 or 8) bin byte rows
+// a group and ``blocks`` (1 or 2) blocks an SM (ops/hist_wave.py
+// int_plan); vec: bins, gq, hq and every bin row (n % 8 == 0, or one
+// row) 8-byte aligned, read 8 bytes at a time.
+// part: [P, ceil(F / Fg) * K, Fg, ceil(W / K), B, C] int32 scratch.
 int wave_histogram_int_launch(const uint8_t* bins, const int8_t* gq,
                               const int8_t* hq, const int* leaf,
                               const int* wl, int W, long long n, int F,
-                              int B, int C, int packed, uint8_t* slot,
-                              int R, long long rows_per_range, int* out,
+                              int B, int C, int packed, int vec, int Fg,
+                              int K, int copies, int byte_rows, int blocks,
+                              int grid, uint8_t* slot, int* part, int P,
+                              long long rows_per_part, int* out,
                               void* stream) {
-  if (bad_shape(W, B, packed) || (C != 2 && C != 3))
+  if (bad_shape(W, B, packed) ||
+      bad_int_plan(F, W, B, C, packed, Fg, K, copies, byte_rows, blocks, P,
+                   rows_per_part, grid) ||
+      bad_vec(vec != 0, bins, gq, hq, n, packed ? (F + 1) / 2 : F))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  record_pass(0, s);
   wave_slots_kernel<<<row_blocks(n), 256, 0, s>>>(leaf, wl, W, n, slot);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_int_histogram(packed, C, bins, gq, hq, slot, n, F, B, W, R,
-                              rows_per_range, out, s);
+  return launch_int_histogram(packed, C, vec != 0, bins, gq, hq, slot, n, F,
+                              B, W, Fg, K, copies, byte_rows, blocks, grid,
+                              P, rows_per_part, part, out, s);
 }
 
 // K1q: as K1 on int8 gq, hq into [W, F, B, C] int32; with cnt_r (count
-// proxy, [W] int32), also each slot's in-bag rows moved right.
+// proxy, [W] int32), also each slot's in-bag rows moved right. The plan
+// arguments as for K2q.
 int fused_partition_histogram_int_launch(
     const uint8_t* bins, const int8_t* gq, const int8_t* hq,
     const float* mask, const int* leaf, const int* tbl, int W, long long n,
-    int F, int B, int C, int packed, int any_cat, int* leaf_out,
-    uint8_t* slot, int* cnt_r, int R, long long rows_per_range, int* out,
-    void* stream) {
-  if (bad_shape(W, B, packed) || (C != 2 && C != 3))
+    int F, int B, int C, int packed, int any_cat, int vec, int Fg, int K,
+    int copies, int byte_rows, int blocks, int grid, int* leaf_out,
+    uint8_t* slot, int* cnt_r, int* part, int P, long long rows_per_part,
+    int* out, void* stream) {
+  if (bad_shape(W, B, packed) ||
+      bad_int_plan(F, W, B, C, packed, Fg, K, copies, byte_rows, blocks, P,
+                   rows_per_part, grid) ||
+      bad_vec(vec != 0, bins, gq, hq, n, packed ? (F + 1) / 2 : F))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  record_pass(0, s);
   const int err = launch_partition(packed, any_cat, bins, mask, leaf, tbl,
                                    W, n, leaf_out, slot, cnt_r, s);
   if (err != 0) return err;
-  return launch_int_histogram(packed, C, bins, gq, hq, slot, n, F, B, W, R,
-                              rows_per_range, out, s);
+  return launch_int_histogram(packed, C, vec != 0, bins, gq, hq, slot, n, F,
+                              B, W, Fg, K, copies, byte_rows, blocks, grid,
+                              P, rows_per_part, part, out, s);
 }
 
 }  // extern "C"

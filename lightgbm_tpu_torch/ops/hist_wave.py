@@ -56,6 +56,7 @@ bins in the same order as an unpacked one and gives its bits.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -78,7 +79,6 @@ TBL_ROWS = 18
 MAX_WAVE = 64            # slot ids are one byte (csrc/hist_wave.cu)
 MAX_BINS = 256           # the kernels read uint8 bins
 MAX_BINS_PACKED = 16     # two 4-bit bins per byte
-INT_TARGET_BLOCKS = 8 * 132  # int8 histogram blocks: 8 per H100 SM
 TILE_ROWS = 1024         # rows an f32 histogram block stages at a time
 # the f32 pass's limits and the card's (csrc/hist_wave.cu; an H100 SM)
 WARP_COUNTS = (4, 8, 16)  # warps per f32 histogram block
@@ -95,6 +95,12 @@ THREAD_REGISTERS = {4: 80, 8: 64, 16: 64}
 NUM_SMS = 132            # H100 SXM: sizes the ranges, not the grid
 TARGET_WARPS = 32        # resident warps per SM the plan aims for
 ITEM_WAVES = 4           # work items per resident block, about
+# the int8 pass's limits (csrc/hist_wave.cu int_group_histogram_kernel)
+INT_WARPS = 16           # warps per int8 histogram block
+INT_LANE_ROWS = 8        # rows a lane loads a step: one 8-byte load an array
+INT_BYTE_ROWS = 8        # bin byte rows a block stages: 8 features, or 16
+INT_COPIES = (1, 2, 4, 8, 16)  # copies of a cell: lane l adds to l % copies
+INT_SMALL_TILE = 4096    # bytes of a feature's [W, B, C] tile held small
 
 # kernel launches since the last reset (plain versions never count), in
 # all and by variant
@@ -124,11 +130,14 @@ _SIGNATURES = {
     "fused_partition_histogram_launch": [
         _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _I, _LL, _P, _P],
+    "hist_wave_int_smem_bytes": [_I, _I, _I, _I, _I, _I],
+    "hist_wave_int_resident_blocks": [_I] * 10,
     "wave_histogram_int_launch": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
-                                  _I, _P, _I, _LL, _P, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                                  _I, _LL, _P, _P],
     "fused_partition_histogram_int_launch": [
-        _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-        _LL, _P, _P],
+        _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _P, _P, _P, _P, _I, _LL, _P, _P],
 }
 _fns = {}
 
@@ -230,61 +239,248 @@ def row_ranges(n: int, num_features: int, num_slots: int, num_bins: int):
     return p.ranges, p.rows_per_range
 
 
-def int_row_ranges(n: int, num_features: int):
-    """(ranges R, rows per range) of the int8 pass: about
-    INT_TARGET_BLOCKS blocks of (feature, range), each range at least one
-    tile; its sums do not depend on them."""
-    want = -(-INT_TARGET_BLOCKS // max(num_features, 1))
-    per = max(-(-n // max(1, min(want, -(-n // TILE_ROWS)))), 1)
-    return max(-(-n // per), 1), per
+def int_smem_bytes(W: int, B: int, C: int, fg: int, classes: int,
+                   copies: int) -> int:
+    """Dynamic shared memory of one int8 histogram block: the unit's
+    int32 tile, C channels of fg features, ceil(W / classes) slots and B
+    bins, ``copies`` copies of each cell; the library's
+    ``hist_wave_int_smem_bytes``."""
+    return copies * C * fg * -(-W // classes) * B * 4
 
 
-_resident = {}
+def _int_blocks_per_sm(smem: int) -> int:
+    """int8 histogram blocks one SM holds: two where their shared memory
+    allows, else one; 0 when none fits. The plan's ``blocks``, which
+    also picks the kernel's instance (64 registers a thread for two, 128
+    for one); the card's own count is ``hist_wave_int_resident_blocks``."""
+    if smem > SMEM_MAX:
+        return 0
+    return 2 if 2 * (smem + SMEM_RESERVED) <= SMEM_PER_SM else 1
+
+
+def _int_groups(F: int, packed4: bool):
+    """The feature group sizes an int8 block may take: up to
+    INT_BYTE_ROWS bin byte rows; packed, whole byte rows (an even group,
+    so that every group starts at a byte row) unless one group holds
+    every feature."""
+    if not packed4:
+        return range(1, min(F, INT_BYTE_ROWS) + 1)
+    return sorted({fg for fg in range(2, 2 * INT_BYTE_ROWS + 1, 2)
+                   if fg <= F} | ({F} if F <= 2 * INT_BYTE_ROWS else set()))
+
+
+class IntPlan(NamedTuple):
+    fg: int              # features per group
+    classes: int         # slot classes K: a unit owns the slots s % K == c
+    copies: int          # copies of each cell (lane l adds to copy l % copies)
+    byte_rows: int       # the kernel instance's bin byte rows, 4 or 8
+    blocks: int          # blocks an SM counted on: the instance's registers
+    warps: int           # warps per block
+    units: int           # ceil(F / fg) * classes
+    parts: int           # row parts P
+    rows_per_part: int   # a multiple of INT_LANE_ROWS
+    items: int           # work items, units * parts
+    smem: int            # dynamic shared memory per block
+
+
+def int_plans(n: int, num_features: int, num_slots: int, num_bins: int,
+              channels: int, packed4: bool) -> list:
+    """Every plan of the int8 histogram pass that fits an SM: each
+    feature group size, number of slot classes and copies of a cell,
+    cut into row parts by ``int_plan_with``."""
+    F, W = max(num_features, 1), num_slots
+    out = []
+    K = 1
+    while K <= min(W, MAX_CLASSES):
+        for fg in _int_groups(F, packed4):
+            for copies in INT_COPIES:
+                if _int_blocks_per_sm(int_smem_bytes(W, num_bins, channels,
+                                                     fg, K, copies)):
+                    out.append(int_plan_with(n, F, W, num_bins, channels,
+                                             packed4, fg, K, copies))
+        K *= 2
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def int_plan(n: int, num_features: int, num_slots: int, num_bins: int,
+             channels: int, packed4: bool) -> IntPlan:
+    """The int8 histogram pass's launch plan for n rows of F features
+    into W slots of B bins and C channels (csrc/hist_wave.cu
+    int_group_histogram_kernel), one of ``int_plans``. A unit is a group
+    of fg features and a slot class; each unit stages every row again, so
+    the plan takes the fewest units (ceil(F / fg) * K), then the most
+    blocks an SM, then the fewest idle features in the last group, then
+    the fewest classes (classes split the counted rows unevenly), each
+    unit with as many copies of its cells as fit (up to INT_COPIES[-1]).
+    Where a feature's whole tile is small (W * B * C cells of at most
+    INT_SMALL_TILE bytes, the root pass at W = 1), the lanes of a warp
+    meet on few cells, by chance or because most rows share a bin: there
+    the most copies come first. Raises when no plan fits an SM."""
+    F, W, B, C = max(num_features, 1), num_slots, num_bins, channels
+    most = {}
+    for p in int_plans(n, F, W, B, C, packed4):
+        got = most.setdefault((p.fg, p.classes), p)
+        if p.copies > got.copies:
+            most[(p.fg, p.classes)] = p
+    if not most:
+        raise LightGBMError(f"no int8 histogram plan fits an SM: W={W}, "
+                            f"B={B}, C={C}")
+    small = W * B * C * 4 <= INT_SMALL_TILE
+    return max(most.values(), key=lambda p: (
+        p.copies if small else 0, -p.units, p.blocks,
+        F - -(-F // p.fg) * p.fg, -p.classes))
+
+
+def int_plan_with(n: int, num_features: int, num_slots: int, num_bins: int,
+                  channels: int, packed4: bool, fg: int, classes: int,
+                  copies: int, byte_rows=None, blocks=None) -> IntPlan:
+    """The int8 plan of units of ``fg`` features and one of ``classes``
+    slot classes with ``copies`` copies of each cell. Its kernel instance
+    reads INT_BYTE_ROWS // 2 bin byte rows where the group's fit, else
+    INT_BYTE_ROWS, and has the registers of two blocks an SM where their
+    shared memory fits, else of one; ``byte_rows`` and ``blocks`` ask for
+    another instance instead, to time it against that choice. The rows
+    are cut into parts so that the work items fill one wave of the
+    ``blocks`` resident on every SM (a part starts on an 8-row vector),
+    unless the partial tiles (written and read again by the flush) would
+    outweigh the rows' own bytes and every SM has an item."""
+    F, W, B, C = max(num_features, 1), num_slots, num_bins, channels
+    smem = int_smem_bytes(W, B, C, fg, classes, copies)
+    fits = _int_blocks_per_sm(smem)
+    if fits < 1:
+        raise LightGBMError(f"int8 histogram units of {fg} features, "
+                            f"{classes} classes and {copies} copies fit no "
+                            f"SM ({smem} bytes)")
+    need = -(-fg // 2) if packed4 else fg
+    byte_rows = byte_rows or (INT_BYTE_ROWS // 2
+                              if need <= INT_BYTE_ROWS // 2
+                              else INT_BYTE_ROWS)
+    blocks = blocks or fits
+    if byte_rows not in (INT_BYTE_ROWS // 2, INT_BYTE_ROWS) \
+            or need > byte_rows or blocks not in (1, 2):
+        raise LightGBMError(f"no int8 histogram instance of {byte_rows} "
+                            f"byte rows and {blocks} blocks an SM holds "
+                            f"{fg} features")
+    units = -(-F // fg) * classes
+    vectors = max(-(-n // INT_LANE_ROWS), 1)
+    by_bytes = n * (F + 3) // (units * fg * -(-W // classes) * B * C * 8)
+    P = max(min(blocks * NUM_SMS // units, vectors,
+                max(by_bytes, NUM_SMS // units)), 1)
+    per = -(-vectors // P) * INT_LANE_ROWS
+    P = max(-(-n // per), 1)
+    return IntPlan(fg, classes, copies, byte_rows, blocks, INT_WARPS, units,
+                   P, per, units * P, smem)
+
+
+_int_choice = {}
+
+
+@contextlib.contextmanager
+def use_int_plan(fg: int, classes: int, copies: int, byte_rows=None,
+                 blocks=None):
+    """Within this block every int8 launch runs the plan
+    ``int_plan_with`` makes of these choices for its own shape, not
+    ``int_plan``'s: for timing plans and kernel instances against each
+    other (int8_plan_sweep.py). Integer sums do not depend on the plan."""
+    _int_choice.update(fg=fg, classes=classes, copies=copies,
+                       byte_rows=byte_rows, blocks=blocks)
+    try:
+        yield
+    finally:
+        _int_choice.clear()
+
+
+def int_aligned(*tensors) -> bool:
+    """Whether the int8 pass may read 8 bytes at a time from these
+    contiguous byte tensors: each one's data 8-byte aligned, and so each
+    row of a 2-D one (rows of a multiple of 8 bytes, or a single row,
+    whose ragged end takes byte loads)."""
+    return all(t.data_ptr() % INT_LANE_ROWS == 0
+               and (t.dim() == 1 or t.shape[0] == 1
+                    or t.stride(0) % INT_LANE_ROWS == 0)
+               for t in tensors)
+
+
+def _int_launch_args(bins_t, g, h, n, F, W, B, C, packed4, dev) -> tuple:
+    """(plan arguments, partial-tile scratch) of an int8 launch: the
+    library's vec, Fg, K, copies, byte rows, blocks, grid, then P and
+    rows per part."""
+    vec = int_aligned(bins_t, g, h)
+    lp = launch_int_plan(n, F, W, B, C, packed4, vec, dev)
+    part = torch.empty(lp["items"] * lp["fg"] * -(-W // lp["classes"]) * B
+                       * C, dtype=torch.int32, device=dev)
+    return ((int(vec), lp["fg"], lp["classes"], lp["copies"],
+             lp["byte_rows"], lp["blocks"], lp["grid"]),
+            (lp["parts"], lp["rows_per_part"]), part)
+
+
 _sms = {}
 _launches = {}
 
 
-def launch_plan(n: int, F: int, W: int, B: int, packed4: bool,
-                dev: torch.device) -> dict:
-    """``hist_plan`` and the grid of an f32 launch on ``dev``: one wave
-    of the blocks the card holds resident (its own occupancy count),
-    at most one per work item."""
-    key = (n, F, W, B, bool(packed4), dev.index)
+def _card_plan(plan, items: int, dev: torch.device, smem_query: tuple,
+               resident_query: tuple) -> dict:
+    """``plan`` on ``dev`` as a dict, with ``blocks_per_sm``, the blocks
+    of its kernel the card holds resident on an SM (its own occupancy
+    count: ``resident_query``, a library function's name and arguments),
+    and ``grid``, one wave of those blocks and at most one per work item
+    (``items``). The library's byte count (``smem_query``) must agree
+    with the plan's shared memory, and a block must fit an SM."""
+    key = (dev.index, plan, resident_query)
     got = _launches.get(key)
     if got is not None:
         return got
-    plan = hist_plan(n, F, W, B)
-    rkey = (dev.index, bool(packed4), W, B, plan.fg, plan.classes,
-            plan.warps)
-    resident = _resident.get(rkey)
-    if resident is None:
-        with on_device(dev):
-            lib_smem = _fn("hist_wave_smem_bytes")(W, B, plan.fg,
-                                                   plan.classes)
-            resident = _fn("hist_wave_resident_blocks")(
-                int(packed4), W, B, plan.fg, plan.classes, plan.warps)
-        if lib_smem != plan.smem:
-            raise LightGBMError(f"histogram plan: {plan.smem} bytes of "
-                                f"shared memory, the kernel's {lib_smem}")
-        if resident < 1:
-            raise LightGBMError(f"histogram plan {plan} fits no SM "
-                                f"({resident})")
-        _resident[rkey] = resident
+    with on_device(dev):
+        lib_smem = _fn(smem_query[0])(*smem_query[1:])
+        resident = _fn(resident_query[0])(*resident_query[1:])
+    if lib_smem != plan.smem:
+        raise LightGBMError(f"{plan}: {plan.smem} bytes of shared memory, "
+                            f"the kernel's {lib_smem}")
+    if resident < 1:
+        raise LightGBMError(f"{plan} fits no SM ({resident})")
     sms = _sms.get(dev.index)
     if sms is None:
         sms = _sms[dev.index] = \
             torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(plan.groups * plan.ranges, resident * sms)
     got = _launches[key] = dict(plan._asdict(), blocks_per_sm=resident,
-                                grid=grid)
+                                grid=min(items, resident * sms))
     return got
 
 
+def launch_plan(n: int, F: int, W: int, B: int, packed4: bool,
+                dev: torch.device) -> dict:
+    """``hist_plan`` of an f32 launch on ``dev``, with its grid
+    (``_card_plan``)."""
+    p = hist_plan(n, F, W, B)
+    return _card_plan(p, p.groups * p.ranges, dev,
+                      ("hist_wave_smem_bytes", W, B, p.fg, p.classes),
+                      ("hist_wave_resident_blocks", int(packed4), W, B,
+                       p.fg, p.classes, p.warps))
+
+
+def launch_int_plan(n: int, F: int, W: int, B: int, C: int, packed4: bool,
+                    vec: bool, dev: torch.device) -> dict:
+    """``int_plan`` (or ``use_int_plan``'s) of an int8 launch on ``dev``,
+    with its grid (``_card_plan``); ``vec``: the 8-byte loads
+    (``int_aligned``)."""
+    p = (int_plan_with(n, F, W, B, C, bool(packed4), **_int_choice)
+         if _int_choice else int_plan(n, F, W, B, C, bool(packed4)))
+    got = _card_plan(p, p.items, dev,
+                     ("hist_wave_int_smem_bytes", W, B, C, p.fg, p.classes,
+                      p.copies),
+                     ("hist_wave_int_resident_blocks", int(packed4), C,
+                      int(vec), W, B, p.fg, p.classes, p.copies,
+                      p.byte_rows, p.blocks))
+    return dict(got, vec=bool(vec))
+
+
 def pass_times(fn, runs: int) -> dict:
-    """Card milliseconds of the f32 pass's slot, histogram and reduce
-    kernels, each averaged over ``runs`` calls of ``fn`` (one f32 K1 or
-    K2 launch on the current device): CUDA events that the launches
-    record at their pass boundaries while this runs."""
+    """Card milliseconds of a launch's slot, histogram and reduce (the
+    int8 tier's flush) kernels, each averaged over ``runs`` calls of
+    ``fn`` (one K1 or K2 launch of any tier on the current device): CUDA
+    events that the launches record at their pass boundaries while this
+    runs."""
     names = ("slot", "histogram", "reduce")
     sums = dict.fromkeys(names, 0.0)
     for _ in range(runs):
@@ -588,10 +784,13 @@ def wave_histogram(bins_t, g, h, leaf_ids, wave_leaves, num_bins: int, *,
             leaf_ids.data_ptr(), wave_leaves.data_ptr())
     with on_device(dev):
         if int8:
-            R, per = int_row_ranges(n, F)
+            plan, parts, part = _int_launch_args(bins_t, g, h, n, F, W,
+                                                 num_bins, shape[-1],
+                                                 packed4, dev)
             err = _fn("wave_histogram_int_launch")(
-                *ptrs, W, n, F, num_bins, shape[-1], int(packed4),
-                slot.data_ptr(), R, per, out.data_ptr(), stream)
+                *ptrs, W, n, F, num_bins, shape[-1], int(packed4), *plan,
+                slot.data_ptr(), part.data_ptr(), *parts, out.data_ptr(),
+                stream)
         else:
             lp = launch_plan(n, F, W, num_bins, packed4, dev)
             part = torch.empty((lp["ranges"], F, W, num_bins, 3),
@@ -651,8 +850,8 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
         out = torch.zeros(shape, dtype=dtype, device=dev)
         cnt = torch.zeros(W, dtype=torch.int32, device=dev)
     else:
-        # every cell and count is written by the launch (the f32 reduce
-        # pass, the int8 pass's and the slot pass's own memsets)
+        # every cell and count is written by the launch (the reduce
+        # passes, the slot pass's own memset)
         out = torch.empty(shape, dtype=dtype, device=dev)
         cnt = torch.empty(W, dtype=torch.int32, device=dev) \
             if count_proxy else None
@@ -662,12 +861,14 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                 sample_mask.data_ptr(), leaf_ids.data_ptr(), tbl.data_ptr())
         with on_device(dev):
             if int8:
-                R, per = int_row_ranges(n, F)
+                plan, parts, part = _int_launch_args(bins_t, g, h, n, F, W,
+                                                     num_bins, shape[-1],
+                                                     packed4, dev)
                 err = _fn("fused_partition_histogram_int_launch")(
                     *ptrs, W, n, F, num_bins, shape[-1], int(packed4),
-                    int(any_cat), leaf_out.data_ptr(), slot.data_ptr(),
-                    cnt.data_ptr() if count_proxy else None, R, per,
-                    out.data_ptr(), stream)
+                    int(any_cat), *plan, leaf_out.data_ptr(),
+                    slot.data_ptr(), cnt.data_ptr() if count_proxy else None,
+                    part.data_ptr(), *parts, out.data_ptr(), stream)
             else:
                 lp = launch_plan(n, F, W, num_bins, packed4, dev)
                 part = torch.empty((lp["ranges"], F, W, num_bins, 3),

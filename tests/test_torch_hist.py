@@ -12,18 +12,27 @@ ids only, the two JAX paths disagree outside. The f32 kernels' launch
 plan (``hist_plan``: feature groups, slot classes, row ranges) is
 checked here on the CPU: it covers every (feature, row) once and fits
 a block's shared memory, and the plain version in the kernels' order of
-addition stays within the f32 summation bound of the JAX oracle. The
+addition stays within the f32 summation bound of the JAX oracle; so is
+the int8 pass's (``int_plan``: feature groups, slot classes, cell
+copies, row parts), which takes every (feature, row, slot) once. The
 kernels run only on a CUDA card: the tests that hold them against the
-plain versions skip without one.
+plain versions skip without one (on a card without JAX:
+``pytest --noconftest tests/test_torch_hist.py -k "kernel and not jax"``).
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from lightgbm_tpu.ops.hist_wave import (fused_partition_histogram_xla,
-                                        wave_histogram_xla)
-from lightgbm_tpu.ops.predict import add_leaf_outputs as j_add_leaf_outputs
+try:
+    import jax.numpy as jnp
+    from lightgbm_tpu.ops.hist_wave import (fused_partition_histogram_xla,
+                                            wave_histogram_xla)
+    from lightgbm_tpu.ops.predict import \
+        add_leaf_outputs as j_add_leaf_outputs
+except ImportError:
+    # a machine with a card and no JAX runs the card tests alone:
+    # pytest --noconftest tests/test_torch_hist.py -k "kernel and not jax"
+    jnp = None
 from lightgbm_tpu_torch.ops import hist_wave as hw
 from lightgbm_tpu_torch.ops import predict as pr
 from lightgbm_tpu_torch.utils.log import LightGBMError
@@ -146,7 +155,8 @@ def test_row_ranges_cover_every_row():
         ranges, per = hw.row_ranges(n, F, W, B)
         assert ranges * per >= n > (ranges - 1) * per or n == ranges - 1 == 0
         assert per % hw.TILE_ROWS == 0
-        ranges, per = hw.int_row_ranges(n, F)
+        p = hw.int_plan(n, F, W, B, 3, False)
+        ranges, per = p.parts, p.rows_per_part
         assert ranges * per >= n > (ranges - 1) * per or n == ranges - 1 == 0
 
 
@@ -258,6 +268,110 @@ def test_kernel_order_plain_within_f32_bound_of_jax(F, n, B, W, active):
     assert bool((err <= _bound(w64[..., 2:3], wabs[..., :2])).all())
 
 
+def _int_covered(p, n, F, W):
+    """[F, n, W] counts of the work items of an int8 plan that take each
+    (feature, row, slot): item q = (row part q // units, unit), unit =
+    (feature group, slot class)."""
+    cover = np.zeros((F, n, W), np.int32)
+    slots = np.arange(W)
+    for q in range(p.items):
+        r, u = divmod(q, p.units)
+        grp, c = divmod(u, p.classes)
+        f0 = grp * p.fg
+        cover[f0:f0 + p.fg, r * p.rows_per_part:(r + 1) * p.rows_per_part,
+              slots % p.classes == c] += 1
+    return cover
+
+
+@pytest.mark.parametrize("n,F,W,B,C,packed4", [
+    (0, 3, 1, 16, 2, False), (1, 1, 1, 16, 3, False),
+    (15, 5, 64, 256, 3, False), (17, 9, 64, 16, 2, True),
+    (17, 2000, 1, 256, 3, False), (15, 2000, 64, 16, 2, True),
+    (17, 7, 40, 256, 3, False), (15, 1, 64, 16, 2, True),
+    (9000, 28, 64, 64, 2, False), (20_000, 53, 15, 256, 3, False)])
+def test_int_plan_covers_every_feature_row_and_slot_once(n, F, W, B, C,
+                                                          packed4):
+    """int_plan at edge shapes (no row, one row, rows off a multiple of
+    16, one slot and 64, 16 and 256 bins, packed bins with an odd feature
+    count, 2000 features): its items take each (feature, row, slot)
+    once, each part starting on an 8-row vector, and a packed group
+    starts on a byte row."""
+    p = hw.int_plan(n, F, W, B, C, packed4)
+    assert (_int_covered(p, n, F, W) == 1).all()
+    assert p.units == -(-F // p.fg) * p.classes
+    assert p.items == p.units * p.parts
+    assert p.rows_per_part % hw.INT_LANE_ROWS == 0
+    assert p.parts * p.rows_per_part >= n > (p.parts - 1) * p.rows_per_part \
+        or n == p.parts - 1 == 0
+    assert p.classes & (p.classes - 1) == 0 and p.classes <= W
+    assert p.copies in hw.INT_COPIES
+    assert p.fg <= (2 if packed4 else 1) * hw.INT_BYTE_ROWS
+    assert not packed4 or p.fg % 2 == 0 or p.fg >= F
+    assert p.smem == hw.int_smem_bytes(W, B, C, p.fg, p.classes, p.copies)
+    assert (-(-p.fg // 2) if packed4 else p.fg) <= p.byte_rows
+    assert p.byte_rows in (hw.INT_BYTE_ROWS // 2, hw.INT_BYTE_ROWS)
+    assert p.blocks == 1 or 2 * (p.smem + hw.SMEM_RESERVED) <= hw.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("F,C", [(1, 3), (8, 3), (28, 2), (53, 3)])
+def test_int_plan_fits_shared_memory(F, C):
+    """Every (W, B) the wrappers take (1 <= W <= 64, 1 <= B <= 256; packed
+    bins B <= 16): the block's shared memory fits the card's 232,448
+    bytes and at least one block fits an SM."""
+    for packed4 in (False, True):
+        for W in range(1, hw.MAX_WAVE + 1):
+            for B in range(1, (16 if packed4 else hw.MAX_BINS) + 1):
+                p = hw.int_plan(1_000_000, F, W, B, C, packed4)
+                assert p.smem <= hw.SMEM_MAX
+                assert p.blocks in (1, 2)
+
+
+@pytest.mark.parametrize("n,F,W,B,C,packed4", [
+    (11_000_000, 28, 64, 64, 2, False), (11_000_000, 28, 64, 16, 2, True),
+    (10_000_000, 8, 40, 256, 3, False), (1_000_000, 52, 15, 256, 3, False),
+    (11_000_000, 28, 1, 64, 2, False), (11_000_000, 28, 1, 16, 2, True),
+    (1_000_000, 52, 1, 256, 3, False)])
+def test_int_plan_at_the_main_path_shapes(n, F, W, B, C, packed4):
+    """The int8 launches of the main path (K1q count-proxy at the HIGGS
+    shape, packed, the airline tile of [40, 256, 3], LRB; K2q at W = 1):
+    at least 16 resident warps an SM, work items that fill 80% or more
+    of one wave of them and no more, the most copies of the root pass's
+    small tiles, and at the airline shape slot classes: its [40, 256, 3]
+    tile leaves room for one feature a block, two classes for three, so
+    that the rows are staged 6 times, not 8. (Two blocks an SM would take
+    twice the units there: measured slower, PERF.md.)"""
+    p = hw.int_plan(n, F, W, B, C, packed4)
+    blocks = p.blocks
+    assert blocks * p.warps >= 16
+    assert 0.8 * blocks * hw.NUM_SMS <= p.items <= blocks * hw.NUM_SMS
+    if W == 1:
+        assert p.copies == hw.INT_COPIES[-1]
+    if W == 40:
+        assert hw.int_smem_bytes(W, B, C, 2, 1, 1) > hw.SMEM_MAX
+        assert p.classes == 2 and p.fg == 3 and p.units == 6
+
+
+@pytest.mark.parametrize("n,F,W,B,C,packed4", [
+    (11_000_000, 28, 64, 64, 2, False), (11_000_000, 28, 1, 16, 2, True),
+    (10_000_000, 8, 40, 256, 3, False), (17, 9, 64, 16, 2, True)])
+def test_int_plan_is_one_of_int_plans(n, F, W, B, C, packed4):
+    """int_plan picks among int_plans, each of which int_plan_with makes
+    for its own choices; int_plan_with takes another kernel instance
+    where its byte rows hold the group, and refuses one that does not."""
+    plans = hw.int_plans(n, F, W, B, C, packed4)
+    p = hw.int_plan(n, F, W, B, C, packed4)
+    assert p in plans
+    assert all(q == hw.int_plan_with(n, F, W, B, C, packed4, q.fg,
+                                     q.classes, q.copies) for q in plans)
+    wide = hw.int_plan_with(n, F, W, B, C, packed4, p.fg, p.classes,
+                            p.copies, byte_rows=hw.INT_BYTE_ROWS, blocks=1)
+    assert (wide.byte_rows, wide.blocks) == (hw.INT_BYTE_ROWS, 1)
+    assert wide.parts * wide.rows_per_part >= n
+    with pytest.raises(LightGBMError):
+        hw.int_plan_with(n, F, W, B, C, packed4, 10 if packed4 else 5, 1, 1,
+                         byte_rows=hw.INT_BYTE_ROWS // 2)
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros((1, 4), dtype=torch.uint8, device="meta")
     with pytest.raises(LightGBMError):
@@ -326,34 +440,94 @@ def test_leaf_gather_kernel(cuda):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("B,W,proxy", [(64, 64, True), (256, 40, False),
-                                       (16, 64, True), (16, 30, False)])
-def test_int8_kernels_bit_equal_to_plain(cuda, B, W, proxy):
+def _int8_case(case, B, W, proxy):
+    """Inputs of one int8 launch shape of the card tests, on the CPU:
+    (bins as the kernel reads them, gq, hq, mask, leaf ids, in-bag leaf
+    ids, wave leaves, split table, F, wrapper keywords)."""
+    F = dict(airline=8, packed_odd=9, one_row=1, packed_pair=2).get(case, 7)
+    n = 300_000 if case in ("random", "one_cell", "airline",
+                            "packed_odd") else 300_001
+    r, bins, g, h, mask, leaf = _inputs(F, n, B, W, seed=B + W + len(case))
+    gq = (r.integers(-127, 128, n) * mask).astype(np.int8)
+    hq = (r.integers(0, 128, n) * mask).astype(np.int8)
+    t = _split_table(r, F, B, W, 2 * W + 2, max(W - 2, 1))
+    wl = np.arange(W, dtype=np.int32)
+    if case == "one_cell":
+        # every counted row in bin 3 of slot 0: slot 0's leaf holds every
+        # row, its split sends them all left, and left is its small child
+        bins[:] = 3
+        leaf[:] = t["wl"][0]
+        wl[0] = t["wl"][0]
+        t["tbin"][0], t["miss"][0], t["small"][0] = 5, 0, t["wl"][0]
+    tbl = _tbl(t)
+    kw = {}
+    if case == "airline":
+        cat = np.stack([(r.random(W) < 0.7).astype(np.int32)]
+                       + [r.integers(-2 ** 31, 2 ** 31, W, dtype=np.int64)
+                          .astype(np.int32) for _ in range(8)])
+        tbl = torch.cat([tbl, torch.from_numpy(cat)])
+        kw = dict(any_cat=True)
+    bt = torch.from_numpy(bins)
+    if case in ("packed_odd", "packed_pair"):
+        bt = hw.pack4(bt)
+        kw = dict(packed4=True, num_features=F)
+    lb = np.where(mask > 0, leaf, -1).astype(np.int32)
+    return (bt, torch.from_numpy(gq), torch.from_numpy(hq),
+            torch.from_numpy(mask), torch.from_numpy(leaf),
+            torch.from_numpy(lb), torch.from_numpy(wl), tbl, F, kw)
+
+
+def _offset_view(t, dev):
+    """``t`` on ``dev`` as a contiguous view one element into a larger
+    tensor: its data start off a 16-byte boundary."""
+    big = torch.zeros(t.shape[0] + 1, dtype=t.dtype, device=dev)
+    big[1:] = t.to(dev)
+    return big[1:]
+
+
+@pytest.mark.parametrize("B,W,proxy,case", [
+    (64, 64, True, "random"), (256, 40, False, "random"),
+    (16, 64, True, "random"), (16, 30, False, "random"),
+    (64, 1, True, "random"), (256, 1, False, "random"),
+    (64, 8, False, "one_cell"), (16, 24, True, "unaligned"),
+    (256, 40, False, "airline"), (16, 64, True, "packed_odd"),
+    (64, 8, False, "one_row"), (16, 24, True, "packed_pair")])
+def test_int8_kernels_bit_equal_to_plain(cuda, B, W, proxy, case):
     """K2q and K1q: integer sums do not depend on order, so two launches
     and the plain version on the card agree bit for bit (every channel,
-    K1's leaf ids and cnt_r)."""
-    F, n = 7, 300_000
-    r, bins, g, h, mask, leaf = _inputs(F, n, B, W, seed=B + W)
-    gq = torch.from_numpy((r.integers(-127, 128, n) * mask).astype(np.int8))
-    hq = torch.from_numpy((r.integers(0, 128, n) * mask).astype(np.int8))
-    args = [torch.from_numpy(a).to(cuda) for a in (bins, mask, leaf)]
-    bins_d, mask_d, leaf_d = args
-    gq, hq = gq.to(cuda), hq.to(cuda)
-    kw = dict(precision="int8", count_proxy=proxy)
-    lb = torch.where(mask_d > 0, leaf_d, -1).to(torch.int32)
-    wl = torch.arange(W, dtype=torch.int32, device=cuda)
-    k2 = [hw.wave_histogram(bins_d, gq, hq, lb, wl, B, **kw) for _ in "ab"]
+    K1's leaf ids and cnt_r): at W = 1 (the root pass), with every
+    counted row in one cell (every lane of a step on one address), with
+    N off a multiple of 16 and gq, hq and the mask as views off a 16-byte
+    boundary (the pass's byte loads), at the airline tile [40, 256, 3]
+    with categorical slots (slot classes), with packed bins of an odd
+    feature count, and with N off a multiple of 8 where the bins are one
+    byte row (one feature, two packed): 8-byte loads with a byte-loaded
+    ragged end."""
+    bt, gq, hq, mask, leaf, lb, wl, tbl, F, kw = _int8_case(case, B, W,
+                                                            proxy)
+    if case == "unaligned":
+        gq, hq, mask = (_offset_view(a, cuda) for a in (gq, hq, mask))
+    bt, gq, hq, mask, leaf, lb, wl, tbl = (
+        a.to(cuda) for a in (bt, gq, hq, mask, leaf, lb, wl, tbl))
+    assert hw.int_aligned(bt, gq, hq) == (case != "unaligned")
+    kw = dict(kw, precision="int8", count_proxy=proxy)
+    kw2 = {k: v for k, v in kw.items() if k != "any_cat"}
+    pkw = {k: v for k, v in kw.items() if k != "precision"}
+    pkw2 = {k: v for k, v in pkw.items() if k != "any_cat"}
+    k2 = [hw.wave_histogram(bt, gq, hq, lb, wl, B, **kw2) for _ in "ab"]
     assert torch.equal(k2[0], k2[1])
-    assert torch.equal(k2[0], hw.wave_histogram_plain(bins_d, gq, hq, lb, wl,
-                                                      B, proxy))
-    tbl = _tbl(_split_table(r, F, B, W, 2 * W + 2, W - 2)).to(cuda)
-    k1 = [hw.fused_partition_histogram(bins_d, gq, hq, mask_d, leaf_d, tbl, B,
-                                       **kw) for _ in "ab"]
-    want = hw.fused_partition_histogram_plain(bins_d, gq, hq, mask_d, leaf_d,
-                                              tbl, B, proxy)
+    assert torch.equal(k2[0], hw.wave_histogram_plain(bt, gq, hq, lb, wl, B,
+                                                      **pkw2))
+    k1 = [hw.fused_partition_histogram(bt, gq, hq, mask, leaf, tbl, B, **kw)
+          for _ in "ab"]
+    want = hw.fused_partition_histogram_plain(bt, gq, hq, mask, leaf, tbl, B,
+                                              **pkw)
     assert len(k1[0]) == len(want) == (3 if proxy else 2)
     for a, b, c in zip(k1[0], k1[1], want):
         assert torch.equal(a, b) and torch.equal(a, c)
+    if case == "one_cell":
+        hist = k1[0][1]
+        assert int(hist[0, :, 3, 2].min()) == int((mask > 0).sum())
 
 
 def test_packed_kernels_equal_unpacked_launch(cuda):

@@ -91,6 +91,18 @@ def _one_torch_thread():
     yield
     torch.set_num_threads(n)
 
+
+@pytest.fixture(autouse=True)
+def _restore_log_levels():
+    """Training with verbose=-1 lowers either package's process-wide log
+    level; later tests in the same worker may read warnings, so each
+    test puts both levels back."""
+    levels = jlog.get_level(), tlog.get_level()
+    yield
+    jlog.set_level(levels[0])
+    tlog.set_level(levels[1])
+
+
 AUC_TOL = 4e-4
 
 

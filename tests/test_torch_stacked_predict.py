@@ -18,13 +18,27 @@ import lightgbm_tpu as lgb
 from conftest import TEST_PARAMS, fit_gbdt
 from lightgbm_tpu.models.gbdt import GBDT as JaxGBDT
 from lightgbm_tpu.ops import stacked_predict as jsp
+from lightgbm_tpu.utils import log as jlog
 from lightgbm_tpu_torch.convert import stacked_from_numpy
 from lightgbm_tpu_torch.models.gbdt import GBDT as TorchGBDT
 from lightgbm_tpu_torch.ops import forest as forest_ops
 from lightgbm_tpu_torch.ops import stacked_predict as tsp
+from lightgbm_tpu_torch.utils import log as tlog
 from lightgbm_tpu_torch.utils.log import LightGBMError
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(autouse=True)
+def _restore_log_levels():
+    """Training with verbose=-1 lowers either package's process-wide log
+    level; later tests in the same worker may read warnings, so each
+    test puts both levels back."""
+    levels = jlog.get_level(), tlog.get_level()
+    yield
+    jlog.set_level(levels[0])
+    tlog.set_level(levels[1])
+
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "golden2")
 GOLDEN = ["binary", "regl2", "regl1", "multic", "catbin", "dart", "goss",
@@ -69,7 +83,10 @@ def _golden_X(name, special=True):
 @pytest.fixture(scope="module")
 def trained_models():
     """Small JAX-trained models: NaN, zero-as-missing and a categorical
-    feature (binary), and multiclass with NaN."""
+    feature (binary), and multiclass with NaN. Module-scoped, it runs
+    before ``_restore_log_levels`` reads the levels, so it puts back
+    the level its verbose=-1 training lowers itself."""
+    level = jlog.get_level()
     r = np.random.default_rng(5)
     n = 1500
     X = r.normal(size=(n, 5))
@@ -82,6 +99,7 @@ def trained_models():
                         zero_as_missing=True, verbose=-1),
                    lgb.Dataset(X, y, categorical_feature=[0]),
                    num_boost_round=8).model_to_string()
+    jlog.set_level(level)
     assert "num_cat=0" not in gb.split("end of trees")[0], \
         "every tree should hold a categorical split"
     yk = ((X[:, 3] > 0).astype(int) + (X[:, 4] > 0.5)).astype(np.float32)

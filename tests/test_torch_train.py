@@ -36,12 +36,14 @@ from lightgbm_tpu.io.dataset import Metadata as JMeta
 from lightgbm_tpu.metrics import create_metrics as j_create_metrics
 from lightgbm_tpu.models.gbdt import GBDT as JaxGBDT
 from lightgbm_tpu.objectives import create_objective as j_create_objective
+from lightgbm_tpu.utils import log as jlog
 from lightgbm_tpu_torch import capi as tcapi
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.io.dataset import Metadata
 from lightgbm_tpu_torch.metrics import create_metrics
 from lightgbm_tpu_torch.models.gbdt import GBDT as TorchGBDT
 from lightgbm_tpu_torch.objectives import create_objective
+from lightgbm_tpu_torch.utils import log as tlog
 
 pytestmark = pytest.mark.torch_port
 
@@ -56,6 +58,18 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _restore_log_levels():
+    """Training with verbose=-1 lowers either package's process-wide log
+    level; later tests in the same worker may read warnings, so each
+    test puts both levels back."""
+    levels = jlog.get_level(), tlog.get_level()
+    yield
+    jlog.set_level(levels[0])
+    tlog.set_level(levels[1])
+
 
 DATA = os.path.join(os.path.dirname(__file__), "data", "golden2")
 G2_PARAMS = {"objective": "binary", "num_leaves": 31, "learning_rate": 0.1,
