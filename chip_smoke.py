@@ -14,11 +14,14 @@ the entry points a user calls:
    (device binning) against the port's float64 host walk;
 4. full width: a HIGGS-shape model (500 trees x 255 leaves, 28
    features, random from a seed) scoring 500,000 rows; every row of
-   both kernel launches against the plain PyTorch version on the same
-   device codes (bit for bit), and a subset against the host walk;
+   both forest-kernel launches against the plain PyTorch version on the
+   same device codes, scores and leaf indices bit for bit
+   (``check_forest``), and a subset against the host walk; the kernel's
+   time, plan and compact tables' bytes at the 262,144-row chunk;
 5. serving: an LRB window model (50 trees x 31 leaves, 53 features)
    answering requests of 1, 7, 1000 and 65,536 rows through the C-API
-   calls, each checked against the plain version;
+   calls, each checked against the plain version; the kernel's time,
+   plan and tables at 65,536 rows;
 6. LRB window training: the paper's TRAIN_PARAMS on 1,000,000 rows x 53
    features through the C-API sequence (DatasetCreateFromMat ->
    SetField -> BoosterCreate -> UpdateOneIter x50 -> GetEval ->
@@ -77,8 +80,10 @@ the entry points a user calls:
    parameters, 10 iterations through ``train`` on the exact tier: ms per
    iteration, K1 launches per iteration and those with categorical
    slots, the card's busy share, the holdout AUC (scored through
-   ``Booster.predict``, the forest kernel with no fallback) beside the
-   same rows trained with every column numerical;
+   ``Booster.predict``, the forest kernel with no fallback; every
+   holdout row of its launches against the plain version, scores and
+   leaf indices bit for bit, and the kernel's time, plan and tables)
+   beside the same rows trained with every column numerical;
 16. the same rows on ``tpu_quantized_hist`` with ``tpu_count_proxy=1``:
    the tier resolves to int8 with exact counts (W=40) and logs the JAX
    package's warning; 10 iterations;
@@ -256,46 +261,6 @@ def airline_labels(X: np.ndarray, seed: int) -> np.ndarray:
     return (logit + noise > 0).astype(np.float32)
 
 
-def random_model_text(X: np.ndarray, n_trees: int, n_leaves: int,
-                      seed: int, objective: str = "binary sigmoid:1") -> str:
-    """LightGBM v2 model text of ``n_trees`` random trees: each grows by
-    splitting a random leaf until it has ``n_leaves``, on a random
-    feature at a threshold from that column's 255-quantile grid, with
-    missing types and default directions mixed; leaf values ~ N(0,
-    0.05)."""
-    from lightgbm_tpu_torch.config import Config
-    from lightgbm_tpu_torch.models.gbdt import GBDT
-    from lightgbm_tpu_torch.models.tree import Tree
-    from lightgbm_tpu_torch.objectives import (
-        parse_objective_from_model_string)
-    r = np.random.default_rng(seed)
-    F = X.shape[1]
-    grid = [np.unique(np.quantile(X[:, f].astype(np.float64),
-                                  np.linspace(0, 1, 257)[1:-1]))
-            for f in range(F)]
-    g = GBDT()
-    g.max_feature_idx = F - 1
-    g.feature_names = [f"Column_{f}" for f in range(F)]
-    g.feature_infos = ["none"] * F
-    g.objective = parse_objective_from_model_string(objective, Config())
-    g.num_class = g.num_tree_per_iteration = getattr(
-        g.objective, "num_class", 1)
-    for _ in range(n_trees):
-        t = Tree(n_leaves)
-        while t.num_leaves < n_leaves:
-            f = int(r.integers(F))
-            t.split(leaf=int(r.integers(t.num_leaves)), feature=f,
-                    threshold_bin=0,
-                    threshold_real=float(r.choice(grid[f])),
-                    left_value=0.0, right_value=0.0, left_count=0,
-                    right_count=0, gain=1.0,
-                    missing_type=int(r.integers(3)),
-                    default_left=bool(r.integers(2)))
-        t.leaf_value = list(r.normal(0.0, 0.05, t.num_leaves))
-        g.models.append(t)
-    return g.model_to_string()
-
-
 def host_raw(gbdt, X: np.ndarray) -> np.ndarray:
     """The port's float64 host walk: raw scores [K, N]."""
     k = gbdt.num_tree_per_iteration
@@ -316,6 +281,26 @@ def cuda_ms(fn, runs: int, warmup: int = 1) -> float:
         fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def queued_ms(fn, runs: int) -> float:
+    """The card's milliseconds per call of ``fn`` with its queue kept
+    full: a spin of about 3 ms on the stream first, so that the ``runs``
+    calls are all enqueued before the first starts and the events time
+    the card's work alone, not the host's time to enqueue each call
+    (which ``cuda_ms`` shows where a launch is shorter than it)."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(5_000_000)
     a.record()
     for _ in range(runs):
         fn()
@@ -353,39 +338,204 @@ def leaf_depths(gbdt, n_leaves: int) -> np.ndarray:
     return out
 
 
-def measure_kernel(gbdt, X32: np.ndarray, dev) -> dict:
-    """The forest kernel's median time on ``X32``'s device-binned codes,
-    its plain version's, and its bound: the larger of the bytes it must
-    move (codes and tables read once, scores written once) over HBM
-    bandwidth and its operations (one per node visit this data makes,
-    counted from the leaves it reaches, plus one f32 add per row-tree)
-    over the f32 rate."""
+def measure_kernel(gbdt, codes, dev) -> dict:
+    """The forest kernel's time on ``codes`` (one [F, n] row chunk on the
+    card, as predict cuts them): ``ms`` by calls back to back
+    (``cuda_ms``, as for every kernel since the first slice) and
+    ``queued_ms`` with the card's queue full; its launch plan on this
+    card, its plain version's time, and its bound: the larger of the
+    bytes it must move (the codes of the features it reads and its
+    compact tables read once, scores written once) over HBM bandwidth
+    and its operations (one per node visit this data makes, counted from
+    the leaves it reaches, plus one f32 add per row-tree) over the f32
+    rate. ``bound_ms_jax_layout`` counts the JAX layout's per-node tables
+    (and every feature's codes) instead of the compact ones, as the
+    bound of the first slices did."""
     import torch
     from lightgbm_tpu_torch.ops import forest as forest_ops
-    from lightgbm_tpu_torch.ops import stacked_predict as sp
-    sm = gbdt._stacked_model()
-    fc = sm.forest
-    T = fc.leaf.shape[0]
-    n = X32.shape[0]
-    codes = sp.codes_from_x(torch.from_numpy(X32).to(dev), *sm.edges)
+    fc = gbdt._stacked_model().forest
+    w = fc.walk
+    T = len(fc.root_host)
+    n = codes.shape[1]
+    fcd = fc.to(dev)                    # the plain version's, on the card
     ms = cuda_ms(lambda: forest_ops.forest_predict(codes, fc, 0, T), 10)
+    queued = queued_ms(lambda: forest_ops.forest_predict(codes, fc, 0, T), 10)
     plain_ms = cuda_ms(
-        lambda: forest_ops.forest_predict_plain(codes, fc, 0, T), 3)
+        lambda: forest_ops.forest_predict_plain(codes, fcd, 0, T), 3)
     leaves = forest_ops.forest_predict(codes, fc, 0, T, leaf_mode=True)
     depth = torch.from_numpy(leaf_depths(gbdt, fc.leaf.shape[1])).to(dev)
-    visits = int(depth[torch.arange(T, device=dev)[None, :],
-                       leaves.long()].sum())
+    d = depth[torch.arange(T, device=dev)[None, :], leaves.long()]
+    visits = int(d.sum())
+    del leaves, fcd
+    # lanes busy: visits over the lane-steps of lanes walking a row in step
+    # (each warp step lasts as long as the deepest of the chunk's 32
+    # trees; a last chunk of m <= 16 trees walks 32 // m rows at once) and
+    # of lanes that move on to their next row of a batch of 16
+    m = w.tail
+    if m:
+        tail = torch.nn.functional.pad(d[:, T - m:], (0, 0, 0, -n % (32 // m)))
+        tail = int(tail.reshape(-1, 32 // m * m).max(1).values.sum())
+    d = torch.nn.functional.pad(d, (0, -T % 32)).view(n, -1, 32)
+    in_step = int(d.max(2).values.sum()) * 32
+    if m:
+        in_step += (tail - int(d[:, -1].max(1).values.sum())) * 32
+    d = torch.nn.functional.pad(d, (0, 0, 0, 0, 0, -n % 16))
+    moving_on = int(d.view(-1, 16, d.shape[1], 32).sum(1).max(2).values
+                    .sum()) * 32
+    del d
     F, S, Wn, L = (fc.num_features, fc.dec.shape[1], fc.dec.shape[2],
                    fc.leaf.shape[1])
     K = fc.num_class
-    nbytes = (4 * F * n + 4 * K * n + 16 * T * S + T * S * Wn + 4 * T * L
-              + 4 * T)
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    Fu = w.feat.shape[0]
+    compact = sum(t.numel() * t.element_size() for t in w[:6])
+    nbytes = 4 * Fu * n + compact + 4 * K * n
+    jax_bytes = (4 * F * n + 4 * K * n + 16 * T * S + T * S * Wn + 4 * T * L
+                 + 4 * T)
     ops_ms = (visits + n * T) / H100_F32_FLOPS * 1e3
-    return {"rows": n, "ms": ms, "plain_ms": plain_ms,
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    jax_bytes_ms = jax_bytes / H100_BYTES_PER_S * 1e3
+    shape = (w.rec.shape[1], w.leaf.shape[1], Fu, K)
+    lp = forest_ops.launch_plan(forest_ops.plan_for(fc, n, 0, T), *shape,
+                                dev)
+    host = host_us(lambda: forest_ops.forest_predict(codes, fc, 0, T), 50)
+    return {"rows": n, "ms": ms, "queued_ms": queued,
+            "plain_ms": plain_ms, "host_us": host,
+            "alternatives": plan_readings(gbdt, codes, dev),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "visits": visits, "bytes": nbytes}
+            "bound_ms_jax_layout": max(jax_bytes_ms, ops_ms),
+            "visits": visits, "bytes": nbytes, "bytes_jax_layout": jax_bytes,
+            "lanes_busy": {"in_step": visits / in_step,
+                           "moving_on": visits / moving_on},
+            "compact_bytes": compact,
+            "plan": {k: lp[k] for k in (
+                "code_bytes", "rec_bytes", "warps", "batch", "rows",
+                "chunks", "buffers", "blocks_per_sm", "tiles", "grid",
+                "smem")}}
+
+
+def plan_readings(gbdt, codes, dev) -> dict:
+    """The forest kernel's ms per launch on ``codes`` with the card's
+    queue full, by its plan and by each other launch the code keeps: for
+    scores the other chunk-slot counts that fit (the range resident,
+    double-buffered, one slot, records read from global memory), the
+    other batch of rows (8 or 16) and 16-byte records; for leaf indices
+    the other chunk-slot counts. Each one's output bit-equal to the
+    plan's."""
+    import torch
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import stacked_predict as sp
+    from lightgbm_tpu_torch.utils.log import LightGBMError
+    sm = gbdt._stacked_model()
+    fc = sm.forest
+    w = fc.walk
+    T = len(fc.root_host)
+    n = codes.shape[1]
+    shape = (n, 0, T, w.rec.shape[1], w.leaf.shape[1], w.feat.shape[0],
+             fc.num_class, w.code_bytes)
+    models = gbdt.models
+    wide = fc._replace(walk=sp._compact_tables(
+        [np.asarray(t.split_feature[:t.num_leaves - 1]) for t in models],
+        [np.asarray(t.left_child[:t.num_leaves - 1]) for t in models],
+        [np.asarray(t.right_child[:t.num_leaves - 1]) for t in models],
+        fc.dec.numpy(), sm._rep_sizes, fc.leaf.numpy(), fc.root_host,
+        sm._offsets, sm._zero_bands(sm._reps), True, dev))
+    out = {}
+    for leaf_mode in (False, True):
+        plan = forest_ops.plan_for(fc, n, 0, T, leaf_mode)
+        runs = {"plan": (fc, plan)}
+        for b in sorted({plan.chunks, 2, 1, 0} - {plan.buffers},
+                        reverse=True):
+            if b <= plan.chunks:
+                try:
+                    runs[f"buffers {b}"] = (fc, forest_ops._plan(
+                        *shape, w.rec_bytes, not leaf_mode, buffers=b,
+                        batch=plan.batch))
+                except LightGBMError:
+                    pass
+        if not leaf_mode:
+            other = forest_ops.BATCH + forest_ops.BATCH_GROUPED - plan.batch
+            runs[f"batch {other}"] = (fc, forest_ops._plan(
+                *shape, w.rec_bytes, True, batch=other))
+            runs["16-byte records"] = (wide, forest_ops._plan(
+                *shape, 16, True, batch=plan.batch))
+        want = forest_ops._predict(codes, fc, 0, T, leaf_mode, plan)
+        for label, (f, p) in runs.items():
+            got = forest_ops._predict(codes, f, 0, T, leaf_mode, p)
+            assert torch.equal(got, want), f"{label}: != the plan's output"
+            out[("leaves, " if leaf_mode else "") + label] = {
+                "queued_ms": queued_ms(lambda: forest_ops._predict(
+                    codes, f, 0, T, leaf_mode, p), 10),
+                "warps": p.warps, "batch": p.batch, "rows": p.rows,
+                "buffers": p.buffers}
+        del want, got
+    return out
+
+
+def kernel_line(label: str, r: dict, T: int) -> str:
+    """One line of ``measure_kernel``'s reading."""
+    return (f"{label} kernel: {r['ms']:.4f} ms per {r['rows']}-row launch "
+            f"by calls back to back ({r['rows'] / r['ms'] * 1e3:.0f} rows/s;"
+            f" {r['queued_ms']:.4f} ms with the card's queue full), plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}; {r['bytes']} bytes with the compact tables "
+            f"of {r['compact_bytes']} bytes), with the JAX layout's "
+            f"per-node tables {r['bound_ms_jax_layout']:.5f} ms "
+            f"({r['bytes_jax_layout']} bytes); {r['visits']} node visits "
+            f"({r['visits'] / r['rows'] / T:.2f} per row-tree; lanes busy "
+            f"{r['lanes_busy']['in_step']:.3f} in step, "
+            f"{r['lanes_busy']['moving_on']:.3f} moving on); host "
+            f"{r['host_us']:.1f} us a call; plan {r['plan']}; launches "
+            f"with the queue full (ms): "
+            + ", ".join(f"{k} {v['queued_ms']:.4f}"
+                        for k, v in r["alternatives"].items()))
+
+
+def check_forest(label: str, bst, X: np.ndarray, prob: np.ndarray,
+                 dev) -> dict:
+    """Every row of ``bst.predict(X)``'s forest launches (``prob``, the
+    main path's output) against the plain version on the same codes, cut
+    into chunks as predict cuts them (device binning where the model has
+    it, else the host's): scores and leaf indices bit for bit, and the
+    main path's probabilities from the plain scores. Returns the
+    kernel's reading at the first chunk (``measure_kernel``) with
+    ``max_abs_err``."""
+    import torch
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import stacked_predict as sp
+    sm = bst._gbdt._stacked_model()
+    fc = sm.forest
+    fcd = fc.to(dev)
+    T = len(fc.root_host)
+    k_raw, p_raw, first = [], [], None
+    for c0 in range(0, X.shape[0], sp.ROW_CHUNK):
+        part = X[c0:c0 + sp.ROW_CHUNK]
+        if sm.edges is not None:
+            codes = sp.codes_from_x(
+                torch.from_numpy(part.astype(np.float32)).to(dev),
+                *sm.edges)
+        else:
+            codes = torch.from_numpy(np.ascontiguousarray(
+                sm._bin_rows(part.astype(np.float64)).T)).to(dev)
+        first = codes if first is None else first
+        k_raw.append(forest_ops.forest_predict(codes, fc, 0, T).cpu())
+        p_raw.append(forest_ops.forest_predict_plain(codes, fcd, 0, T).cpu())
+        k_leaf = forest_ops.forest_predict(codes, fc, 0, T, leaf_mode=True)
+        p_leaf = forest_ops.forest_predict_plain(codes, fcd, 0, T,
+                                                 leaf_mode=True)
+        assert torch.equal(k_leaf, p_leaf), f"{label}: kernel != plain leaves"
+        del k_leaf, p_leaf
+    del fcd
+    k_raw, p_raw = torch.cat(k_raw), torch.cat(p_raw)
+    assert torch.equal(k_raw, p_raw), f"{label}: kernel != plain scores"
+    want = 1.0 / (1.0 + np.exp(-p_raw.numpy()[:, 0].astype(np.float64)))
+    assert np.array_equal(prob, want), f"{label}: main path != plain"
+    r = measure_kernel(bst._gbdt, first, dev)
+    r["max_abs_err"] = float((k_raw - p_raw).abs().max())
+    print(f"{label} check: kernel == plain on all {X.shape[0]} rows, "
+          f"scores and leaf indices (the main path's probabilities too)")
+    print(kernel_line(label, r, T))
+    return r
 
 
 def wall_ms(fn, runs: int) -> list:
@@ -1536,11 +1686,12 @@ def quant_phases(dev, higgs: dict, power_limit_w: float) -> list:
     return entries
 
 
-def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> list:
+def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> tuple:
     """Phases 15-18 of the module docstring: categorical features.
     ``k1_ms_phase7`` is phase 8's K1 time on phase 7's inputs (no
     categorical rows). Returns the kernels-line entries of K1 with
-    categorical rows, f32 and int8."""
+    categorical rows, f32 and int8, and the forest kernel's reading on
+    the categorical model's holdout (``check_forest``)."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch.ops import forest as forest_ops
@@ -1582,6 +1733,9 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> list:
         k4, fallbacks = forest_ops.launches.value, sp.fallbacks.value
         assert k4 > 0 and fallbacks == 0, (label, k4, fallbacks)
         assert prob.shape == (HOLDOUT_ROWS,) and np.isfinite(prob).all()
+        if label == "airline categorical":
+            runs["k4"] = check_forest("airline categorical", bst, Xt, prob,
+                                      dev)
         auc = auc_np(yt, prob)
         cfg = bst._gbdt._grower_cfg
         iters = bst.current_iteration()
@@ -1610,6 +1764,7 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> list:
     # 15. categorical training at full width, and the same rows numerical
     train_airline("airline categorical", AIRLINE_PARAMS, AIRLINE_CAT_COLUMNS)
     cat = runs["airline categorical"]
+    airline_k4 = runs.pop("k4")
     assert cat["cfg"].hp.has_cat and cat["cfg"].precision == "f32"
     assert cat["counts"].get("K1/cat", 0) > 0 and cat["cat_waves"] > 0
     assert cat["n_cat"] > 0
@@ -1762,7 +1917,7 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> list:
               f"{cmp_runs['cpu'][1]['auc']:.6f} (within {AUC_TOL}); "
               f"{cmp_runs['cuda'][2]:.1f} s on the card, "
               f"{cmp_runs['cpu'][2]:.1f} s on the CPU")
-    return out
+    return out, airline_k4
 
 
 def main() -> None:
@@ -1778,6 +1933,7 @@ def main() -> None:
     from lightgbm_tpu_torch import Booster, capi
     from lightgbm_tpu_torch.ops import forest as forest_ops
     from lightgbm_tpu_torch.ops import stacked_predict as sp
+    from lightgbm_tpu_torch.testing import random_model_text
     from lightgbm_tpu_torch.utils import cuda_build
 
     # 1. device
@@ -1845,10 +2001,11 @@ def main() -> None:
     bst = Booster(model_str=text)
     sm = bst._gbdt._stacked_model()
     assert sm is not None and sm.edges is not None
+    compact = sum(t.numel() * t.element_size() for t in sm.forest.walk[:6])
     print(f"higgs model: {HIGGS_TREES} trees x {HIGGS_LEAVES} leaves, "
           f"loaded and stacked in {time.perf_counter() - t0:.2f} s; "
-          f"decision tables {sm.forest.dec.numel() / 1e6:.1f} MB on the "
-          f"device")
+          f"decision rows {sm.forest.dec.numel() / 1e6:.1f} MB on the "
+          f"host, compact tables {compact / 1e6:.2f} MB on the device")
     torch.cuda.synchronize()
     forest_ops.launches.reset()
     sp.fallbacks.reset()
@@ -1868,42 +2025,20 @@ def main() -> None:
 
     # every row of the main path's launches: the kernel and its plain
     # version on the same device codes, chunk by chunk as predict cuts
-    # them, and the main path's probabilities from the plain scores
+    # them, scores and leaves; the main path's probabilities from the
+    # plain scores; the kernel's time at the main path's chunk shape
+    higgs = check_forest("higgs", bst, X, prob, dev)
+    max_abs_err = higgs["max_abs_err"]
+    # the float64 host walk on a subset
     fc = sm.forest
     T = HIGGS_TREES
-    k_raw, p_raw = [], []
-    for c0 in range(0, HOLDOUT_ROWS, sp.ROW_CHUNK):
-        codes = sp.codes_from_x(
-            torch.from_numpy(X[c0:c0 + sp.ROW_CHUNK]).to(dev), *sm.edges)
-        k_raw.append(forest_ops.forest_predict(codes, fc, 0, T).cpu())
-        p_raw.append(forest_ops.forest_predict_plain(codes, fc, 0, T).cpu())
-    k_raw, p_raw = torch.cat(k_raw), torch.cat(p_raw)
-    assert torch.equal(k_raw, p_raw), "kernel != plain scores"
-    max_abs_err = float((k_raw - p_raw).abs().max())
-    want = 1.0 / (1.0 + np.exp(-p_raw.numpy()[:, 0].astype(np.float64)))
-    assert np.array_equal(prob, want), "main path != plain"
-    # leaf mode, and the float64 host walk, on a subset
-    fcpu = fc.to("cpu")
     codes = sp.codes_from_x(torch.from_numpy(X[:SUBSET]).to(dev), *sm.edges)
-    k_leaves = forest_ops.forest_predict(codes, fc, 0, T, leaf_mode=True)
-    p_leaves = forest_ops.forest_predict_plain(codes.cpu(), fcpu, 0, T,
-                                               leaf_mode=True)
-    assert torch.equal(k_leaves.cpu(), p_leaves), "kernel != plain leaves"
+    k_sub = forest_ops.forest_predict(codes, fc, 0, T).cpu().numpy()
     host = host_raw(bst._gbdt, X[:SUBSET].astype(np.float64))[0]
-    err_host = float(np.abs(k_raw.numpy()[:SUBSET, 0] - host).max())
+    err_host = float(np.abs(k_sub[:, 0] - host).max())
     assert err_host <= 1e-4, f"kernel vs host walk {err_host}"
-    print(f"higgs check: kernel == plain scores on all {HOLDOUT_ROWS} rows "
-          f"(the main path's probabilities too), leaves on {SUBSET} rows; "
-          f"{err_host:.3g} from the float64 host walk")
-
-    # timing at the main path's chunk shape
-    higgs = measure_kernel(bst._gbdt, X[:sp.ROW_CHUNK], dev)
-    print(f"higgs kernel: {higgs['ms']:.3f} ms per {higgs['rows']}-row "
-          f"launch ({higgs['rows'] / higgs['ms'] * 1e3:.0f} rows/s), "
-          f"plain {higgs['plain_ms']:.1f} ms, bound {higgs['bound_ms']:.4f} "
-          f"ms ({higgs['bound_by']}); {higgs['visits']} node visits "
-          f"({higgs['visits'] / higgs['rows'] / T:.2f} per row-tree), "
-          f"{higgs['bytes']} bytes")
+    print(f"higgs host walk: {err_host:.3g} from the float64 host walk on "
+          f"{SUBSET} rows")
     walls = wall_ms(lambda: bst.predict(X), 5)
     print(f"higgs predict, 5 more calls: median {np.median(walls):.1f} ms, "
           f"min {min(walls):.1f}, max {max(walls):.1f}")
@@ -1933,14 +2068,15 @@ def main() -> None:
     torch.cuda.synchronize()
     serve_launches = forest_ops.launches.value
     assert serve_launches > 0 and sp.fallbacks.value == 0
-    lrb = measure_kernel(handle.gbdt,
-                         make_lrb_rows(65_536).astype(np.float32), dev)
+    lsm = handle.gbdt._stacked_model()
+    lrb = measure_kernel(handle.gbdt, sp.codes_from_x(
+        torch.from_numpy(make_lrb_rows(65_536).astype(np.float32)).to(dev),
+        *lsm.edges), dev)
     capi.LGBM_BoosterFree(handle)
     print(f"lrb serving: model stacked in {stack_ms:.1f} ms; "
           + ", ".join(f"{r} rows {t:.2f} ms" for r, t in served)
-          + f"; {serve_launches} launches; kernel {lrb['ms']:.4f} ms per "
-          f"{lrb['rows']} rows, plain {lrb['plain_ms']:.1f} ms, bound "
-          f"{lrb['bound_ms']:.5f} ms ({lrb['bound_by']})")
+          + f"; {serve_launches} launches")
+    print(kernel_line("lrb", lrb, LRB_TREES))
 
     # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins
     train, higgs_data = train_phases(dev)
@@ -1949,7 +2085,7 @@ def main() -> None:
     # 15-18: categorical features
     k1_ms = next(e["ms"] for e in train
                  if e["name"] == "fused_partition_histogram")
-    cat = cat_phases(dev, k1_ms, power_limit_w)
+    cat, airline = cat_phases(dev, k1_ms, power_limit_w)
 
     # kernels line
     forest = {
@@ -1957,12 +2093,14 @@ def main() -> None:
         "source": "lightgbm_tpu_torch/csrc/forest_predict.cu",
         "replaces": "lightgbm_tpu/ops/stacked_predict.py:1048",
         "launches": launches, "max_abs_err": max_abs_err,
-        "vs_plain": "bitwise", "ms": higgs["ms"],
-        "plain_ms": higgs["plain_ms"], "bound_ms": higgs["bound_ms"],
-        "bound_by": higgs["bound_by"], "library_ms": None,
-        "rows": higgs["rows"], "serve_launches": serve_launches,
-        "lrb": {k: lrb[k] for k in ("rows", "ms", "plain_ms", "bound_ms",
-                                    "bound_by")}}
+        "vs_plain": "bitwise", "library_ms": None,
+        "serve_launches": serve_launches}
+    keys = ("rows", "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_ms_jax_layout", "visits", "lanes_busy", "compact_bytes",
+            "host_us", "plan", "alternatives")
+    forest.update({k: higgs[k] for k in keys})
+    for key, r in (("lrb", lrb), ("airline", airline)):
+        forest[key] = {k: r[k] for k in keys}
     print(json.dumps({"kernels": [forest] + train + quant + cat}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

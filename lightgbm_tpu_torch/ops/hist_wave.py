@@ -64,7 +64,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_build
-from ..utils.device import Counter, on_device
+from ..utils.device import Counter, card_plan, on_device
 from ..utils.log import LightGBMError
 
 # rows of K1's packed per-slot split table ([TBL_ROWS, W] int32): the
@@ -415,63 +415,30 @@ def _int_launch_args(bins_t, g, h, n, F, W, B, C, packed4, dev) -> tuple:
             (lp["parts"], lp["rows_per_part"]), part)
 
 
-_sms = {}
-_launches = {}
-
-
-def _card_plan(plan, items: int, dev: torch.device, smem_query: tuple,
-               resident_query: tuple) -> dict:
-    """``plan`` on ``dev`` as a dict, with ``blocks_per_sm``, the blocks
-    of its kernel the card holds resident on an SM (its own occupancy
-    count: ``resident_query``, a library function's name and arguments),
-    and ``grid``, one wave of those blocks and at most one per work item
-    (``items``). The library's byte count (``smem_query``) must agree
-    with the plan's shared memory, and a block must fit an SM."""
-    key = (dev.index, plan, resident_query)
-    got = _launches.get(key)
-    if got is not None:
-        return got
-    with on_device(dev):
-        lib_smem = _fn(smem_query[0])(*smem_query[1:])
-        resident = _fn(resident_query[0])(*resident_query[1:])
-    if lib_smem != plan.smem:
-        raise LightGBMError(f"{plan}: {plan.smem} bytes of shared memory, "
-                            f"the kernel's {lib_smem}")
-    if resident < 1:
-        raise LightGBMError(f"{plan} fits no SM ({resident})")
-    sms = _sms.get(dev.index)
-    if sms is None:
-        sms = _sms[dev.index] = \
-            torch.cuda.get_device_properties(dev).multi_processor_count
-    got = _launches[key] = dict(plan._asdict(), blocks_per_sm=resident,
-                                grid=min(items, resident * sms))
-    return got
-
-
 def launch_plan(n: int, F: int, W: int, B: int, packed4: bool,
                 dev: torch.device) -> dict:
     """``hist_plan`` of an f32 launch on ``dev``, with its grid
-    (``_card_plan``)."""
+    (``utils.device.card_plan``)."""
     p = hist_plan(n, F, W, B)
-    return _card_plan(p, p.groups * p.ranges, dev,
-                      ("hist_wave_smem_bytes", W, B, p.fg, p.classes),
-                      ("hist_wave_resident_blocks", int(packed4), W, B,
-                       p.fg, p.classes, p.warps))
+    return card_plan(p, p.groups * p.ranges, dev,
+                     (_fn("hist_wave_smem_bytes"), W, B, p.fg, p.classes),
+                     (_fn("hist_wave_resident_blocks"), int(packed4), W, B,
+                      p.fg, p.classes, p.warps))
 
 
 def launch_int_plan(n: int, F: int, W: int, B: int, C: int, packed4: bool,
                     vec: bool, dev: torch.device) -> dict:
     """``int_plan`` (or ``use_int_plan``'s) of an int8 launch on ``dev``,
-    with its grid (``_card_plan``); ``vec``: the 8-byte loads
+    with its grid (``utils.device.card_plan``); ``vec``: the 8-byte loads
     (``int_aligned``)."""
     p = (int_plan_with(n, F, W, B, C, bool(packed4), **_int_choice)
          if _int_choice else int_plan(n, F, W, B, C, bool(packed4)))
-    got = _card_plan(p, p.items, dev,
-                     ("hist_wave_int_smem_bytes", W, B, C, p.fg, p.classes,
-                      p.copies),
-                     ("hist_wave_int_resident_blocks", int(packed4), C,
-                      int(vec), W, B, p.fg, p.classes, p.copies,
-                      p.byte_rows, p.blocks))
+    got = card_plan(p, p.items, dev,
+                    (_fn("hist_wave_int_smem_bytes"), W, B, C, p.fg,
+                     p.classes, p.copies),
+                    (_fn("hist_wave_int_resident_blocks"), int(packed4), C,
+                     int(vec), W, B, p.fg, p.classes, p.copies,
+                     p.byte_rows, p.blocks))
     return dict(got, vec=bool(vec))
 
 

@@ -9,11 +9,15 @@ per bin, so the device agrees with the host walk by construction
 (missing values, default-left, the zero band and categorical bitsets).
 That build is copied here as numpy, bit for bit. The device side
 differs: instead of the TPU's one-hot matrix products the port walks
-each tree (ops/forest.py), reading per-node records and the node's
-decision table laid out ``[T, S, Wn]``, evaluated straight into that
-layout. The TPU layout (``W [Wtot, T, S]``, the ancestor matrix and the
-leaf targets) is built only on request (``jax_layout``), and
-``walk_tables`` turns the JAX package's own W into the walk's tables.
+each tree (ops/forest.py). The decision rows are evaluated straight into
+a ``[T, S, Wn]`` table (``dec``, the plain version's), and
+``compact_tables`` turns each row into an 8-byte record for the kernel:
+a threshold on the feature's local code, or a bitset row, plus the
+decisions of two codes the kernel stages apart (the feature's last,
+NaN, code and its zero band), checked against the row at every code.
+The TPU layout (``W [Wtot, T, S]``, the ancestor matrix and the leaf
+targets) is built only on request (``jax_layout``), and ``walk_tables``
+turns the JAX package's own W into the walk's tables.
 
 Rows are binned on the device when they are f32-exact and every feature
 is numerical (``codes_from_x``), else on the host in float64
@@ -109,11 +113,24 @@ class StackedModel:
                 rep = reps[t.split_feature[s]]
                 dec[ti, s, :rep.size] = _node_table(t, s, rep)
         self.forest = _forest(feats, lefts, rights, depth, self._offsets,
-                              dec, leaf_val, num_class=self.num_class,
-                              device=self.device)
+                              self._rep_sizes, dec, leaf_val,
+                              num_class=self.num_class, device=self.device,
+                              bands=self._zero_bands(reps))
         self.edges = (edge_tensors(self._E_f32, self._off32, self._nan_slot,
                                    self.device)
                       if self._dev_bin_ok else None)
+
+    def _zero_bands(self, reps: List[np.ndarray]) -> List:
+        """Per feature, the local codes (lo, hi) whose representatives lie
+        in the reference's zero band |x| <= 1e-35 (tree.h:188), for the
+        features a zero-as-missing node reads; None elsewhere."""
+        bands: List = [None] * self._F
+        for f in np.flatnonzero(self._zero_mt & ~self._is_cat):
+            with np.errstate(invalid="ignore"):
+                inside = np.flatnonzero(np.abs(reps[f][:-1]) <= _ZERO_EPS)
+            if inside.size:
+                bands[f] = (int(inside[0]), int(inside[-1]))
+        return bands
 
     def jax_layout(self, trees: List):
         """The JAX package's stacked tables of ``trees`` (the trees this
@@ -375,8 +392,8 @@ def walk_tables(W: np.ndarray, leaf: np.ndarray, offsets: np.ndarray,
         m = used & (feat_all == f)
         o, w = int(offsets[f]), int(rep_sizes[f])
         dec[m, :w] = W[o:o + w][:, m].T
-    return _forest(feats, lefts, rights, depth, offsets, dec, leaf,
-                   num_class=num_class, device=device)
+    return _forest(feats, lefts, rights, depth, offsets, rep_sizes, dec,
+                   leaf, num_class=num_class, device=device)
 
 
 def _node_arrays(split_feature: Sequence, left_child: Sequence,
@@ -387,10 +404,12 @@ def _node_arrays(split_feature: Sequence, left_child: Sequence,
 
 
 def _forest(feats, lefts, rights, depth: np.ndarray, offsets: np.ndarray,
-            dec: np.ndarray, leaf: np.ndarray, *, num_class: int,
-            device) -> forest_ops.Forest:
-    """Node records [T, S, 4] = (feature, left, right, table offset of the
-    feature), roots, and the tables, on ``device``."""
+            widths: np.ndarray, dec: np.ndarray, leaf: np.ndarray, *,
+            num_class: int, device, bands=None) -> forest_ops.Forest:
+    """The plain version's tables (node records [T, S, 4] = feature,
+    left, right, table offset of the feature; ``dec``; leaf values) on
+    the host, and the kernel's compact tables (``compact_tables``) on
+    ``device``."""
     T, S, _ = dec.shape
     nodes = np.zeros((T, S, 4), np.int32)
     root = np.zeros(T, np.int32)
@@ -400,14 +419,225 @@ def _forest(feats, lefts, rights, depth: np.ndarray, offsets: np.ndarray,
             continue
         nodes[t, :feat.size] = np.stack(
             [feat, lefts[t], rights[t], offsets[feat]], axis=1)
+    leaf = np.ascontiguousarray(leaf, np.float32)
     return forest_ops.Forest(
-        nodes=torch.from_numpy(nodes).to(device),
-        dec=torch.from_numpy(dec).to(device),
-        leaf=torch.from_numpy(np.ascontiguousarray(leaf, np.float32)
-                              ).to(device),
-        root=torch.from_numpy(root).to(device),
-        root_host=root, depth=depth, num_class=int(num_class),
-        num_features=len(offsets) - 1)
+        nodes=torch.from_numpy(nodes), dec=torch.from_numpy(dec),
+        leaf=torch.from_numpy(leaf), root_host=root, depth=depth,
+        num_class=int(num_class), num_features=len(offsets) - 1,
+        walk=compact_tables(feats, lefts, rights, dec, widths, leaf, root,
+                            offsets, bands=bands, device=device))
+
+
+def compact_tables(feats, lefts, rights, dec: np.ndarray, widths,
+                   leaf: np.ndarray, root: np.ndarray, offsets, *,
+                   bands=None, device) -> forest_ops.Walk:
+    """The kernel's tables (``forest_ops.Walk``, csrc/forest_predict.cu
+    says how it reads them) from each tree's node arrays and the decision
+    rows ``dec [T, S, Wn]`` (node s of tree t at local code j of its
+    feature: ``dec[t, s, j]``, 1 = left; ``widths[f]`` codes a feature).
+
+    A feature's last code (NaN; a categorical feature's negative/NaN
+    code) is staged apart, and so is its zero band where ``bands[f]``
+    names one (local codes lo..hi) that every node of the feature decides
+    alike. A node whose row, on the other codes, is a step (left up to a
+    code, right above it) becomes that threshold; any other row a bitset
+    row over the feature's codes. Records are 8 bytes where the model's
+    shape fits their fields (children in int16, a staged row within 64 KB,
+    2**13 bitset words a tree), 16 otherwise. Every record is decoded
+    again and checked against its row at every code of its feature; a
+    mismatch raises."""
+    return _compact_tables(feats, lefts, rights, dec, widths, leaf, root,
+                           offsets, bands, None, device)
+
+
+def _compact_tables(feats, lefts, rights, dec: np.ndarray, widths,
+                    leaf: np.ndarray, root: np.ndarray, offsets, bands,
+                    wide: Optional[bool], device) -> forest_ops.Walk:
+    """``compact_tables`` with 16-byte records (``wide``), 8-byte ones
+    (``wide=False``, where they fit) or the narrowest that fit (None):
+    the other record width chip_smoke.py times and the tests check."""
+    T, S, _ = dec.shape
+    L = leaf.shape[1]
+    widths = np.asarray(widths, np.int64)
+    feat_all = np.zeros((T, S), np.int64)
+    left_all = np.zeros((T, S), np.int64)
+    right_all = np.zeros((T, S), np.int64)
+    on = np.zeros((T, S), bool)
+    for t, feat in enumerate(feats):
+        k = feat.size
+        feat_all[t, :k], left_all[t, :k] = feat, lefts[t]
+        right_all[t, :k], on[t, :k] = rights[t], True
+    used = np.unique(feat_all[on])
+    slot_of = np.full(len(widths), -1, np.int64)
+    slot_of[used] = np.arange(used.size)
+    w = widths[used]
+    band = np.full((used.size, 2), -1, np.int64)
+    meta = np.zeros((T, S), np.int64)   # flags; payload set below
+    pay = np.zeros((T, S), np.int64)
+    bit_rows = []                       # (t, s, words) of bitset nodes
+    for u, f in enumerate(used):
+        m = on & (feat_all == f)
+        wf = int(w[u])
+        rows = dec[m][:, :wf]
+        if rows.max(initial=0) > 1:
+            log.fatal(f"feature {f}: a decision row holds values other "
+                      f"than 0 and 1")
+        ordinary = np.ones(wf, bool)
+        ordinary[wf - 1] = False
+        b = bands[f] if bands is not None else None
+        if b is not None and 0 <= b[0] <= b[1] < wf - 1 and (
+                rows[:, b[0]:b[1] + 1] == rows[:, b[0]:b[0] + 1]).all():
+            band[u] = b
+            ordinary[b[0]:b[1] + 1] = False
+        o_idx = np.flatnonzero(ordinary)
+        r_o = rows[:, o_idx]
+        k = r_o.sum(1)
+        step = (r_o == (np.arange(o_idx.size)[None, :] < k[:, None])).all(1)
+        thr1 = np.where(k > 0, o_idx[np.maximum(k - 1, 0)] + 1
+                        if o_idx.size else 0, 0)
+        fl = rows[:, wf - 1].astype(np.int64)
+        if band[u, 0] >= 0:
+            fl |= rows[:, band[u, 0]].astype(np.int64) << 1
+        meta[m] = fl | (~step).astype(np.int64) << 2
+        pay[m] = np.where(step, thr1, 0)
+        if (~step).any():
+            packed = np.packbits(rows[~step].astype(bool), axis=1,
+                                 bitorder="little")
+            nw = -(-wf // 32)
+            words = np.zeros((packed.shape[0], nw * 4), np.uint8)
+            words[:, :packed.shape[1]] = packed
+            ts, ss = np.nonzero(m)
+            sel = ~step
+            bit_rows += list(zip(ts[sel], ss[sel],
+                                 words.view("<u4").reshape(-1, nw)))
+    # bitset rows: each tree's in node order, the trees' areas in order
+    bit_rows.sort(key=lambda e: (e[0], e[1]))
+    counts = np.zeros(T, np.int64)
+    for t, s, row in bit_rows:
+        pay[t, s] = counts[t]
+        counts[t] += row.size
+    bits_base = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    bits = (np.concatenate([row for _, _, row in bit_rows])
+            if bit_rows else np.zeros(1, np.uint32))
+    code_bytes = 1 if int(w.max(initial=1)) <= 255 else 2
+    fits8 = (S <= 1 << 15 and L <= 1 << 15
+             and used.size * code_bytes <= 1 << 16
+             and int(pay.max(initial=0)) < 1 << 13)
+    if wide is None:
+        wide = not fits8
+    elif not wide and not fits8:
+        log.fatal("the model's shape does not fit 8-byte records")
+    if int(pay.max(initial=0)) >= 1 << 29:
+        log.fatal("a tree's bitset rows exceed 2**29 words")
+    meta |= pay << 3
+    offset = np.where(on, slot_of[feat_all], 0) * code_bytes
+    left_all = np.where(on, left_all, 0)
+    right_all = np.where(on, right_all, 0)
+    C = -(-T // forest_ops.LANES)
+    pad = C * forest_ops.LANES - T
+    if wide:
+        rec = np.stack([left_all, right_all, offset, meta], axis=2)
+        rec = np.pad(rec.astype(np.uint32).view(np.int32),
+                     ((0, pad), (0, 0), (0, 0)))
+        rec = rec.reshape(C, forest_ops.LANES, S, 4).transpose(0, 2, 1, 3)
+    else:
+        lo = (left_all & 0xFFFF) | (right_all & 0xFFFF) << 16
+        hi = offset | meta << 16
+        rec = np.pad((lo | hi << 32).astype(np.uint64).view(np.int64),
+                     ((0, pad), (0, 0)))
+        rec = rec.reshape(C, forest_ops.LANES, S).transpose(0, 2, 1)
+    leaf_c = np.pad(leaf, ((0, pad), (0, 0))).reshape(
+        C, forest_ops.LANES, L).transpose(0, 2, 1)
+    # a last chunk of m <= 16 trees: its spare columns copy them, so that
+    # the spare lanes walk (tree, row) pairs
+    tail = forest_ops.LANES - pad if pad >= forest_ops.LANES // 2 else 0
+    if tail:
+        copy = np.arange(forest_ops.LANES) % tail
+        rec = rec.copy()
+        leaf_c = leaf_c.copy()
+        rec[-1] = rec[-1][:, copy]
+        leaf_c[-1] = leaf_c[-1][:, copy]
+    feat_tab = np.stack(
+        [used, np.asarray(offsets, np.int64)[used], w,
+         np.where(band[:, 0] >= 0, band[:, 0] | band[:, 1] << 16, -1)],
+        axis=1).astype(np.int32).reshape(-1, 4)
+    walk = forest_ops.Walk(
+        feat=torch.from_numpy(feat_tab),
+        rec=torch.from_numpy(np.ascontiguousarray(rec)),
+        leaf=torch.from_numpy(np.ascontiguousarray(leaf_c)),
+        bits=torch.from_numpy(bits.view(np.int32)),
+        bits_base=torch.from_numpy(bits_base.astype(np.int32)),
+        root=torch.from_numpy(np.asarray(root, np.int32)),
+        code_bytes=code_bytes, tail=tail)
+    check_compact(walk, dec, feats, lefts, rights)
+    return walk.to(device)
+
+
+def _records(walk: forest_ops.Walk, T: int):
+    """(left, right, feature slot, meta) [T, S] int64 decoded from the
+    packed, tree-interleaved records, as the kernel decodes them."""
+    rec = walk.rec.numpy()
+    if walk.rec_bytes == 16:
+        f = rec.transpose(0, 2, 1, 3).reshape(-1, rec.shape[1], 4)[:T]
+        u = f.view(np.uint32).astype(np.int64)
+        return (f[..., 0].astype(np.int64), f[..., 1].astype(np.int64),
+                u[..., 2] // walk.code_bytes, u[..., 3])
+    r = rec.transpose(0, 2, 1).reshape(-1, rec.shape[1])[:T].view(np.uint64)
+    lo, hi = r & 0xFFFFFFFF, r >> 32
+    return ((lo & 0xFFFF).astype(np.uint16).view(np.int16).astype(np.int64),
+            (lo >> 16).astype(np.uint16).view(np.int16).astype(np.int64),
+            (hi & 0xFFFF).astype(np.int64) // walk.code_bytes,
+            (hi >> 16).astype(np.int64))
+
+
+def check_compact(walk: forest_ops.Walk, dec: np.ndarray, feats, lefts,
+                  rights) -> None:
+    """Every record of ``walk`` (host tensors) decides as its decision
+    row at every code of its feature, as the kernel stages the codes,
+    and holds the node's children and feature; raises otherwise."""
+    T = dec.shape[0]
+    if walk.tail:
+        copy = np.arange(forest_ops.LANES) % walk.tail
+        for name in ("rec", "leaf"):
+            last = getattr(walk, name).numpy()[-1]
+            if not np.array_equal(last, last[:, copy]):
+                log.fatal(f"the last chunk's spare {name} columns are not "
+                          f"copies of its trees")
+    left, right, slot, meta = _records(walk, T)
+    feat_tab = walk.feat.numpy().astype(np.int64)
+    bits = walk.bits.numpy().view(np.uint32)
+    base = walk.bits_base.numpy().astype(np.int64)
+    nan_v = (1 << 8 * walk.code_bytes) - 1
+    on = np.zeros(left.shape, bool)
+    for t, feat in enumerate(feats):
+        k = feat.size
+        on[t, :k] = True
+        if not (np.array_equal(left[t, :k], lefts[t])
+                and np.array_equal(right[t, :k], rights[t])
+                and np.array_equal(feat_tab[slot[t, :k], 0], feat)):
+            log.fatal(f"tree {t}: compact records lose a child or feature")
+    for u, (f, _, wf, b) in enumerate(feat_tab):
+        ts, ss = np.nonzero(on & (slot == u))
+        staged = np.arange(wf)
+        staged[wf - 1] = nan_v
+        if b >= 0:
+            staged[b & 0xFFFF:(b >> 16) + 1] = nan_v - 1
+        mt = meta[ts, ss][:, None]
+        pay = mt >> 3
+        code = np.minimum(staged, wf - 1)[None, :]
+        word = bits[np.minimum(base[ts][:, None] + pay + (code >> 5),
+                               bits.size - 1)]
+        got = np.where(staged == nan_v, mt & 1,
+                       np.where(staged == nan_v - 1, mt >> 1 & 1,
+                                np.where(mt & 4, word >> (code & 31) & 1,
+                                         staged[None, :] < pay)))
+        want = dec[ts, ss, :wf]
+        bad = np.argwhere(got != want)
+        if bad.size:
+            i, c = bad[0]
+            log.fatal(f"tree {ts[i]} node {ss[i]}: its compact record "
+                      f"decides {got[i, c]} at code {c} of feature {f}, "
+                      f"its decision row {want[i, c]}")
 
 
 def _tree_depths(lefts: Sequence, rights: Sequence) -> np.ndarray:

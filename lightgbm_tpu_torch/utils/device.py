@@ -41,6 +41,40 @@ def on_device(dev: torch.device):
     return torch.cuda.device(dev)
 
 
+_sms = {}
+_plans = {}
+
+
+def card_plan(plan, items: int, dev: torch.device, smem_query: tuple,
+              resident_query: tuple) -> dict:
+    """``plan`` (a NamedTuple with ``smem``) on ``dev`` as a dict, with
+    ``blocks_per_sm``, the blocks of its kernel the card holds resident on
+    an SM (its own occupancy count: ``resident_query``, a library
+    function and its arguments), and ``grid``, one wave of those blocks
+    and at most one per work item (``items``). The library's byte count
+    (``smem_query``) must agree with the plan's shared memory, and a
+    block must fit an SM."""
+    key = (dev.index, plan, resident_query[0].__name__, resident_query[1:])
+    got = _plans.get(key)
+    if got is not None:
+        return got
+    with on_device(dev):
+        lib_smem = smem_query[0](*smem_query[1:])
+        resident = resident_query[0](*resident_query[1:])
+    if lib_smem != plan.smem:
+        raise LightGBMError(f"{plan}: {plan.smem} bytes of shared memory, "
+                            f"the kernel's {lib_smem}")
+    if resident < 1:
+        raise LightGBMError(f"{plan} fits no SM ({resident})")
+    sms = _sms.get(dev.index)
+    if sms is None:
+        sms = _sms[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    got = _plans[key] = dict(plan._asdict(), blocks_per_sm=resident,
+                             grid=min(items, resident * sms))
+    return got
+
+
 class Counter:
     """An integer that several threads may add to (launch and fallback
     counts a run reads to show which route it took)."""

@@ -24,6 +24,7 @@ from lightgbm_tpu import capi as jcapi
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch import capi as tcapi
 from lightgbm_tpu_torch.ops import stacked_predict as tsp
+from lightgbm_tpu_torch.testing import random_model_text
 
 pytestmark = pytest.mark.torch_port
 
@@ -155,11 +156,12 @@ def test_early_stop_and_average_output_match_jax():
 
 
 def test_generated_model_scores_alike_in_both_packages():
-    """chip_smoke.py's random model generator at a small size: its text
+    """The random model generator (lightgbm_tpu_torch.testing, which
+    chip_smoke.py drives at full size) at a small size: its text
     loads in both packages, device binning (f32-exact rows) and host
     binning (float64 rows) both match the JAX package."""
     X, _ = chip_smoke.make_higgs_like(3000, seed=1)
-    text = chip_smoke.random_model_text(X, 6, 40, seed=2)
+    text = random_model_text(X, 6, 40, seed=2)
     jb = jlgb.Booster(model_str=text)
     tb = tlgb.Booster(model_str=text, device="cpu")
     assert tb.model_to_string() == jb.model_to_string()
@@ -169,7 +171,7 @@ def test_generated_model_scores_alike_in_both_packages():
                                    jb.predict(rows, raw_score=True),
                                    atol=1e-5, rtol=1e-6)
     Xl = chip_smoke.make_lrb_rows(400)
-    ltext = chip_smoke.random_model_text(Xl, 4, 31, seed=3)
+    ltext = random_model_text(Xl, 4, 31, seed=3)
     np.testing.assert_allclose(
         tlgb.Booster(model_str=ltext, device="cpu").predict(Xl),
         jlgb.Booster(model_str=ltext).predict(Xl), atol=1e-6)
