@@ -102,9 +102,25 @@ the entry points a user calls:
 18. card vs CPU at 100,000 rows of phase 15's generator, 20 iterations
    of 31 leaves (phase 15's 255 take the CPU about 20 s an iteration),
    on the exact and the int8 tier: trees equal up to a near tie, train
-   AUC within 4e-4.
+   AUC within 4e-4;
+19. the LRB loop (``lightgbm_tpu_torch.lrb``), run after phase 5 and
+   before phases 6-18 (torch.profiler keeps all its records this early):
+   ``synthetic_trace(3,000,000, n_objects=100,000, seed=7)`` written as
+   a trace file and driven through ``lrb.run_trace_file`` on cuda:0 in
+   the default pipelined mode: cache 2**24 bytes, windows of 1,000,000
+   requests, a uniform sample of 500,000 (``TRAIN_PARAMS``, 53
+   features), cutoff 0.5; three windows, each OPT-labeled (its positive
+   share in (0.05, 0.95)), trained and published, windows 2 and 3 also
+   scored on the previous model in 15,625 calls of 64 rows. The same
+   trace in sequential mode gives records equal on ``PARITY_KEYS``.
+   Window 3's calls are bit-equal to one call with the same handle and
+   to the plain K4 version on the same device codes
+   (``check_forest``). Per window: wall, derive, train (ms an
+   iteration), evaluate, predict calls, p50/p99 a batch and a request,
+   and K1-K4 launches; then the host's operators and the card's busy
+   share over 200 serving calls.
 
-Phases 6-7, 10-12 and 15-16 check that the main path launched each
+Phases 6-7, 10-12, 15-16 and 19 check that the main path launched each
 kernel (and each histogram variant) of its tier. Prints a JSON line of the kernels,
 then the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the
@@ -176,6 +192,20 @@ AIRLINE_ITERS = 10
 CAT_CPU_ITERS = 20
 CAT_CPU_LEAVES = 31
 K1_MS_BEFORE_CAT = 7.583        # PERF.md's table: phase 8's K1, 700 W
+# phase 19: the LRB loop (lightgbm_tpu_torch/lrb.py) on a synthetic trace
+LOOP_REQUESTS = 3_000_000
+LOOP_OBJECTS = 100_000
+LOOP_CACHE = 1 << 24            # OPT's positive share 0.878 a window
+LOOP_WINDOW = 1_000_000
+LOOP_SAMPLE = 500_000
+LOOP_CUTOFF = 0.5
+LOOP_SAMPLING = 2               # uniform random
+LOOP_SEQ_WINDOWS = 3            # windows of the sequential comparison
+SERVE_PROBE_CALLS = 200
+# tests/test_lrb_pipeline.py:122
+PARITY_KEYS = ("window", "eval_rows", "fp_rate", "fn_rate",
+               "train_rows", "opt_obj_hit_ratio", "opt_byte_hit_ratio",
+               "staleness_windows", "degraded", "degrade_reason")
 K3_RUNS = 200                   # K3 launches per timing window
 PASS_RUNS = 5                   # launches per timed pass split
 # PERF.md's table: each int8 launch's card ms before the int8 pass's
@@ -1919,6 +1949,243 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> tuple:
               f"{cmp_runs['cpu'][2]:.1f} s on the CPU")
     return out, airline_k4
 
+def write_trace(path: str, n_requests: int) -> None:
+    """``lrb.synthetic_trace(n_requests, LOOP_OBJECTS, seed=7)`` as a
+    trace file, ``seq id size cost`` a line (test.cpp:376)."""
+    from lightgbm_tpu_torch import lrb
+    with open(path, "w") as fh:
+        fh.writelines(f"{q} {o} {z} {c}\n" for q, o, z, c in
+                      lrb.synthetic_trace(n_requests, LOOP_OBJECTS, seed=7))
+
+
+@contextlib.contextmanager
+def loop_probes():
+    """While active, the LRB loop is watched at four seams: each window's
+    training (``LrbDriver._train_model``: its K1, K2 and K3 launches and
+    iterations), each window's evaluation (``_score_window``: the forest
+    kernel's launches on the calling thread), the serving call the loop
+    makes (``lrb.capi.LGBM_BoosterPredictForMat``: rows and host-clock
+    ms of each call, and window 3's batches and scores with the handle
+    that scored them) and ``forest.forest_predict`` (one launch a call
+    for CUDA tensors, counted per thread). Yields the records."""
+    import threading
+    from lightgbm_tpu_torch import lrb
+    from lightgbm_tpu_torch.obs import reqlog
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    from lightgbm_tpu_torch.ops import predict as pr
+    rec = {"train": {}, "eval": {}, "calls": {}, "window3": [],
+           "handle3": None}
+    tls = threading.local()
+    orig = (lrb.LrbDriver._train_model, lrb.LrbDriver._score_window,
+            lrb.capi.LGBM_BoosterPredictForMat, forest_ops.forest_predict)
+
+    def k123():
+        return (hw.k1_launches.value, hw.k2_launches.value,
+                pr.launches.value)
+
+    def train_model(self, labels, X, widx, deadline=None):
+        before = k123()
+        out = orig[0](self, labels, X, widx, deadline)
+        after = k123()
+        rec["train"][widx] = {
+            "K1": after[0] - before[0], "K2": after[1] - before[1],
+            "K3": after[2] - before[2],
+            "iterations": len(out[1].gbdt.models) if out else 0}
+        return out
+
+    def score_window(self, *a, **kw):
+        n0 = getattr(tls, "k4", 0)
+        out = orig[1](self, *a, **kw)
+        rec["eval"][kw.get("window")] = getattr(tls, "k4", 0) - n0
+        return out
+
+    def predict_for_mat(handle, data, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig[2](handle, data, *a, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        ctx = reqlog.current()
+        w = ctx.window if ctx is not None else None
+        rec["calls"].setdefault(w, []).append((len(data), ms))
+        if w == 3:
+            rec["window3"].append((data, out))
+            rec["handle3"] = handle
+        return out
+
+    def forest_predict(*a, **kw):
+        tls.k4 = getattr(tls, "k4", 0) + 1
+        return orig[3](*a, **kw)
+
+    lrb.LrbDriver._train_model = train_model
+    lrb.LrbDriver._score_window = score_window
+    lrb.capi.LGBM_BoosterPredictForMat = predict_for_mat
+    forest_ops.forest_predict = forest_predict
+    try:
+        yield rec
+    finally:
+        (lrb.LrbDriver._train_model, lrb.LrbDriver._score_window,
+         lrb.capi.LGBM_BoosterPredictForMat,
+         forest_ops.forest_predict) = orig
+
+
+def request_quantiles(calls) -> dict:
+    """p50 and p99 of the per-call ms of ``calls`` [(rows, ms)], per
+    batch and per request (a call's ms once for each of its rows)."""
+    rows = np.array([r for r, _ in calls])
+    ms = np.array([m for _, m in calls])
+    per_req = np.repeat(ms, rows)
+    return {"batch_p50": float(np.percentile(ms, 50)),
+            "batch_p99": float(np.percentile(ms, 99)),
+            "request_p50": float(np.percentile(per_req, 50)),
+            "request_p99": float(np.percentile(per_req, 99))}
+
+
+def lrb_loop_phase(dev, smi: str) -> dict:
+    """Phase 19 of the module docstring. Returns, for the kernels line,
+    each kernel's launches in the loop's run and per window, and K4's
+    reading on window 3's rows."""
+    import itertools
+    import tempfile
+    import types
+    from lightgbm_tpu_torch import capi, lrb
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.txt")
+        t0 = time.perf_counter()
+        write_trace(path, LOOP_REQUESTS)
+        print(f"lrb loop: trace of {LOOP_REQUESTS} requests over "
+              f"{LOOP_OBJECTS} objects written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        # the main path: the default pipelined loop on cuda:0
+        with loop_probes() as probes:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = _Lines()
+            drv = lrb.run_trace_file(path, LOOP_CACHE, LOOP_WINDOW,
+                                     LOOP_SAMPLE, LOOP_CUTOFF,
+                                     LOOP_SAMPLING, result_file=out)
+            drv.close()
+            loop_s = time.perf_counter() - t0
+            counts = read_counts()
+        res = drv.results
+        for k in ("K1/f32", "K2/f32", "K3", "K4"):
+            assert counts.get(k, 0) > 0, f"lrb loop: {k} never launched"
+        n_win = LOOP_REQUESTS // LOOP_WINDOW
+        assert len(res) == n_win and drv.degraded_windows() == 0, res
+        for r in res:
+            share = r["opt_obj_hit_ratio"]
+            assert 0.05 < share < 0.95, f"OPT's positive share {share}"
+            if r["window"] > 1:
+                # the learned policy beats chance, as
+                # tests/test_capi_lrb.py asks of the JAX loop
+                assert r["eval_rows"] == LOOP_WINDOW, r
+                assert r["fp_rate"] + r["fn_rate"] < 0.9, r
+        swaps = sum(1 for r in res if not r.get("degraded"))
+        k4_eval = [probes["eval"].get(w, 0) for w in range(1, n_win + 1)]
+        # every K4 launch of the loop is a serving call's or the warm-up
+        # predict of a published model's
+        assert counts["K4"] == sum(k4_eval) + swaps, (counts, k4_eval)
+        print(f"lrb loop, pipelined on {drv._device} ({smi}): {n_win} windows "
+              f"of {LOOP_WINDOW} requests in {loop_s:.1f} s (cache "
+              f"{LOOP_CACHE}, sample {LOOP_SAMPLE}, sampling "
+              f"{LOOP_SAMPLING}); launches {counts}")
+        for r in res:
+            w = r["window"]
+            tr = probes["train"][w]
+            calls = probes["calls"].get(w, [])
+            q = request_quantiles(calls) if calls else {}
+            print(f"  window {w} ({smi}): wall {r['window_wall_s']} s, "
+                  f"derive {r['derive_s']} s, train {r['train_s']} s "
+                  f"({1e3 * r['train_s'] / tr['iterations']:.1f} ms an "
+                  f"iteration of {tr['iterations']}, {r['train_rows']} "
+                  f"rows; compile {r['compile_s']} s), evaluate "
+                  f"{r.get('evaluate_s', 0)} s, overlap {r['overlap_s']} "
+                  f"s; {len(calls)} predict calls"
+                  + (f" (p50/p99 ms a batch {q['batch_p50']:.3f}/"
+                     f"{q['batch_p99']:.3f}, a request "
+                     f"{q['request_p50']:.3f}/{q['request_p99']:.3f})"
+                     if calls else "")
+                  + f"; launches K1 {tr['K1']}, K2 {tr['K2']}, K3 "
+                  f"{tr['K3']}, K4 {probes['eval'].get(w, 0)}; OPT "
+                  f"share {r['opt_obj_hit_ratio']}, fp {r.get('fp_rate')}"
+                  f", fn {r.get('fn_rate')}")
+        print(f"  driver's quantiles ({smi}): window wall "
+              f"{drv.window_wall_quantiles()}, serving latency per "
+              f"request (s) {drv.serve_latency_quantiles()}")
+        print("  result lines: " + " | ".join(out.lines[:n_win]))
+
+        # the same trace, sequential: the records equal on PARITY_KEYS
+        seq_path = path
+        if LOOP_SEQ_WINDOWS < n_win:
+            seq_path = os.path.join(tmp, "prefix.txt")
+            write_trace(seq_path, LOOP_SEQ_WINDOWS * LOOP_WINDOW)
+        t0 = time.perf_counter()
+        seq = lrb.run_trace_file(seq_path, LOOP_CACHE, LOOP_WINDOW,
+                                 LOOP_SAMPLE, LOOP_CUTOFF, LOOP_SAMPLING,
+                                 result_file=_Lines(),
+                                 extra_params={"tpu_lrb_pipeline": 0})
+        seq.close()
+        seq_s = time.perf_counter() - t0
+        assert len(seq.results) == LOOP_SEQ_WINDOWS
+        for a, b in zip(seq.results, res):
+            for k in PARITY_KEYS:
+                assert a.get(k) == b.get(k), (a["window"], k, a.get(k),
+                                              b.get(k))
+        print(f"lrb loop, sequential ({smi}): {LOOP_SEQ_WINDOWS} windows "
+              f"in {seq_s:.1f} s, records equal to the pipelined run's "
+              f"on {len(PARITY_KEYS)} keys; per window (s) "
+              + ", ".join(f"{r['window']}: wall {r['window_wall_s']} "
+                          f"derive {r['derive_s']} train {r['train_s']} "
+                          f"evaluate {r.get('evaluate_s', 0)}"
+                          for r in seq.results)
+              + f"; serving latency per request (s) "
+              f"{seq.serve_latency_quantiles()}")
+
+    # window 3's serving, bit for bit: its 64-row calls against one call
+    # with the same handle, and against the plain K4 version
+    h = probes["handle3"]
+    X3 = np.concatenate([x for x, _ in probes["window3"]])
+    p3 = np.concatenate([p for _, p in probes["window3"]])
+    assert p3.shape == (LOOP_WINDOW,) and np.isfinite(p3).all()
+    assert ((p3 >= 0) & (p3 <= 1)).all()
+    one = np.asarray(capi.LGBM_BoosterPredictForMat(h, X3))
+    assert np.array_equal(one, p3), "64-row calls != one call"
+    print(f"lrb loop window 3: {len(probes['window3'])} serving calls "
+          f"bit-equal to one call on its {X3.shape[0]} rows")
+    kern = check_forest("lrb loop window 3",
+                        types.SimpleNamespace(_gbdt=h.gbdt), X3, p3, dev)
+    # the serving call's host path, over 200 of window 3's calls
+    batches = itertools.cycle([x for x, _ in
+                               probes["window3"][:SERVE_PROBE_CALLS]])
+
+    def serve():
+        capi.LGBM_BoosterPredictForMat(h, next(batches))
+    wall, busy = device_busy(serve, SERVE_PROBE_CALLS)
+    per_call = wall / SERVE_PROBE_CALLS
+    print(f"lrb serving calls ({smi}): {SERVE_PROBE_CALLS} calls of "
+          f"{drv.serve_batch} rows in {wall:.1f} ms ({per_call:.3f} ms a "
+          f"call), device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.2f}%); host time a call by operator: "
+          f"{host_ops(serve, SERVE_PROBE_CALLS, k=10)}")
+    print(f"lrb loop phase: {time.perf_counter() - t_phase:.1f} s")
+    per_window = {"K1": [], "K2": [], "K3": []}
+    for w in range(1, n_win + 1):
+        for k in per_window:
+            per_window[k].append(probes["train"][w][k])
+    return {"counts": counts, "per_window": per_window,
+            "k4_per_window": k4_eval, "publish_warmups": swaps,
+            "k4": kern}
+
+
+class _Lines:
+    """A result file that keeps its lines."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, s: str) -> None:
+        self.lines.extend(x for x in s.splitlines() if x)
+
 
 def main() -> None:
     import torch
@@ -2078,6 +2345,10 @@ def main() -> None:
           + f"; {serve_launches} launches")
     print(kernel_line("lrb", lrb, LRB_TREES))
 
+    # 19, before 6-18: the LRB loop on the card (torch.profiler's
+    # records are still whole this early in the run)
+    loop = lrb_loop_phase(dev, smi)
+
     # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins
     train, higgs_data = train_phases(dev)
     quant = quant_phases(dev, higgs_data, power_limit_w)
@@ -2101,6 +2372,20 @@ def main() -> None:
     forest.update({k: higgs[k] for k in keys})
     for key, r in (("lrb", lrb), ("airline", airline)):
         forest[key] = {k: r[k] for k in keys}
+    forest["lrb_loop"] = {
+        "launches": loop["counts"]["K4"],
+        "launches_per_window": loop["k4_per_window"],
+        "publish_warmups": loop["publish_warmups"],
+        **{k: loop["k4"][k] for k in ("rows", "ms", "queued_ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "max_abs_err")}}
+    kid_of = {"wave_histogram": "K2", "fused_partition_histogram": "K1",
+              "leaf_gather_add": "K3"}
+    for e in train:
+        kid = kid_of[e["name"]]
+        e["lrb_loop"] = {
+            "launches": loop["counts"][kid if kid == "K3" else f"{kid}/f32"],
+            "launches_per_window": loop["per_window"][kid]}
     print(json.dumps({"kernels": [forest] + train + quant + cat}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,6 @@ every ensemble the stacker can host; the others, and
 """
 from __future__ import annotations
 
-import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -27,8 +26,10 @@ import torch
 from ..config import Config
 from ..io.binning import BinType
 from .tree import Tree, tree_from_record
+from ..analysis import lockorder
 from ..objectives import ObjectiveFunction, parse_objective_from_model_string
 from ..ops.f32math import fma
+from ..ops import predict_cache
 from ..ops.predict import add_leaf_outputs
 from ..ops.split import SplitParams
 from ..ops.wave_grower import WaveGrower, WaveGrowerConfig
@@ -62,7 +63,7 @@ class GBDT:
         self.average_output = False
         self.records: list = []              # grown TreeRecords
         self._tree_shrinkage: List[float] = []
-        self._stacked_lock = threading.Lock()
+        self._stacked_lock = lockorder.named_lock("gbdt._stacked_lock")
         self._stacked = None              # guarded-by: _stacked_lock
         self._stacked_built = False       # guarded-by: _stacked_lock
 
@@ -76,9 +77,13 @@ class GBDT:
                 if nf <= 0 and self.models:
                     nf = max([max(t.split_feature, default=-1)
                               for t in self.models]) + 1
+                cfg = self.config
                 sm = StackedModel(self.models, max(nf, 1),
                                   self.num_tree_per_iteration,
-                                  resolve_device(self.device))
+                                  resolve_device(self.device),
+                                  serve_bucket=(cfg.tpu_serve_bucket
+                                                if cfg is not None
+                                                else None))
                 self._stacked = sm if sm.ok else None
                 self._stacked_built = True
             return self._stacked
@@ -108,6 +113,9 @@ class GBDT:
         self.feature_infos = train_data.feature_infos()
         self.models, self.records, self._tree_shrinkage = [], [], []
         self._invalidate_stacked()
+        # the process default of the serving buckets
+        # (ops/predict_cache.py); each stack keeps its own booster's
+        predict_cache.configure(config.tpu_serve_bucket)
         self._n = n = train_data.num_data
         self._setup_grower()
         dev = self.device
@@ -316,6 +324,23 @@ class GBDT:
             raise NotImplementedError("valid sets are not ported yet")
         return [(m.name, m.eval(self._scores, self.objective),
                  m.bigger_is_better) for m in self.training_metrics]
+
+    def prepare_serving(self, warm_rows: int = 0) -> bool:
+        """Build this model's serving path BEFORE it is published into a
+        live request stream (the swap seam of the pipelined LRB loop,
+        lrb.py): the host trees, the stacked tables on the device and,
+        with ``warm_rows`` > 0, one throwaway predict of that many zero
+        rows through the whole path (the forest kernel's library loads
+        on its first launch). Returns True when a stacked predictor is
+        available."""
+        self._ensure_host_trees()
+        sm = self._stacked_model() if self.models else None
+        if sm is None:
+            return False
+        if warm_rows > 0:
+            self.predict(np.zeros((int(warm_rows),
+                                   max(self.max_feature_idx + 1, 1))))
+        return True
 
     def _invalidate_stacked(self) -> None:
         with self._stacked_lock:

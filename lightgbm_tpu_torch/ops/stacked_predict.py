@@ -21,7 +21,11 @@ turns the JAX package's own W into the walk's tables.
 
 Rows are binned on the device when they are f32-exact and every feature
 is numerical (``codes_from_x``), else on the host in float64
-(``_bin_rows``); then one forest-kernel launch per row chunk.
+(``_bin_rows``); then one forest-kernel launch per row chunk. A batch is
+cut into chunks of its serve bucket (ops/predict_cache.py: a power of
+two, at most ``ROW_CHUNK``) and the last chunk is padded to it, as the
+JAX stacker pads (its ``ops/stacked_predict.py:649, :707``); the pad
+rows are sliced off.
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ import numpy as np
 import torch
 
 from . import forest as forest_ops
+from . import predict_cache
 from ..io.binning import MissingType
+from ..obs import reqlog
 from ..utils import log
 from ..utils.device import Counter
 
@@ -55,13 +61,17 @@ class StackedModel:
     copies, and ``predict``."""
 
     def __init__(self, trees: List, num_features: int, num_class: int,
-                 device: torch.device):
+                 device: torch.device, serve_bucket: Optional[int] = None):
+        """``serve_bucket`` is the owning booster's ``tpu_serve_bucket``
+        (None: the process default, ops/predict_cache.py)."""
         self.num_class = num_class
         self.num_trees = len(trees)
         self.device = device
+        self._serve_policy = serve_bucket
         self.ok = True
         try:
             self._build(trees, num_features)
+            predict_cache.count_stack(len(trees))
         except _FallbackError as e:
             log.warning("stacked predict unavailable (%s); "
                         "host prediction path will be used", e)
@@ -333,9 +343,19 @@ class StackedModel:
         if rows is None:
             rows = self._bin_rows(X)
         N = X.shape[0]
+        # the serve bucket, clamped to the row chunk; the clamped width
+        # is the one the request rode (obs/reqlog.py)
+        chunk = max(1, min(ROW_CHUNK, predict_cache.serve_bucket_rows(
+            N, self._serve_policy)))
+        reqlog.note_bucket(chunk)
         parts = []
-        for c0 in range(0, N, ROW_CHUNK):
-            part = rows[c0:c0 + ROW_CHUNK]
+        for c0 in range(0, N, chunk):
+            part = rows[c0:c0 + chunk]
+            if part.shape[0] < chunk:
+                # the rows are scored one by one: pad rows (copies of
+                # the last row, valid codes) only add columns to slice
+                part = np.pad(part, ((0, chunk - part.shape[0]), (0, 0)),
+                              mode="edge")
             if dev_bin:
                 codes_t = codes_from_x(
                     torch.from_numpy(part).to(self.device), *self.edges)
@@ -347,10 +367,10 @@ class StackedModel:
         if pred_leaf:
             if not parts:
                 return np.zeros((0, ntree - first), np.int32)
-            return torch.cat(parts).cpu().numpy()
+            return torch.cat(parts)[:N].cpu().numpy()
         if not parts:
             return np.zeros((self.num_class, 0), np.float64)
-        return torch.cat(parts).cpu().numpy().T.astype(np.float64)
+        return torch.cat(parts)[:N].cpu().numpy().T.astype(np.float64)
 
 
 class _FallbackError(Exception):

@@ -5,7 +5,9 @@ shared library with a plain C interface, under ``_build/`` (ignored by
 git), keyed by a hash of the source and flags. ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them; ``library``
 builds on first use, so a caller never needs a separate build step.
-Nothing here runs when a module is imported.
+``compile_seconds`` is the nvcc wall time this process has paid so far
+(the LRB loop's per-window ``compile_s``). Nothing here runs when a
+module is imported.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_paid_lock = threading.Lock()
+_paid_s = 0.0       # guarded-by: _paid_lock
 
 
 class Built(NamedTuple):
@@ -59,6 +63,7 @@ def _target(name: str) -> str:
 def build_all() -> Dict[str, Built]:
     """Compile every source not yet built, all nvcc processes at once.
     Raises with nvcc's errors if any source fails."""
+    global _paid_s
     os.makedirs(BUILD_DIR, exist_ok=True)
     out: Dict[str, Built] = {}
     running = {}
@@ -82,9 +87,19 @@ def build_all() -> Dict[str, Built]:
             continue
         os.replace(tmp, path)
         out[name] = Built(path, seconds, report)
+    if running:
+        wall = time.perf_counter() - min(t0 for *_, t0 in running.values())
+        with _paid_lock:
+            _paid_s += wall
     if failed:
         raise LightGBMError("\n".join(failed))
     return out
+
+
+def compile_seconds() -> float:
+    """nvcc wall seconds paid by this process's builds so far."""
+    with _paid_lock:
+        return _paid_s
 
 
 def library(name: str) -> ctypes.CDLL:

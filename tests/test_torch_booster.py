@@ -229,7 +229,15 @@ def test_import_hygiene():
     """The port loads neither jax nor the JAX package, and its sources
     name neither."""
     code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.capi, "
-            "lightgbm_tpu_torch.convert; "
+            "lightgbm_tpu_torch.convert, lightgbm_tpu_torch.lrb, "
+            "lightgbm_tpu_torch.obs.identity, "
+            "lightgbm_tpu_torch.obs.registry, "
+            "lightgbm_tpu_torch.obs.reqlog, lightgbm_tpu_torch.obs.trace, "
+            "lightgbm_tpu_torch.analysis.lockorder, "
+            "lightgbm_tpu_torch.ops.predict_cache, "
+            "lightgbm_tpu_torch.utils.faults, "
+            "lightgbm_tpu_torch.utils.retry, "
+            "lightgbm_tpu_torch.utils.fileio; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'lightgbm_tpu.')) "
             "or m == 'lightgbm_tpu']; print(bad); sys.exit(bool(bad))")
