@@ -118,9 +118,39 @@ the entry points a user calls:
    (``check_forest``). Per window: wall, derive, train (ms an
    iteration), evaluate, predict calls, p50/p99 a batch and a request,
    and K1-K4 launches; then the host's operators and the card's busy
-   share over 200 serving calls.
+   share over 200 serving calls;
+20. the fleet scoring daemon (``lightgbm_tpu_torch.serve``), right after
+   phase 19 on its trace and models: tenants ``lrb_a`` and ``lrb_b``
+   (phase 19's last published model, 50 trees of 31 leaves over 53
+   features) and ``higgs`` (phase 4's 500 trees of 255 leaves over 28),
+   all on cuda:0. First the shed drill of tests/test_fleet.py (p99
+   objective 50 ms, shed at half the budget, 100 events before judging;
+   400 healthy 64-row requests a tenant over HTTP, then
+   ``fleet.predict.lrb_a@1+:sleep80``): lrb_a refused with HTTP 429 with
+   budget left and not exhausted, lrb_b served bit-equal, faults
+   cleared. Then 8,000 requests of 64 rows (LRB rows, HIGGS rows for
+   ``higgs``) in the ratio 7:7:2 from 32 ``FleetClient`` threads over
+   localhost HTTP, coalesce_us 2000 and max_batch 4096, every answer
+   bit-equal to ``LGBM_BoosterPredictForMat`` on a freshly loaded handle
+   and of version 1, the batches the dispatcher sends recorded at the
+   coalescer's ``predict_fn`` seam and the largest held against the
+   plain K4 version (``check_forest``); printed: requests/s, a request's
+   p50/p99 at its client, the batches' rows p50/p99, K4 launches a
+   request, and, over one request in 8 sent again under the profiler,
+   the card's busy share and the host's top operators; the same for the
+   first 2,000 requests with coalesce_us 0. Then 8 clients on lrb_a
+   while it is registered 3 times, two model texts in turn: no failed
+   request, every answer bit-equal to its version's, ``fleet/
+   model_swaps`` +3. Last, phase 19's trace's first 2 windows
+   sequential with ``serve_daemon=True`` (window 2's 15,625 calls of 64
+   rows over HTTP): records equal to phase 19's sequential ones on
+   ``PARITY_KEYS``, the tenant's version the windows published, no
+   fallback to in-process scoring, one K4 launch a request and one a
+   registration; window 2's evaluate time and a request's p50/p99
+   beside phase 19's in-process numbers. Every number with the card's
+   name and power limit.
 
-Phases 6-7, 10-12, 15-16 and 19 check that the main path launched each
+Phases 6-7, 10-12, 15-16, 19 and 20 check that the main path launched each
 kernel (and each histogram variant) of its tier. Prints a JSON line of the kernels,
 then the last line ``{"ok": true, "device": {...}}``. Any failed check
 raises, and the
@@ -132,6 +162,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -206,6 +237,18 @@ SERVE_PROBE_CALLS = 200
 PARITY_KEYS = ("window", "eval_rows", "fp_rate", "fn_rate",
                "train_rows", "opt_obj_hit_ratio", "opt_byte_hit_ratio",
                "staleness_windows", "degraded", "degrade_reason")
+# phase 20: the fleet scoring daemon (lightgbm_tpu_torch/serve/)
+FLEET_REQUESTS = 8_000          # the coalesced run
+FLEET_REPEAT = 2_000            # the first of them again, coalesce_us 0
+FLEET_CLIENTS = 32              # FleetClient threads, one HTTP call each
+FLEET_ROWS = 64                 # rows a request (the LRB loop's calls)
+FLEET_MIX = (("lrb_a", 7), ("lrb_b", 7), ("higgs", 2))
+FLEET_COALESCE_US = 2_000       # config.py tpu_fleet_coalesce_us default
+FLEET_MAX_BATCH = 4_096         # tpu_fleet_max_batch default
+FLEET_PROFILED = 8              # one request in 8 again, under the profiler
+SWAP_CLIENTS = 8
+DRILL_PREFILL = 400             # tests/test_fleet.py:301
+FLEET_LOOP_WINDOWS = 2
 K3_RUNS = 200                   # K3 launches per timing window
 PASS_RUNS = 5                   # launches per timed pass split
 # PERF.md's table: each int8 launch's card ms before the int8 pass's
@@ -2040,106 +2083,107 @@ def request_quantiles(calls) -> dict:
             "request_p99": float(np.percentile(per_req, 99))}
 
 
-def lrb_loop_phase(dev, smi: str) -> dict:
-    """Phase 19 of the module docstring. Returns, for the kernels line,
-    each kernel's launches in the loop's run and per window, and K4's
-    reading on window 3's rows."""
+def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
+    """Phase 19 of the module docstring, its trace written under ``tmp``.
+    Returns, for the kernels line, each kernel's launches in the loop's
+    run and per window, and K4's reading on window 3's rows; for phase
+    20 the trace's path, the last two published models' text, the
+    sequential run's records and its window 2 calls' quantiles."""
     import itertools
-    import tempfile
     import types
     from lightgbm_tpu_torch import capi, lrb
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.txt")
+    path = os.path.join(tmp, "trace.txt")
+    t0 = time.perf_counter()
+    write_trace(path, LOOP_REQUESTS)
+    print(f"lrb loop: trace of {LOOP_REQUESTS} requests over "
+          f"{LOOP_OBJECTS} objects written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the main path: the default pipelined loop on cuda:0
+    with loop_probes() as probes:
+        reset_counts()
         t0 = time.perf_counter()
-        write_trace(path, LOOP_REQUESTS)
-        print(f"lrb loop: trace of {LOOP_REQUESTS} requests over "
-              f"{LOOP_OBJECTS} objects written in "
-              f"{time.perf_counter() - t0:.1f} s")
-        # the main path: the default pipelined loop on cuda:0
-        with loop_probes() as probes:
-            reset_counts()
-            t0 = time.perf_counter()
-            out = _Lines()
-            drv = lrb.run_trace_file(path, LOOP_CACHE, LOOP_WINDOW,
-                                     LOOP_SAMPLE, LOOP_CUTOFF,
-                                     LOOP_SAMPLING, result_file=out)
-            drv.close()
-            loop_s = time.perf_counter() - t0
-            counts = read_counts()
-        res = drv.results
-        for k in ("K1/f32", "K2/f32", "K3", "K4"):
-            assert counts.get(k, 0) > 0, f"lrb loop: {k} never launched"
-        n_win = LOOP_REQUESTS // LOOP_WINDOW
-        assert len(res) == n_win and drv.degraded_windows() == 0, res
-        for r in res:
-            share = r["opt_obj_hit_ratio"]
-            assert 0.05 < share < 0.95, f"OPT's positive share {share}"
-            if r["window"] > 1:
-                # the learned policy beats chance, as
-                # tests/test_capi_lrb.py asks of the JAX loop
-                assert r["eval_rows"] == LOOP_WINDOW, r
-                assert r["fp_rate"] + r["fn_rate"] < 0.9, r
-        swaps = sum(1 for r in res if not r.get("degraded"))
-        k4_eval = [probes["eval"].get(w, 0) for w in range(1, n_win + 1)]
-        # every K4 launch of the loop is a serving call's or the warm-up
-        # predict of a published model's
-        assert counts["K4"] == sum(k4_eval) + swaps, (counts, k4_eval)
-        print(f"lrb loop, pipelined on {drv._device} ({smi}): {n_win} windows "
-              f"of {LOOP_WINDOW} requests in {loop_s:.1f} s (cache "
-              f"{LOOP_CACHE}, sample {LOOP_SAMPLE}, sampling "
-              f"{LOOP_SAMPLING}); launches {counts}")
-        for r in res:
-            w = r["window"]
-            tr = probes["train"][w]
-            calls = probes["calls"].get(w, [])
-            q = request_quantiles(calls) if calls else {}
-            print(f"  window {w} ({smi}): wall {r['window_wall_s']} s, "
-                  f"derive {r['derive_s']} s, train {r['train_s']} s "
-                  f"({1e3 * r['train_s'] / tr['iterations']:.1f} ms an "
-                  f"iteration of {tr['iterations']}, {r['train_rows']} "
-                  f"rows; compile {r['compile_s']} s), evaluate "
-                  f"{r.get('evaluate_s', 0)} s, overlap {r['overlap_s']} "
-                  f"s; {len(calls)} predict calls"
-                  + (f" (p50/p99 ms a batch {q['batch_p50']:.3f}/"
-                     f"{q['batch_p99']:.3f}, a request "
-                     f"{q['request_p50']:.3f}/{q['request_p99']:.3f})"
-                     if calls else "")
-                  + f"; launches K1 {tr['K1']}, K2 {tr['K2']}, K3 "
-                  f"{tr['K3']}, K4 {probes['eval'].get(w, 0)}; OPT "
-                  f"share {r['opt_obj_hit_ratio']}, fp {r.get('fp_rate')}"
-                  f", fn {r.get('fn_rate')}")
-        print(f"  driver's quantiles ({smi}): window wall "
-              f"{drv.window_wall_quantiles()}, serving latency per "
-              f"request (s) {drv.serve_latency_quantiles()}")
-        print("  result lines: " + " | ".join(out.lines[:n_win]))
+        out = _Lines()
+        drv = lrb.run_trace_file(path, LOOP_CACHE, LOOP_WINDOW,
+                                 LOOP_SAMPLE, LOOP_CUTOFF,
+                                 LOOP_SAMPLING, result_file=out)
+        drv.close()
+        loop_s = time.perf_counter() - t0
+        counts = read_counts()
+    res = drv.results
+    for k in ("K1/f32", "K2/f32", "K3", "K4"):
+        assert counts.get(k, 0) > 0, f"lrb loop: {k} never launched"
+    n_win = LOOP_REQUESTS // LOOP_WINDOW
+    assert len(res) == n_win and drv.degraded_windows() == 0, res
+    for r in res:
+        share = r["opt_obj_hit_ratio"]
+        assert 0.05 < share < 0.95, f"OPT's positive share {share}"
+        if r["window"] > 1:
+            # the learned policy beats chance, as
+            # tests/test_capi_lrb.py asks of the JAX loop
+            assert r["eval_rows"] == LOOP_WINDOW, r
+            assert r["fp_rate"] + r["fn_rate"] < 0.9, r
+    swaps = sum(1 for r in res if not r.get("degraded"))
+    k4_eval = [probes["eval"].get(w, 0) for w in range(1, n_win + 1)]
+    # every K4 launch of the loop is a serving call's or the warm-up
+    # predict of a published model's
+    assert counts["K4"] == sum(k4_eval) + swaps, (counts, k4_eval)
+    print(f"lrb loop, pipelined on {drv._device} ({smi}): {n_win} windows "
+          f"of {LOOP_WINDOW} requests in {loop_s:.1f} s (cache "
+          f"{LOOP_CACHE}, sample {LOOP_SAMPLE}, sampling "
+          f"{LOOP_SAMPLING}); launches {counts}")
+    for r in res:
+        w = r["window"]
+        tr = probes["train"][w]
+        calls = probes["calls"].get(w, [])
+        q = request_quantiles(calls) if calls else {}
+        print(f"  window {w} ({smi}): wall {r['window_wall_s']} s, "
+              f"derive {r['derive_s']} s, train {r['train_s']} s "
+              f"({1e3 * r['train_s'] / tr['iterations']:.1f} ms an "
+              f"iteration of {tr['iterations']}, {r['train_rows']} "
+              f"rows; compile {r['compile_s']} s), evaluate "
+              f"{r.get('evaluate_s', 0)} s, overlap {r['overlap_s']} "
+              f"s; {len(calls)} predict calls"
+              + (f" (p50/p99 ms a batch {q['batch_p50']:.3f}/"
+                 f"{q['batch_p99']:.3f}, a request "
+                 f"{q['request_p50']:.3f}/{q['request_p99']:.3f})"
+                 if calls else "")
+              + f"; launches K1 {tr['K1']}, K2 {tr['K2']}, K3 "
+              f"{tr['K3']}, K4 {probes['eval'].get(w, 0)}; OPT "
+              f"share {r['opt_obj_hit_ratio']}, fp {r.get('fp_rate')}"
+              f", fn {r.get('fn_rate')}")
+    print(f"  driver's quantiles ({smi}): window wall "
+          f"{drv.window_wall_quantiles()}, serving latency per "
+          f"request (s) {drv.serve_latency_quantiles()}")
+    print("  result lines: " + " | ".join(out.lines[:n_win]))
 
-        # the same trace, sequential: the records equal on PARITY_KEYS
-        seq_path = path
-        if LOOP_SEQ_WINDOWS < n_win:
-            seq_path = os.path.join(tmp, "prefix.txt")
-            write_trace(seq_path, LOOP_SEQ_WINDOWS * LOOP_WINDOW)
+    # the same trace, sequential: the records equal on PARITY_KEYS
+    seq_path = path
+    if LOOP_SEQ_WINDOWS < n_win:
+        seq_path = os.path.join(tmp, "prefix.txt")
+        write_trace(seq_path, LOOP_SEQ_WINDOWS * LOOP_WINDOW)
+    with loop_probes() as seq_probes:
         t0 = time.perf_counter()
         seq = lrb.run_trace_file(seq_path, LOOP_CACHE, LOOP_WINDOW,
-                                 LOOP_SAMPLE, LOOP_CUTOFF, LOOP_SAMPLING,
-                                 result_file=_Lines(),
+                                 LOOP_SAMPLE, LOOP_CUTOFF,
+                                 LOOP_SAMPLING, result_file=_Lines(),
                                  extra_params={"tpu_lrb_pipeline": 0})
         seq.close()
         seq_s = time.perf_counter() - t0
-        assert len(seq.results) == LOOP_SEQ_WINDOWS
-        for a, b in zip(seq.results, res):
-            for k in PARITY_KEYS:
-                assert a.get(k) == b.get(k), (a["window"], k, a.get(k),
-                                              b.get(k))
-        print(f"lrb loop, sequential ({smi}): {LOOP_SEQ_WINDOWS} windows "
-              f"in {seq_s:.1f} s, records equal to the pipelined run's "
-              f"on {len(PARITY_KEYS)} keys; per window (s) "
-              + ", ".join(f"{r['window']}: wall {r['window_wall_s']} "
-                          f"derive {r['derive_s']} train {r['train_s']} "
-                          f"evaluate {r.get('evaluate_s', 0)}"
-                          for r in seq.results)
-              + f"; serving latency per request (s) "
-              f"{seq.serve_latency_quantiles()}")
+    assert len(seq.results) == LOOP_SEQ_WINDOWS
+    for a, b in zip(seq.results, res):
+        for k in PARITY_KEYS:
+            assert a.get(k) == b.get(k), (a["window"], k, a.get(k),
+                                          b.get(k))
+    print(f"lrb loop, sequential ({smi}): {LOOP_SEQ_WINDOWS} windows "
+          f"in {seq_s:.1f} s, records equal to the pipelined run's "
+          f"on {len(PARITY_KEYS)} keys; per window (s) "
+          + ", ".join(f"{r['window']}: wall {r['window_wall_s']} "
+                      f"derive {r['derive_s']} train {r['train_s']} "
+                      f"evaluate {r.get('evaluate_s', 0)}"
+                      for r in seq.results)
+          + f"; serving latency per request (s) "
+          f"{seq.serve_latency_quantiles()}")
 
     # window 3's serving, bit for bit: its 64-row calls against one call
     # with the same handle, and against the plain K4 version
@@ -2174,7 +2218,390 @@ def lrb_loop_phase(dev, smi: str) -> dict:
             per_window[k].append(probes["train"][w][k])
     return {"counts": counts, "per_window": per_window,
             "k4_per_window": k4_eval, "publish_warmups": swaps,
-            "k4": kern}
+            "k4": kern, "trace": path,
+            "model_texts": [capi.LGBM_BoosterSaveModelToString(b)
+                            for b in (drv.booster, h)],
+            "seq_results": seq.results,
+            "seq_window2": request_quantiles(seq_probes["calls"][2])}
+
+
+def fleet_jobs(n: int, pools: dict, seed: int) -> list:
+    """``n`` requests of ``FLEET_ROWS`` rows in the ratio ``FLEET_MIX``,
+    in a seeded order: [(tenant, rows)], each tenant's requests taking
+    consecutive row blocks of its pool."""
+    r = np.random.default_rng(seed)
+    pattern = [t for t, k in FLEET_MIX for _ in range(k)]
+    used = {t: 0 for t, _ in FLEET_MIX}
+    jobs = []
+    for t in r.permutation(np.resize(pattern, n)):
+        t = str(t)
+        i = used[t]
+        used[t] += 1
+        jobs.append((t, pools[t][i * FLEET_ROWS:(i + 1) * FLEET_ROWS]))
+    return jobs
+
+
+def fleet_traffic(url: str, jobs: list, clients: int = FLEET_CLIENTS):
+    """Sends ``jobs`` from ``clients`` threads, each with its own
+    ``FleetClient`` (one HTTP call a request), thread c sending jobs c,
+    c + clients, ... Returns the wall seconds, each request's host-clock
+    ms at its client and each answer (predictions, version). Any failed
+    request fails the phase."""
+    import threading
+    from lightgbm_tpu_torch.serve import FleetClient
+    ms = [0.0] * len(jobs)
+    out = [None] * len(jobs)
+    errs = []
+
+    def client(c):
+        fc = FleetClient(url)
+        try:
+            for j in range(c, len(jobs), clients):
+                t0 = time.perf_counter()
+                out[j] = fc.predict_versioned(*jobs[j])
+                ms[j] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:          # noqa: BLE001 — reported below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    assert not errs, f"{len(errs)} requests failed: {errs[:3]}"
+    return wall, np.array(ms), out
+
+
+class BatchRecorder:
+    """The coalescer's ``predict_fn`` seam, recording every batch its
+    dispatcher sends: rows and host-clock ms of each predict call, the
+    first ``keep`` batches (handle, rows) and the largest batch's rows,
+    answer and handle."""
+
+    def __init__(self, fn, keep: int = 64):
+        self.fn = fn
+        self.keep = keep
+        self.rows, self.ms, self.sample, self.largest = [], [], [], None
+
+    def __call__(self, handle, X):
+        t0 = time.perf_counter()
+        out = self.fn(handle, X)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.rows.append(X.shape[0])
+        if len(self.sample) < self.keep:
+            self.sample.append((handle, X))
+        if self.largest is None or X.shape[0] > self.largest[0].shape[0]:
+            self.largest = (X, np.asarray(out), handle)
+        return out
+
+
+def fleet_phase(dev, smi: str, loop: dict, higgs_text: str,
+                higgs_X: np.ndarray, tmp: str) -> dict:
+    """Phase 20 of the module docstring: the shed drill, the traffic (a
+    coalesced run and its repeat with coalesce_us 0), the swap under
+    load, and phase 19's trace through the daemon. Returns K4's fleet
+    readings for the kernels line."""
+    import itertools
+    import threading
+    import types
+    from lightgbm_tpu_torch import capi, lrb
+    from lightgbm_tpu_torch.obs import registry as obs
+    from lightgbm_tpu_torch.serve import FleetClient, ScoringDaemon, ShedError
+    from lightgbm_tpu_torch.utils import faults
+    t_phase = time.perf_counter()
+    text_new, text_old = loop["model_texts"]   # windows 3 and 2
+    texts = {"lrb_a": text_new, "lrb_b": text_new, "higgs": higgs_text}
+    share = {t: k for t, k in FLEET_MIX}
+    total = sum(share.values())
+    need = {t: -(-FLEET_REQUESTS * k // total) * FLEET_ROWS
+            for t, k in FLEET_MIX}
+    pools = {"lrb_a": make_lrb_rows(need["lrb_a"], seed=20),
+             "lrb_b": make_lrb_rows(need["lrb_b"], seed=21),
+             "higgs": higgs_X[:need["higgs"]].astype(np.float64)}
+    handles = {}
+
+    def direct(text, X):
+        """The answer of a freshly loaded handle on the card."""
+        h = handles.get(text)
+        if h is None:
+            h = handles[text] = capi.LGBM_BoosterLoadModelFromString(text)
+        return np.asarray(capi.LGBM_BoosterPredictForMat(h, X))
+
+    # -- the shed drill (first: the admission engine reads the process's
+    # per-tenant latency histograms, which the traffic would fill)
+    d = ScoringDaemon(coalesce_us=0, slo_p99_ms=50.0, shed_budget=0.5,
+                      slo_eval_gap_s=0.0, slo_min_events=100,
+                      shed_probe_every=16, device=dev).start()
+    try:
+        c = FleetClient(d.url)
+        for t in ("lrb_a", "lrb_b"):
+            assert c.register(t, text_new) == 1
+        x_a, x_b = pools["lrb_a"][:FLEET_ROWS], pools["lrb_b"][:FLEET_ROWS]
+        for _ in range(DRILL_PREFILL):
+            c.predict("lrb_a", x_a)
+            c.predict("lrb_b", x_b)
+        assert d.shed_check("lrb_a") is None, "healthy tenant shed"
+        faults.configure("fleet.predict.lrb_a@1+:sleep80")
+        shed_at = None
+        for i in range(12):
+            try:
+                c.predict("lrb_a", x_a)
+            except ShedError as e:
+                assert e.retry_after_s > 0
+                shed_at = i
+                break
+        assert shed_at is not None, "admission never shed lrb_a"
+        state = d.slo_report()["shedding"]["lrb_a"]
+        assert state["budget_remaining_at_shed"] > 0, state
+        assert state["exhausted_at_shed"] is False, state
+        sheds = 0
+        for _ in range(20):
+            try:
+                c.predict("lrb_a", x_a)
+            except ShedError:
+                sheds += 1
+        assert sheds >= 15, sheds
+        got_b = c.predict("lrb_b", x_b)
+        assert np.array_equal(got_b, direct(text_new, x_b)), "lrb_b"
+        rep = d.slo_report()
+        assert "lrb_b" not in rep["shedding"]
+    finally:
+        faults.clear()
+        d.stop()
+    print(f"fleet shed drill ({smi}): slo_p99_ms 50, shed_budget 0.5, "
+          f"{DRILL_PREFILL} healthy requests of {FLEET_ROWS} rows a tenant "
+          f"over HTTP, then fleet.predict.lrb_a@1+:sleep80: lrb_a shed "
+          f"(HTTP 429) at its request {shed_at + 1} with budget "
+          f"{state['budget_remaining_at_shed']} left (exhausted "
+          f"{state['exhausted_at_shed']}), {sheds} of the next 20 shed; "
+          f"lrb_b served bit-equal, budget "
+          + str(next(r["budget_remaining"] for r in rep["specs"]
+                     if r["name"].endswith("lrb_b_p99")))
+          + "; faults cleared")
+
+    # -- the traffic: three tenants, 32 clients, coalesced then not
+    jobs = fleet_jobs(FLEET_REQUESTS, pools, seed=22)
+    want = [direct(texts[t], X) for t, X in jobs]
+    runs = {}
+    largest = None
+    d = None
+    try:
+        for label, coalesce_us, js in (
+                ("coalesced", FLEET_COALESCE_US, jobs),
+                ("uncoalesced", 0, jobs[:FLEET_REPEAT])):
+            d = ScoringDaemon(coalesce_us=coalesce_us,
+                              max_batch=FLEET_MAX_BATCH, device=dev).start()
+            rec = BatchRecorder(d.coalescer._predict)
+            d.coalescer._predict = rec
+            c = FleetClient(d.url)
+            for t in texts:
+                assert c.register(t, texts[t]) == 1
+            # the main path of this phase: every count 0 just before it
+            reset_counts()
+            req0 = obs.counter("fleet/requests_total").value
+            wall, ms, out = fleet_traffic(d.url, js)
+            counts = read_counts()
+            n_req = obs.counter("fleet/requests_total").value - req0
+            assert n_req == len(js), (n_req, len(js))
+            assert counts["K4"] > 0, "fleet: K4 never launched"
+            # one launch a dispatched batch (each under ROW_CHUNK rows)
+            assert counts["K4"] == len(rec.rows), (counts, len(rec.rows))
+            for j, (preds, version) in enumerate(out):
+                assert version == 1, (label, j, version)
+                assert np.array_equal(preds, want[j]), (label, j)
+            batch_rows = np.array(rec.rows)
+            row = {"requests": len(js), "wall_s": wall,
+                   "rps": len(js) / wall,
+                   "p50_ms": float(np.percentile(ms, 50)),
+                   "p99_ms": float(np.percentile(ms, 99)),
+                   "batches": len(batch_rows),
+                   "batch_rows_p50": float(np.percentile(batch_rows, 50)),
+                   "batch_rows_p99": float(np.percentile(batch_rows, 99)),
+                   "batch_rows_max": int(batch_rows.max()),
+                   "launches": counts["K4"],
+                   "launches_per_request": counts["K4"] / len(js),
+                   "predict_ms_p50": float(np.percentile(rec.ms, 50)),
+                   "predict_ms_p99": float(np.percentile(rec.ms, 99))}
+            if largest is None:
+                largest = rec.largest
+            # one request in FLEET_PROFILED again under the profiler: the
+            # card's busy share over the traffic
+            prof = js[::FLEET_PROFILED]
+            res = {}
+            wall_p, busy = device_busy(
+                lambda: res.setdefault("r", fleet_traffic(d.url, prof)), 1)
+            for j, (preds, _) in enumerate(res["r"][2]):
+                assert np.array_equal(preds, want[j * FLEET_PROFILED])
+            # the dispatcher's predict calls run on its own thread, which
+            # the profiler does not follow: the host's operators of a
+            # batch's call, from the first batches replayed here
+            batches = itertools.cycle(rec.sample)
+            ops = host_ops(lambda: rec.fn(*next(batches)), len(rec.sample),
+                           k=8)
+            row.update(profiled=len(prof), profiled_ms=wall_p,
+                       busy_ms=busy, busy_share=busy / wall_p,
+                       replayed=len(rec.sample),
+                       replayed_rows=int(np.median(
+                           [X.shape[0] for _, X in rec.sample])),
+                       host_ops=ops)
+            runs[label] = row
+            if label == "uncoalesced":
+                d.stop()
+                d = None
+                break
+            # -- the swap under load, on the coalesced daemon
+            swaps0 = obs.counter("fleet/model_swaps").value
+            blocks = [pools["lrb_a"][i * FLEET_ROWS:(i + 1) * FLEET_ROWS]
+                      for i in range(16)]
+            by_text = {tx: [direct(tx, b) for b in blocks]
+                       for tx in (text_new, text_old)}
+            version_text = {1: text_new, 2: text_old, 3: text_new,
+                            4: text_old}
+            stop = threading.Event()
+            got, errs = [], []
+
+            def hammer(k):
+                fc = FleetClient(d.url)
+                i = k
+                try:
+                    while not stop.is_set():
+                        preds, v = fc.predict_versioned(
+                            "lrb_a", blocks[i % 16])
+                        got.append((i % 16, v, preds))
+                        i += 1
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errs.append(e)
+
+            threads = [threading.Thread(target=hammer, args=(k,))
+                       for k in range(SWAP_CLIENTS)]
+            for th in threads:
+                th.start()
+            try:
+                for v in (2, 3, 4):
+                    assert c.register("lrb_a", version_text[v]) == v
+                    t0 = time.monotonic()
+                    while not errs and not any(g[1] == v for g in list(got)):
+                        assert time.monotonic() - t0 < 60, f"v{v} unseen"
+                        time.sleep(0.002)
+            finally:
+                stop.set()
+                for th in threads:
+                    th.join()
+            assert not errs, errs[:3]
+            for blk, v, preds in got:
+                assert np.array_equal(preds, by_text[version_text[v]][blk]), \
+                    (blk, v)
+            n_swaps = obs.counter("fleet/model_swaps").value - swaps0
+            assert n_swaps == 3, n_swaps
+            per_v = {v: sum(1 for g in got if g[1] == v) for v in (1, 2, 3, 4)}
+            print(f"fleet swap under load ({smi}): {SWAP_CLIENTS} clients on "
+                  f"lrb_a while it was registered 3 times (two model texts "
+                  f"in turn): {len(got)} responses, none failed, each "
+                  f"bit-equal to its version's direct answer (per version "
+                  f"{per_v}); fleet/model_swaps +{n_swaps}")
+            d.stop()
+            d = None
+    finally:
+        if d is not None:
+            d.stop()
+    for label, r in runs.items():
+        print(f"fleet traffic, {label} ({smi}): {r['requests']} requests of "
+              f"{FLEET_ROWS} rows from {FLEET_CLIENTS} clients over HTTP, "
+              f"lrb_a:lrb_b:higgs 7:7:2, max_batch {FLEET_MAX_BATCH}: "
+              f"{r['rps']:.1f} requests/s ({r['wall_s']:.2f} s); a request "
+              f"p50/p99 {r['p50_ms']:.3f}/{r['p99_ms']:.3f} ms at its "
+              f"client; {r['batches']} batches, fleet/coalesced_batch_rows "
+              f"p50/p99 {r['batch_rows_p50']:.0f}/{r['batch_rows_p99']:.0f} "
+              f"(max {r['batch_rows_max']}); predict call a batch p50/p99 "
+              f"{r['predict_ms_p50']:.3f}/{r['predict_ms_p99']:.3f} ms; K4 "
+              f"launches {r['launches']} ({r['launches_per_request']:.4f} a "
+              f"request); every answer bit-equal to a direct call, version "
+              f"1; profiled again on {r['profiled']} of the requests: wall "
+              f"{r['profiled_ms']:.1f} ms, device busy {r['busy_ms']:.2f} ms "
+              f"({100 * r['busy_share']:.2f}%); host time of a batch's "
+              f"predict call by operator ({r['replayed']} recorded batches "
+              f"replayed, median {r['replayed_rows']} rows): "
+              f"{r['host_ops']}")
+    X, preds, h = largest
+    kern = check_forest(f"fleet largest batch ({X.shape[0]} rows)",
+                        types.SimpleNamespace(_gbdt=h.gbdt), X, preds, dev)
+
+    # -- phase 19's trace, its first windows, through the daemon
+    prefix = os.path.join(tmp, "trace_prefix.txt")
+    with open(loop["trace"]) as src, open(prefix, "w") as dst:
+        dst.writelines(itertools.islice(src, FLEET_LOOP_WINDOWS * LOOP_WINDOW))
+    calls = []
+    orig = lrb.LrbDriver._daemon_score
+
+    def daemon_score(self, Xb):
+        t0 = time.perf_counter()
+        out = orig(self, Xb)
+        calls.append((len(Xb), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    lrb.LrbDriver._daemon_score = daemon_score
+    drv = None
+    try:
+        reset_counts()
+        req0 = obs.counter("fleet/requests_total").value
+        t0 = time.perf_counter()
+        drv = lrb.run_trace_file(prefix, LOOP_CACHE, LOOP_WINDOW,
+                                 LOOP_SAMPLE, LOOP_CUTOFF, LOOP_SAMPLING,
+                                 result_file=_Lines(),
+                                 extra_params={"tpu_lrb_pipeline": 0},
+                                 serve_daemon=True)
+        loop_s = time.perf_counter() - t0
+        counts = read_counts()
+        assert drv._fleet_daemon is not None, "the daemon did not start"
+        version = drv._fleet_daemon.tenants.get("lrb")[1]
+        warned = drv._fleet_warned
+        res = drv.results
+    finally:
+        lrb.LrbDriver._daemon_score = orig
+        if drv is not None:
+            drv.close()
+    n_req = obs.counter("fleet/requests_total").value - req0
+    published = sum(1 for r in res if not r.get("degraded"))
+    assert len(res) == FLEET_LOOP_WINDOWS and published == version, \
+        (len(res), published, version)
+    assert warned == 0, f"{warned} batches fell back to in-process scoring"
+    for a, b in zip(res, loop["seq_results"][:FLEET_LOOP_WINDOWS]):
+        for k in PARITY_KEYS:
+            assert a.get(k) == b.get(k), (a["window"], k, a.get(k), b.get(k))
+    assert n_req == len(calls) == -(-LOOP_WINDOW // FLEET_ROWS), \
+        (n_req, len(calls))
+    # one launch a request, and one warm-up a registration
+    assert counts["K4"] == n_req + version, (counts, n_req, version)
+    q = request_quantiles(calls)
+    q19 = loop["seq_window2"]
+    w2 = res[1]
+    w2_19 = loop["seq_results"][1]
+    print(f"lrb loop through the daemon ({smi}): phase 19's trace, "
+          f"{FLEET_LOOP_WINDOWS} windows, sequential, serve_daemon=True on "
+          f"{drv._device} in {loop_s:.1f} s: records equal to phase 19's "
+          f"sequential run on {len(PARITY_KEYS)} keys; tenant version "
+          f"{version}, fallbacks {warned}; window 2: {n_req} requests of "
+          f"{FLEET_ROWS} rows over HTTP, evaluate {w2.get('evaluate_s')} s "
+          f"(phase 19 in-process {w2_19.get('evaluate_s')} s), a request "
+          f"p50/p99 {q['batch_p50']:.3f}/{q['batch_p99']:.3f} ms (phase 19 "
+          f"in-process {q19['batch_p50']:.3f}/{q19['batch_p99']:.3f}); K4 "
+          f"launches {counts['K4']} ({counts['K4'] / n_req:.4f} a request)")
+    print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s")
+    co = runs["coalesced"]
+    return {"launches": co["launches"], "requests": co["requests"],
+            "launches_per_request": co["launches_per_request"],
+            "batch_rows_p50": co["batch_rows_p50"],
+            "batch_rows_p99": co["batch_rows_p99"],
+            "uncoalesced": {k: runs["uncoalesced"][k] for k in (
+                "launches", "requests", "launches_per_request",
+                "batch_rows_p50", "batch_rows_p99")},
+            "lrb_daemon_launches": counts["K4"],
+            "largest_batch": {k: kern[k] for k in (
+                "rows", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")}}
 
 
 class _Lines:
@@ -2345,9 +2772,12 @@ def main() -> None:
           + f"; {serve_launches} launches")
     print(kernel_line("lrb", lrb, LRB_TREES))
 
-    # 19, before 6-18: the LRB loop on the card (torch.profiler's
-    # records are still whole this early in the run)
-    loop = lrb_loop_phase(dev, smi)
+    # 19 and 20, before 6-18: the LRB loop on the card, then the fleet
+    # scoring daemon on its trace and models (torch.profiler's records
+    # are still whole this early in the run)
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = lrb_loop_phase(dev, smi, tmp)
+        fleet = fleet_phase(dev, smi, loop, text, X, tmp)
 
     # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins
     train, higgs_data = train_phases(dev)
@@ -2379,6 +2809,7 @@ def main() -> None:
         **{k: loop["k4"][k] for k in ("rows", "ms", "queued_ms",
                                       "plain_ms", "bound_ms", "bound_by",
                                       "max_abs_err")}}
+    forest["fleet"] = fleet
     kid_of = {"wave_histogram": "K2", "fused_partition_histogram": "K1",
               "leaf_gather_add": "K3"}
     for e in train:

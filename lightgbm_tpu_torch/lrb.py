@@ -49,10 +49,16 @@ Where the port differs from the JAX driver:
   item 3): the record has no ``step_cache_hits``, and ``compile_s`` is
   the nvcc time the window paid building the kernels
   (``utils/cuda_build.py``), 0 once they are built.
-- No metrics exporter, SLO engine or flight recorder (ROADMAP item 20):
-  ``flight_dumps`` is empty.
-- No scoring daemon (``serve/``, ROADMAP item 18): ``serve_daemon=True``
-  raises ``NotImplementedError``.
+- No metrics exporter or flight recorder (ROADMAP item 20):
+  ``flight_dumps`` is empty, and the SLO engine that ``tpu_slo`` arms
+  (obs/slo.py) has no exporter thread to evaluate it.
+- ``serve_daemon=True`` (``--serve-daemon``) scores every window
+  through the fleet scoring daemon (serve/) over localhost HTTP, as the
+  JAX driver does; the daemon runs on the driver's ``device``. The
+  daemon serves its newest version, so in the pipelined loop a window's
+  evaluation can move to the model trained on that same window once it
+  is published (as in the JAX driver); the sequential loop's records
+  equal the in-process loop's.
 
 Run: ``python -m lightgbm_tpu_torch.lrb <trace> <cacheSize> <windowSize>
 <sampleSize> <cutoff> <sampling> [result_file]``, the same argv as the
@@ -74,6 +80,7 @@ from . import capi
 from .analysis import lockorder
 from .obs import registry as obs
 from .obs import reqlog
+from .obs import slo as obs_slo
 from .obs import trace
 from .utils import cuda_build, faults, log, retry
 from .utils.device import resolve_device
@@ -153,10 +160,6 @@ class LrbDriver:
                  serve_batch: int = 64,
                  window_budget_s: Optional[float] = None,
                  serve_daemon: bool = False, device=None):
-        if serve_daemon:
-            raise NotImplementedError(
-                "serve_daemon (the fleet scoring daemon, serve/) is not "
-                "ported yet")
         self.device = device
         self._device = None           # resolved at the first window
         self.cache_size = cache_size
@@ -176,6 +179,9 @@ class LrbDriver:
         # request-scoped wide events, armed HERE so window 1's requests
         # already carry ids
         reqlog.ensure_from_config(self.params)
+        # the SLO/error-budget engine (idempotent for the same specs;
+        # the port has no exporter to evaluate it, ROADMAP item 20)
+        obs_slo.ensure_from_config(self.params)
         # fault-injection drills (idempotent for the same spec)
         if self.params.get("tpu_faults"):
             faults.configure(self.params["tpu_faults"],
@@ -242,6 +248,27 @@ class LrbDriver:
         self.window_index = 0
         self._results: List[dict] = []
         self.trace_lines_skipped = 0
+        # --serve-daemon: score every window's requests through the
+        # fleet scoring daemon (serve/) over localhost HTTP instead of
+        # in-process capi predict — each published model is registered
+        # as a new version of the one "lrb" tenant (warm atomic swap
+        # on the daemon side), on the driver's device. Degrade, don't
+        # die: a daemon that cannot bind (or a request that fails past
+        # the retry policy) falls back to in-process scoring on the
+        # same device.
+        self._fleet_daemon = None
+        self._fleet_client = None
+        self._fleet_warned = 0
+        if serve_daemon:
+            from .serve import FleetClient
+            from .serve.daemon import ScoringDaemon
+            try:
+                self._fleet_daemon = ScoringDaemon.from_config(
+                    self.params, device=self.device).start()
+                self._fleet_client = FleetClient(self._fleet_daemon.url)
+            except RuntimeError as e:
+                log.warning("serve-daemon unavailable (%s); scoring "
+                            "in-process", e)
 
     # -- published-model access ----------------------------------------------
 
@@ -374,6 +401,7 @@ class LrbDriver:
                     labels, X, self.window_index)
                 if handle is not None:
                     self.booster = handle
+                    self._daemon_register(handle, self.window_index)
                 self._apply_train_outcome(rec, stats, reason)
             rec.update(self._opt_ratios())
         self._results.append(rec)
@@ -821,6 +849,50 @@ class LrbDriver:
             self._serving = handle
         obs.counter("lrb/model_swaps").add(1)
         trace.instant("lrb/swap", cat="window", args={"window": widx})
+        self._daemon_register(handle, widx)
+
+    def _daemon_register(self, handle, widx: int) -> None:
+        """--serve-daemon twin of the in-process swap: republish the
+        freshly trained model as the next version of the daemon's
+        "lrb" tenant (serve/tenants.py warms it before the atomic
+        publish; in-flight daemon requests finish on the old
+        version). A failed registration keeps the previous daemon
+        version serving — same degrade-don't-die rule as training."""
+        if self._fleet_client is None:
+            return
+        try:
+            version = self._fleet_client.register(
+                "lrb", capi.LGBM_BoosterSaveModelToString(handle),
+                warm_rows=self.serve_batch)
+            trace.instant("lrb/daemon_swap", cat="window",
+                          args={"window": widx, "version": version})
+        except Exception as e:  # noqa: BLE001 — never kill the loop
+            # over the serving sidecar; the old version keeps serving
+            log.warning("window %d: serve-daemon registration failed "
+                        "(%s); daemon serves the previous version",
+                        widx, e)
+
+    _FLEET_WARN_CAP = 5
+
+    def _daemon_score(self, Xb: np.ndarray) -> Optional[np.ndarray]:
+        """Score one micro-batch through the fleet daemon client
+        (--serve-daemon); None when the mode is off or the request
+        failed past the client's retry policy — the caller falls back
+        to in-process predict for that batch (the same device)."""
+        if self._fleet_client is None:
+            return None
+        try:
+            return self._fleet_client.predict("lrb", Xb)
+        except Exception as e:  # noqa: BLE001 — a dead sidecar must
+            # degrade to in-process scoring, not kill the loop
+            self._fleet_warned += 1
+            if self._fleet_warned <= self._FLEET_WARN_CAP:
+                log.warning("serve-daemon predict failed (%s); scoring "
+                            "this batch in-process", e)
+            elif self._fleet_warned == self._FLEET_WARN_CAP + 1:
+                log.warning("further serve-daemon predict warnings "
+                            "suppressed")
+            return None
 
     def _join_pending(self) -> None:
         with self._join_lock:
@@ -878,6 +950,10 @@ class LrbDriver:
             if ex is not None:
                 ex.shutdown(wait=True)
                 setattr(self, attr, None)
+        if self._fleet_daemon is not None:
+            self._fleet_daemon.stop()
+            self._fleet_daemon = None
+            self._fleet_client = None
 
     # result-record fields replicated onto the per-window wide event
     # (the reqlog file sees the window's outcome without parsing the
@@ -1029,9 +1105,12 @@ class LrbDriver:
             with reqlog.request(rid, window=window) as rctx, \
                     trace.span("serve/request", cat="serve",
                                args=span_args):
-                parts.append(np.asarray(capi.LGBM_BoosterPredictForMat(
-                    h, X[r0:r0 + b],
-                    predict_type=capi.C_API_PREDICT_NORMAL)))
+                preds_b = self._daemon_score(X[r0:r0 + b])
+                if preds_b is None:
+                    preds_b = np.asarray(capi.LGBM_BoosterPredictForMat(
+                        h, X[r0:r0 + b],
+                        predict_type=capi.C_API_PREDICT_NORMAL))
+                parts.append(preds_b)
             dt = time.monotonic() - t0
             self._serve_batch_hist.observe(dt)
             global_batch.observe(dt)

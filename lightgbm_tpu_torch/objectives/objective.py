@@ -139,7 +139,19 @@ class MulticlassSoftmax(ObjectiveFunction):
         self.num_class = config.num_class
 
     def convert_output(self, raw):
-        return torch.softmax(raw, dim=0)
+        """Softmax over the classes of each column (Common::Softmax:
+        max, exp of the differences, their sum class by class). Written
+        out elementwise, so a row's probabilities do not depend on where
+        it sits in the batch: ``torch.softmax`` over dim 0 on the CPU
+        rounds a row differently by its column position (its vector
+        body and its tail differ in the last bit), and a coalesced
+        serving batch must give each request the bytes it gets alone
+        (serve/coalescer.py)."""
+        e = torch.exp(raw - raw.max(dim=0).values)
+        total = e[0].clone()
+        for k in range(1, e.shape[0]):
+            total += e[k]
+        return e / total
 
     def to_string(self):
         return f"multiclass num_class:{self.num_class}"

@@ -10,8 +10,10 @@ LRB loop calls; standard library only):
   one wide event per request batch and per LRB window (``tpu_reqlog``/
   ``tpu_reqlog_sample``);
 - ``obs.identity``: the (rank, world, incarnation) record artifacts
-  carry.
+  carry;
+- ``obs.slo``: the SLO / error-budget engine (``tpu_slo``), evaluated by
+  the scoring daemon's admission controller (serve/daemon.py).
 
-The exporter, SLO engine and flight recorder (``obs/export.py``,
-``slo.py``, ``flight.py``) are ROADMAP item 20.
+The exporter and flight recorder (``obs/export.py``, ``flight.py``) are
+ROADMAP item 20.
 """

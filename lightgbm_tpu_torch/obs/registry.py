@@ -18,8 +18,8 @@ Design constraints:
   ``time.monotonic()`` deltas; the registry itself never reads clocks.
 
 Left out until their users are ported (ROADMAP item 20): the timer
-domain of ``utils/timing.py``, and the bucket merging and ``count_le``
-reads of the cluster view and the SLO engine.
+domain of ``utils/timing.py``, and the bucket merging of the cluster
+view.
 """
 from __future__ import annotations
 
@@ -193,6 +193,46 @@ class Histogram:
                 frac = (rank - (cum - c)) / c
                 return lo + (hi - lo) * frac
             return self._max
+
+    def count_le(self, v: float) -> int:
+        """Estimated number of observations <= ``v``: whole buckets
+        below it plus a linear share of the bucket straddling it
+        (the percentile() interpolation run in reverse, same min/max
+        clamping) — the event count the SLO engine's error-budget
+        math stands on (obs/slo.py). 0 when empty."""
+        with self._lock:
+            if not self._count:
+                return 0
+            v = float(v)
+            if self._max is not None and v >= self._max:
+                return self._count
+            if self._min is not None and v < self._min:
+                return 0
+            cum = 0
+            for i, c in enumerate(self._counts):
+                if not c:
+                    continue
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                hi = (self.buckets[i] if i < len(self.buckets)
+                      else self._max)
+                lo = max(lo, self._min)
+                hi = max(min(hi, self._max), lo)
+                if v >= hi:
+                    cum += c
+                    continue
+                if v >= lo:
+                    frac = 1.0 if hi <= lo else (v - lo) / (hi - lo)
+                    cum += int(c * frac)
+                break
+            return cum
+
+    def count_and_le(self, v: float) -> Tuple[int, int]:
+        """Consistent ``(count, count_le(v))`` under ONE lock hold
+        (the lock is reentrant): the SLO engine's bad-event math
+        (``bad = count - count_le``) must not straddle concurrent
+        observes — a racing pair of reads can make it negative."""
+        with self._lock:
+            return self._count, self.count_le(v)
 
     def snapshot(self) -> dict:
         with self._lock:

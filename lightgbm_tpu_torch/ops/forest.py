@@ -20,6 +20,7 @@ only checks the plan. The library is built by utils/cuda_build.py.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -214,18 +215,27 @@ _SIGNATURES = {
     "forest_predict_launch": [_P] * 8 + [_LL] + [_I] * 16 + [_P],
 }
 _fns = {}
+_fns_lock = threading.Lock()
 
 
 def _fn(name: str):
-    """The library's C function ``name``, its types bound once."""
+    """The library's C function ``name``, its types bound once. Several
+    threads launch K4 (the scoring daemon's dispatcher, registrations
+    warming a model, the LRB loop's server), so the first binding is
+    made under a lock and published whole: no thread sees a function
+    whose types are not yet set."""
     fn = _fns.get(name)
     if fn is None:
-        lib = cuda_build.library("forest_predict")
-        for sym, argtypes in _SIGNATURES.items():
-            f = getattr(lib, sym)
-            f.argtypes = argtypes
-            f.restype = _I
-            _fns[sym] = f
+        with _fns_lock:
+            if not _fns:
+                lib = cuda_build.library("forest_predict")
+                bound = {}
+                for sym, argtypes in _SIGNATURES.items():
+                    f = getattr(lib, sym)
+                    f.argtypes = argtypes
+                    f.restype = _I
+                    bound[sym] = f
+                _fns.update(bound)
         fn = _fns[name]
     return fn
 

@@ -6,11 +6,13 @@ degrade machinery must absorb the blast. The points are fixed,
 seed-keyed and counted, so a failing drill reproduces exactly: the same
 occurrence of the same point fails on every run with the same spec.
 
-The port wires one point (grep ``faults.check``): ``lrb.window_train``,
-one sliding window's training in the LRB loop (lrb.py, the
-degrade-don't-die path). The JAX package's other points (ingest,
-checkpoint, training iterations, the exporter, the fleet daemon) wait
-for the modules they sit in.
+The port wires these points (grep ``faults.check``):
+``lrb.window_train``, one sliding window's training in the LRB loop
+(lrb.py, the degrade-don't-die path), and ``fleet.predict`` /
+``fleet.predict.<tenant>``, one coalesced dispatch of the scoring
+daemon (serve/coalescer.py, the latency seam of the shed drills). The
+JAX package's other points (ingest, checkpoint, training iterations,
+the exporter) wait for the modules they sit in.
 
 Spec grammar (``configure(spec)`` / the ``tpu_faults`` config knob /
 the ``LGBM_TPU_FAULTS`` env var for subprocess drills)::
@@ -188,6 +190,12 @@ def _ensure_env_loaded() -> None:
         configure(spec, int(os.environ.get(ENV_SEED, "0") or 0))
 
 
+def active() -> bool:
+    """True when any point is armed (hot paths gate on this)."""
+    _ensure_env_loaded()
+    return bool(_rules)
+
+
 def check(point: str, context=None) -> None:
     """Count one call of ``point`` and inject its armed action if the
     rule fires. No-op (one dict lookup) when nothing is armed."""
@@ -224,3 +232,9 @@ def check(point: str, context=None) -> None:
         import signal
         os.kill(os.getpid(), signal.SIGKILL)
     raise InjectedFault(msg, transient=rule.action == "transient")
+
+
+def counts() -> Dict[str, int]:
+    """Per-point call counts so far (tests)."""
+    with _lock:
+        return dict(_counts)

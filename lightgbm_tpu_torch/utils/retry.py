@@ -68,11 +68,14 @@ DEFAULT_POLICY = RetryPolicy()
 
 
 def call(fn: Callable, *, what: str = "operation",
-         policy: Optional[RetryPolicy] = None):
+         policy: Optional[RetryPolicy] = None,
+         classify: Callable[[BaseException], bool] = is_transient):
     """Run ``fn()``; retry transient failures per ``policy``. The final
     transient failure (or any non-transient one) re-raises unchanged —
     callers see the real error, plus a ``gave up`` log line carrying
-    ``what`` and the attempt count."""
+    ``what`` and the attempt count. ``classify`` decides what is
+    transient (the fleet client passes its HTTP status rules,
+    serve/client.py)."""
     from ..obs import registry as obs
     p = policy or DEFAULT_POLICY
     for attempt in range(1, p.attempts + 1):
@@ -80,7 +83,7 @@ def call(fn: Callable, *, what: str = "operation",
         try:
             return fn()
         except BaseException as e:      # noqa: BLE001 — classified below
-            if not is_transient(e):
+            if not classify(e):
                 raise
             if attempt >= p.attempts:
                 obs.counter("retry/giveups").add(1)

@@ -237,7 +237,9 @@ def test_import_hygiene():
             "lightgbm_tpu_torch.ops.predict_cache, "
             "lightgbm_tpu_torch.utils.faults, "
             "lightgbm_tpu_torch.utils.retry, "
-            "lightgbm_tpu_torch.utils.fileio; "
+            "lightgbm_tpu_torch.utils.fileio, "
+            "lightgbm_tpu_torch.serve, lightgbm_tpu_torch.serve.daemon, "
+            "lightgbm_tpu_torch.obs.slo; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'lightgbm_tpu.')) "
             "or m == 'lightgbm_tpu']; print(bad); sys.exit(bool(bad))")

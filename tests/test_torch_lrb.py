@@ -437,7 +437,7 @@ def test_main_usage_error(capsys):
     assert "parameters:" in capsys.readouterr().err
 
 
-# -- the device: no card, no CPU fallback; no daemon ----------------------------
+# -- the device: no card, no CPU fallback ---------------------------------------
 
 def test_default_device_raises_at_first_window_without_card(monkeypatch):
     """With no device the loop trains on cuda:0; with no card the first
@@ -454,12 +454,6 @@ def test_default_device_raises_at_first_window_without_card(monkeypatch):
         _feed(drv, 300)
     assert created == [] and drv.window_index == 0
     assert drv._results == []
-
-
-def test_serve_daemon_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lrb.LrbDriver(1 << 16, 300, 150, 0.5, 1, serve_daemon=True,
-                      device="cpu")
 
 
 def test_serve_bucket_padding_is_bit_exact():
