@@ -141,21 +141,46 @@ the entry points a user calls:
    first 2,000 requests with coalesce_us 0. Then 8 clients on lrb_a
    while it is registered 3 times, two model texts in turn: no failed
    request, every answer bit-equal to its version's, ``fleet/
-   model_swaps`` +3. Last, phase 19's trace's first 2 windows
-   sequential with ``serve_daemon=True`` (window 2's 15,625 calls of 64
-   rows over HTTP): records equal to phase 19's sequential ones on
-   ``PARITY_KEYS``, the tenant's version the windows published, no
-   fallback to in-process scoring, one K4 launch a request and one a
-   registration; window 2's evaluate time and a request's p50/p99
-   beside phase 19's in-process numbers. Every number with the card's
-   name and power limit.
+   model_swaps`` +3. Last, phase 19's trace cut to 2 windows of 250,000
+   requests (a quarter of its windows, sample 125,000), sequential, in
+   process and then with ``serve_daemon=True`` (window 2's 3,907 calls
+   of 64 rows over HTTP): records equal on ``PARITY_KEYS``, the
+   tenant's version the windows published, no fallback to in-process
+   scoring, one K4 launch a request and one a registration; window 2's
+   evaluate time and a request's p50/p99 beside the in-process run's.
+   Every number with the card's name and power limit;
+21. valid sets, after phases 7 and 11 and against them: (a) phase 7's
+   rows through ``train`` with phase 7's 500,000-row holdout as
+   ``valid_sets=[dv]`` (auc, binary_logloss, binary_error recorded every
+   iteration): the model text before its parameters equal to phase 7's,
+   K1 and K2 launches as phase 7's and K3 2 a tree, the valid raw scores
+   within 1e-5 of ``Booster.predict(raw_score=True)`` (K4) and the last
+   recorded AUC within 1e-6 of ``auc_np`` on its predictions; (b) phase
+   6's C-API sequence with the next window's 65,536 rows as a valid set
+   (``DatasetCreateFromMat(reference=)``, ``BoosterAddValidData``,
+   ``GetEval(bst, 1)`` after every iteration): the model text equal to
+   phase 6's, the eval counts and names, ``GetPredict(1)`` within 1e-5
+   of ``PredictForMat``, one ``RollbackOneIter`` after iteration 50
+   giving the text saved after 49 and ``GetPredict(0)``,
+   ``GetPredict(1)``, ``GetEval(1)`` within 1e-6 of the values saved
+   then; K2's root pass and K1's widest wave with the passengers
+   against their plain versions in the kernels' order bit for bit, two
+   launches bit-identical, timed beside phase 8's LRB K2 and K1; (c)
+   phase 11's int8 tier with the same valid set: the model text equal
+   to phase 11's; (d) ``train`` on phase 6's
+   rows with 65,536 valid rows of coin-flip labels,
+   ``early_stopping_rounds=5`` of 500, with a user callback that
+   records the iterations it sees: stopped before round 50, five
+   iterations after the best, the callback called once an iteration. For
+   (a) and (b) an iteration's host-clock ms with and without the valid
+   set, in turns on this card, and the card's busy share.
 
-Phases 6-7, 10-12, 15-16, 19 and 20 check that the main path launched each
-kernel (and each histogram variant) of its tier. Prints a JSON line of the kernels,
-then the last line ``{"ok": true, "device": {...}}``. Any failed check
-raises, and the
-script exits non-zero without that line. The model generators are
-importable (the body runs only under ``__main__``).
+Phases 6-7, 10-12, 15-16, 19, 20 and 21 check that the main path launched
+each kernel (and each histogram variant) of its tier. Prints a JSON line
+of the kernels, then the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises, and the script exits non-zero without that
+line. The model generators are importable (the body runs only under
+``__main__``).
 """
 import contextlib
 import json
@@ -249,7 +274,14 @@ FLEET_PROFILED = 8              # one request in 8 again, under the profiler
 SWAP_CLIENTS = 8
 DRILL_PREFILL = 400             # tests/test_fleet.py:301
 FLEET_LOOP_WINDOWS = 2
+FLEET_LOOP_WINDOW = 250_000     # phase 19's windows cut to a quarter
+FLEET_LOOP_SAMPLE = 125_000     # for the run through the daemon
 K3_RUNS = 200                   # K3 launches per timing window
+# phase 21: valid sets
+VALID_METRICS = "auc,binary_logloss,binary_error"
+STOP_ROUNDS = 500
+STOP_PATIENCE = 5
+TURN_ROUNDS = 3                 # rounds of plain, valid, valid, plain
 PASS_RUNS = 5                   # launches per timed pass split
 # PERF.md's table: each int8 launch's card ms before the int8 pass's
 # redesign (700 W), at phases 13 and 17's captures; a launch may not be
@@ -768,7 +800,7 @@ def plain_in_kernel_order(plain, args):
 def plain_kw(kw: dict) -> dict:
     """A wrapper's keyword arguments as its plain version takes them."""
     return {k: kw[k] for k in ("count_proxy", "packed4", "num_features",
-                               "any_cat") if k in kw}
+                               "any_cat", "counted_rows") if k in kw}
 
 
 def kernel_raw(kernel, kw: dict):
@@ -1010,9 +1042,9 @@ def card_and_cpu(params: dict, X, y, iters: int, **ds_kw) -> dict:
         grower = b._gbdt._grower
         inputs = []
 
-        def grow(*args, _grow=grower.grow, _inputs=inputs):
+        def grow(*args, _grow=grower.grow, _inputs=inputs, **kw):
             _inputs.append([a.cpu() for a in args[1:]])
-            return _grow(*args)
+            return _grow(*args, **kw)
         grower.grow = grow
         for _ in range(iters):
             b.update()
@@ -1105,7 +1137,8 @@ def pass_report(label: str, kid: str, fn, args, kw: dict,
     F = kw.get("num_features") or bins_t.shape[0]
     n = bins_t.shape[1]
     W = args[4].shape[0] if kid == "K2" else args[5].shape[1]
-    lp = hw.launch_plan(n, F, W, B, bool(kw.get("packed4")), bins_t.device)
+    lp = hw.launch_plan(n, F, W, B, bool(kw.get("packed4")), bins_t.device,
+                        kw.get("counted_rows"))
     fn(*args)
     split = hw.pass_times(lambda: fn(*args), PASS_RUNS)
     print(f"  {label} {kid} f32 pass: counts {counted} of {n} rows "
@@ -1268,8 +1301,10 @@ def read_counts() -> dict:
 
 def train_phases(dev) -> tuple:
     """Phases 6-9 of the module docstring. Returns the kernels-line
-    entries of K2, K1 and K3, and phase 7's rows and holdout AUC for the
-    quantized phases."""
+    entries of K2, K1 and K3, and phase 7's rows, holdout AUC, model
+    text, ms an iteration, busy share and launches, with phase 6's model
+    text, ms an iteration and launches under "lrb" (for phases 10-14 and
+    21)."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import capi
@@ -1326,6 +1361,7 @@ def train_phases(dev) -> tuple:
           f"{host_ops(lambda: capi.LGBM_BoosterUpdateOneIter(bst), 3)}")
     capi.LGBM_BoosterFree(bst)
     del X, ds, bst
+    lrb_run = {"text": text, "ms": lrb_ms, "counts": lrb_counts}
 
     # 7. HIGGS-shape training through train(), capturing kernel inputs
     X, y = make_higgs_like(HIGGS_TRAIN_ROWS)
@@ -1359,11 +1395,15 @@ def train_phases(dev) -> tuple:
           f"ms/iteration, {HIGGS_TRAIN_ROWS * HIGGS_ITERS / train_s:.0f} "
           f"row-iterations/s; holdout auc {auc_t:.5f}; peak device memory "
           f"{peak_gb:.2f} GB; launches {higgs_counts}")
+    higgs_text = bst.model_to_string()
     wall, busy = device_busy(bst.update, 2)
     print(f"higgs profile, one window of 2 iterations: wall {wall:.1f} ms, "
           f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%)")
     del bst, ds
-    higgs_data = {"X": X, "y": y, "Xt": Xt, "yt": yt, "auc": auc_t}
+    higgs_data = {"X": X, "y": y, "Xt": Xt, "yt": yt, "auc": auc_t,
+                  "text": higgs_text, "counts": higgs_counts,
+                  "ms": 1e3 * train_s / HIGGS_ITERS, "busy": busy / wall,
+                  "lrb": lrb_run}
 
     # 8. each kernel against its plain version at the captured shapes
     t0 = time.perf_counter()
@@ -1541,9 +1581,11 @@ def int8_vs_before(key, ms: float, power_limit_w: float) -> str:
 def quant_phases(dev, higgs: dict, power_limit_w: float) -> list:
     """Phases 10-14 of the module docstring: the int8 tiers and 4-bit
     packed bins. ``higgs`` holds phase 7's rows and exact-tier holdout
-    AUC; ``power_limit_w`` the card's, for the check of the int8 times
-    against ``INT8_MS_BEFORE``. Returns the kernels-line entries of every
-    quantized and packed histogram variant."""
+    AUC (``train_phases``), and takes phase 11's model text
+    ("lrb_int8_text", for phase 21); ``power_limit_w`` the card's, for
+    the check of the int8 times against ``INT8_MS_BEFORE``. Returns the
+    kernels-line entries of every quantized and packed histogram
+    variant."""
     import torch
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import capi
@@ -1648,6 +1690,7 @@ def quant_phases(dev, higgs: dict, power_limit_w: float) -> list:
           f"({100 * busy / wall:.1f}%); host time per iteration by "
           f"operator: {top}")
     runs["lrb int8"] = {"caps": caps, "counts": counts, "iters": n_it}
+    higgs["lrb_int8_text"] = text
     capi.LGBM_BoosterFree(bst)
     del Xl, Xn, ds, bst
 
@@ -2087,8 +2130,7 @@ def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
     """Phase 19 of the module docstring, its trace written under ``tmp``.
     Returns, for the kernels line, each kernel's launches in the loop's
     run and per window, and K4's reading on window 3's rows; for phase
-    20 the trace's path, the last two published models' text, the
-    sequential run's records and its window 2 calls' quantiles."""
+    20 the trace's path and the last two published models' text."""
     import itertools
     import types
     from lightgbm_tpu_torch import capi, lrb
@@ -2162,14 +2204,13 @@ def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
     if LOOP_SEQ_WINDOWS < n_win:
         seq_path = os.path.join(tmp, "prefix.txt")
         write_trace(seq_path, LOOP_SEQ_WINDOWS * LOOP_WINDOW)
-    with loop_probes() as seq_probes:
-        t0 = time.perf_counter()
-        seq = lrb.run_trace_file(seq_path, LOOP_CACHE, LOOP_WINDOW,
-                                 LOOP_SAMPLE, LOOP_CUTOFF,
-                                 LOOP_SAMPLING, result_file=_Lines(),
-                                 extra_params={"tpu_lrb_pipeline": 0})
-        seq.close()
-        seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = lrb.run_trace_file(seq_path, LOOP_CACHE, LOOP_WINDOW,
+                             LOOP_SAMPLE, LOOP_CUTOFF,
+                             LOOP_SAMPLING, result_file=_Lines(),
+                             extra_params={"tpu_lrb_pipeline": 0})
+    seq.close()
+    seq_s = time.perf_counter() - t0
     assert len(seq.results) == LOOP_SEQ_WINDOWS
     for a, b in zip(seq.results, res):
         for k in PARITY_KEYS:
@@ -2220,9 +2261,7 @@ def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
             "k4_per_window": k4_eval, "publish_warmups": swaps,
             "k4": kern, "trace": path,
             "model_texts": [capi.LGBM_BoosterSaveModelToString(b)
-                            for b in (drv.booster, h)],
-            "seq_results": seq.results,
-            "seq_window2": request_quantiles(seq_probes["calls"][2])}
+                            for b in (drv.booster, h)]}
 
 
 def fleet_jobs(n: int, pools: dict, seed: int) -> list:
@@ -2529,10 +2568,23 @@ def fleet_phase(dev, smi: str, loop: dict, higgs_text: str,
     kern = check_forest(f"fleet largest batch ({X.shape[0]} rows)",
                         types.SimpleNamespace(_gbdt=h.gbdt), X, preds, dev)
 
-    # -- phase 19's trace, its first windows, through the daemon
+    # -- phase 19's trace cut to FLEET_LOOP_WINDOWS windows of
+    # FLEET_LOOP_WINDOW requests: in-process, then through the daemon
     prefix = os.path.join(tmp, "trace_prefix.txt")
     with open(loop["trace"]) as src, open(prefix, "w") as dst:
-        dst.writelines(itertools.islice(src, FLEET_LOOP_WINDOWS * LOOP_WINDOW))
+        dst.writelines(itertools.islice(
+            src, FLEET_LOOP_WINDOWS * FLEET_LOOP_WINDOW))
+
+    def run_prefix(daemon: bool):
+        return lrb.run_trace_file(prefix, LOOP_CACHE, FLEET_LOOP_WINDOW,
+                                  FLEET_LOOP_SAMPLE, LOOP_CUTOFF,
+                                  LOOP_SAMPLING, result_file=_Lines(),
+                                  extra_params={"tpu_lrb_pipeline": 0},
+                                  serve_daemon=daemon)
+
+    with loop_probes() as ref_probes:
+        ref = run_prefix(False)
+        ref.close()
     calls = []
     orig = lrb.LrbDriver._daemon_score
 
@@ -2548,11 +2600,7 @@ def fleet_phase(dev, smi: str, loop: dict, higgs_text: str,
         reset_counts()
         req0 = obs.counter("fleet/requests_total").value
         t0 = time.perf_counter()
-        drv = lrb.run_trace_file(prefix, LOOP_CACHE, LOOP_WINDOW,
-                                 LOOP_SAMPLE, LOOP_CUTOFF, LOOP_SAMPLING,
-                                 result_file=_Lines(),
-                                 extra_params={"tpu_lrb_pipeline": 0},
-                                 serve_daemon=True)
+        drv = run_prefix(True)
         loop_s = time.perf_counter() - t0
         counts = read_counts()
         assert drv._fleet_daemon is not None, "the daemon did not start"
@@ -2568,26 +2616,29 @@ def fleet_phase(dev, smi: str, loop: dict, higgs_text: str,
     assert len(res) == FLEET_LOOP_WINDOWS and published == version, \
         (len(res), published, version)
     assert warned == 0, f"{warned} batches fell back to in-process scoring"
-    for a, b in zip(res, loop["seq_results"][:FLEET_LOOP_WINDOWS]):
+    assert len(ref.results) == FLEET_LOOP_WINDOWS
+    for a, b in zip(res, ref.results):
         for k in PARITY_KEYS:
             assert a.get(k) == b.get(k), (a["window"], k, a.get(k), b.get(k))
-    assert n_req == len(calls) == -(-LOOP_WINDOW // FLEET_ROWS), \
+    assert n_req == len(calls) == -(-FLEET_LOOP_WINDOW // FLEET_ROWS), \
         (n_req, len(calls))
     # one launch a request, and one warm-up a registration
     assert counts["K4"] == n_req + version, (counts, n_req, version)
     q = request_quantiles(calls)
-    q19 = loop["seq_window2"]
+    q_ref = request_quantiles(ref_probes["calls"][2])
     w2 = res[1]
-    w2_19 = loop["seq_results"][1]
+    w2_ref = ref.results[1]
     print(f"lrb loop through the daemon ({smi}): phase 19's trace, "
-          f"{FLEET_LOOP_WINDOWS} windows, sequential, serve_daemon=True on "
-          f"{drv._device} in {loop_s:.1f} s: records equal to phase 19's "
-          f"sequential run on {len(PARITY_KEYS)} keys; tenant version "
-          f"{version}, fallbacks {warned}; window 2: {n_req} requests of "
-          f"{FLEET_ROWS} rows over HTTP, evaluate {w2.get('evaluate_s')} s "
-          f"(phase 19 in-process {w2_19.get('evaluate_s')} s), a request "
-          f"p50/p99 {q['batch_p50']:.3f}/{q['batch_p99']:.3f} ms (phase 19 "
-          f"in-process {q19['batch_p50']:.3f}/{q19['batch_p99']:.3f}); K4 "
+          f"{FLEET_LOOP_WINDOWS} windows of {FLEET_LOOP_WINDOW} requests "
+          f"(sample {FLEET_LOOP_SAMPLE}), sequential, serve_daemon=True on "
+          f"{drv._device} in {loop_s:.1f} s: records equal to the same "
+          f"windows' in-process run on {len(PARITY_KEYS)} keys; tenant "
+          f"version {version}, fallbacks {warned}; window 2: {n_req} "
+          f"requests of {FLEET_ROWS} rows over HTTP, evaluate "
+          f"{w2.get('evaluate_s')} s (in-process {w2_ref.get('evaluate_s')}"
+          f" s), a request p50/p99 {q['batch_p50']:.3f}/"
+          f"{q['batch_p99']:.3f} ms (in-process {q_ref['batch_p50']:.3f}/"
+          f"{q_ref['batch_p99']:.3f}); K4 "
           f"launches {counts['K4']} ({counts['K4'] / n_req:.4f} a request)")
     print(f"fleet phase: {time.perf_counter() - t_phase:.1f} s")
     co = runs["coalesced"]
@@ -2612,6 +2663,295 @@ class _Lines:
 
     def write(self, s: str) -> None:
         self.lines.extend(x for x in s.splitlines() if x)
+
+
+def _body(text: str) -> str:
+    """Model text before its parameters block."""
+    return text[:text.index("\nparameters:")]
+
+
+def in_turns(fns: dict, rounds: int) -> dict:
+    """Median host-clock ms of a call of ``fns["plain"]`` and of
+    ``fns["valid"]``, each ending in a synchronize, called in turns
+    plain, valid, valid, plain, ``rounds`` times: the host's drift
+    between runs (tens of ms an iteration) falls on both alike."""
+    times = {"plain": [], "valid": []}
+    for _ in range(rounds):
+        for k in ("plain", "valid", "valid", "plain"):
+            times[k] += wall_ms(fns[k], 1)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def lrb_capi_with_valid(params: dict, Xl, yl, Xn, yn,
+                        rollback: bool) -> dict:
+    """Phase 6's C-API sequence with ``params``, the next window's rows
+    as a valid set (``DatasetCreateFromMat(reference=)``,
+    ``BoosterAddValidData``) and ``GetEval(bst, 1)`` after every
+    iteration; with ``rollback``, the model text, ``GetPredict(0)``,
+    ``GetPredict(1)`` and ``GetEval(1)`` saved before the last iteration
+    and one ``RollbackOneIter`` after it. Counts are reset just before
+    the sequence and read just after its last iteration."""
+    import torch
+    from lightgbm_tpu_torch import capi
+    reset_counts()
+    ds = capi.LGBM_DatasetCreateFromMat(Xl, parameters=params)
+    capi.LGBM_DatasetSetField(ds, "label", yl)
+    bst = capi.LGBM_BoosterCreate(ds, params)
+    vd = capi.LGBM_DatasetCreateFromMat(Xn, parameters=params, reference=ds)
+    capi.LGBM_DatasetSetField(vd, "label", yn)
+    capi.LGBM_BoosterAddValidData(bst, vd)
+    torch.cuda.synchronize()
+    n_it = int(params["num_iterations"])
+    iters, evals, saved = [], [], None
+    for it in range(n_it):
+        if rollback and it == n_it - 1:
+            saved = (capi.LGBM_BoosterSaveModelToString(bst),
+                     capi.LGBM_BoosterGetPredict(bst, 0),
+                     capi.LGBM_BoosterGetPredict(bst, 1),
+                     dict(capi.LGBM_BoosterGetEval(bst, 1)))
+        t1 = time.perf_counter()
+        finished = capi.LGBM_BoosterUpdateOneIter(bst)
+        evals.append(dict(capi.LGBM_BoosterGetEval(bst, 1)))
+        iters.append(time.perf_counter() - t1)
+        if finished:
+            break
+    counts = read_counts()
+    run = {"bst": bst, "vd": vd, "iters": iters, "evals": evals,
+           "counts": counts, "text": capi.LGBM_BoosterSaveModelToString(bst),
+           "ms": 1e3 * float(np.median(iters))}
+    if rollback:
+        capi.LGBM_BoosterRollbackOneIter(bst)
+        text, p0, p1, ev = saved
+        assert capi.LGBM_BoosterSaveModelToString(bst) == text, \
+            "the rolled-back model is not the one saved before"
+        errs = [float(np.abs(capi.LGBM_BoosterGetPredict(bst, 0) - p0).max()),
+                float(np.abs(capi.LGBM_BoosterGetPredict(bst, 1) - p1).max())]
+        errs += [abs(v - ev[k])
+                 for k, v in capi.LGBM_BoosterGetEval(bst, 1)]
+        assert max(errs) <= 1e-6, f"rollback: {errs} from the saved values"
+        run["rollback_err"] = max(errs)
+    return run
+
+
+def valid_phases(dev, smi: str, earlier: dict, phase8: dict) -> dict:
+    """Phase 21 of the module docstring: valid sets at full width.
+    ``earlier`` holds phases 6, 7 and 11's readings (``train_phases``,
+    ``quant_phases``), ``phase8`` phase 8's LRB readings of K2 and K1
+    ({"K2": ..., "K1": ...}, each with "ms" and "shape"). Returns the
+    readings the kernels line keeps."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) the HIGGS shape with its holdout as a valid set, through train()
+    X, y, Xt, yt = (earlier[k] for k in ("X", "y", "Xt", "yt"))
+    params = {**HIGGS_PARAMS, "metric": VALID_METRICS}
+    ds = lgt.Dataset(X, label=y, params=params).construct()
+    dv = ds.create_valid(Xt, label=yt).construct()
+    res = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(params, ds, num_boost_round=HIGGS_ITERS,
+                    valid_sets=[dv], valid_names=["holdout"],
+                    evals_result=res, verbose_eval=False,
+                    keep_training_booster=True)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    assert _body(bst.model_to_string()) == _body(earlier["text"]), \
+        "higgs: the model trained with a valid set differs from phase 7's"
+    assert counts["K3"] == 2 * HIGGS_ITERS, counts
+    for k in ("K1", "K2"):
+        assert counts[k] == earlier["counts"][k], (k, counts, earlier)
+    assert bst._gbdt._n_total == HIGGS_TRAIN_ROWS + HOLDOUT_ROWS
+    raw_valid = bst._gbdt.valid_scores(1)[0].double().cpu().numpy()
+    raw_k4 = np.asarray(bst.predict(Xt, raw_score=True))
+    err_k4 = float(np.abs(raw_valid - raw_k4).max())
+    assert err_k4 <= 1e-5, f"higgs: valid scores {err_k4} from K4's"
+    auc_k4 = auc_np(yt, np.asarray(bst.predict(Xt)))
+    auc_rec = res["holdout"]["auc"][-1]
+    assert abs(auc_rec - auc_k4) <= 1e-6, (auc_rec, auc_k4)
+    assert len(res["holdout"]["binary_error"]) == HIGGS_ITERS
+    wall, busy = device_busy(bst.update, 2)
+    ms = 1e3 * train_s / HIGGS_ITERS
+    # an iteration with and without the valid set, in turns: update and
+    # the valid set's evaluation against phase 7's booster's update
+    plain = lgt.Booster(HIGGS_PARAMS, lgt.Dataset(X, label=y,
+                                                  params=HIGGS_PARAMS))
+    plain.update()
+    turns = in_turns({"plain": plain.update, "valid": lambda: (
+        bst.update(), bst.eval_valid())},
+        TURN_ROUNDS)
+    del plain
+    print(f"higgs with a valid set ({smi}): {HIGGS_TRAIN_ROWS} rows + the "
+          f"{HOLDOUT_ROWS}-row holdout as passengers, {HIGGS_ITERS} "
+          f"iterations through train() with {VALID_METRICS} on the holdout "
+          f"every iteration: {ms:.1f} ms/iteration (phase 7 without it "
+          f"{earlier['ms']:.1f}); profile of 2 iterations: wall {wall:.1f} "
+          f"ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%; phase 7 "
+          f"{100 * earlier['busy']:.1f}%); model text (before its "
+          f"parameters) equal to phase 7's; K1 {counts['K1']}, K2 "
+          f"{counts['K2']} launches as phase 7, K3 {counts['K3']} (2 a "
+          f"tree); valid scores within {err_k4:.3g} of K4's; holdout auc "
+          f"{auc_rec:.6f} recorded, {auc_k4:.6f} from K4's predictions; in "
+          f"turns ({TURN_ROUNDS} x plain, valid, valid, plain): an update "
+          f"{turns['plain']:.1f} ms without the valid set, "
+          f"{turns['valid']:.1f} ms with it and its evaluation")
+    out["higgs"] = {"ms_per_iteration": ms, "phase7_ms": earlier["ms"],
+                    "busy": busy / wall, "k3_launches": counts["K3"],
+                    "k3_per_tree": counts["K3"] / HIGGS_ITERS,
+                    "max_abs_err_vs_k4": err_k4, "in_turns_ms": turns}
+    del bst, ds, dv
+
+    # (b) the LRB window through the C API with the next window as a
+    # valid set, K1's widest wave captured with the passengers
+    lrb = earlier["lrb"]
+    Xl = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    yl = lrb_labels(Xl, seed=22)
+    Xn = make_lrb_rows(LRB_NEXT_ROWS, seed=23)
+    yn = lrb_labels(Xn, seed=24)
+    with capturing() as caps:
+        run = lrb_capi_with_valid(TRAIN_PARAMS, Xl, yl, Xn, yn, True)
+    bst, counts, n_it = run["bst"], run["counts"], len(run["iters"])
+    assert run["text"] == lrb["text"], \
+        "lrb: the model trained with a valid set differs from phase 6's"
+    assert counts["K3"] == 2 * n_it, counts
+    for k in ("K1", "K2"):
+        assert counts[k] == lrb["counts"][k], (k, counts, lrb["counts"])
+    names = capi.LGBM_BoosterGetEvalNames(bst)
+    assert capi.LGBM_BoosterGetEvalCounts(bst) == 2, names
+    assert names == ["binary_logloss", "auc"], names
+    assert capi.LGBM_BoosterGetNumPredict(bst, 1) == LRB_NEXT_ROWS
+    # the model is back at 49 trees: score the next window with it
+    got = capi.LGBM_BoosterGetPredict(bst, 1)
+    want = np.asarray(capi.LGBM_BoosterPredictForMat(bst, Xn))
+    err_pred = float(np.abs(got - want).max())
+    assert err_pred <= 1e-5, f"lrb: GetPredict(1) {err_pred} from K4's"
+    # K2's root pass and K1's widest wave with the passengers: bit for
+    # bit against their plain versions in the kernels' order, timed
+    # beside phase 8's launches without them (phase 8's bound formulas)
+    kernels = {}
+    for kid, key, fn, plain, hist_of, slots_of in (
+            ("K2", "K2", hw.wave_histogram, hw.wave_histogram_plain,
+             lambda o: o, None),
+            ("K1", "K1w", hw.fused_partition_histogram,
+             hw.fused_partition_histogram_plain, lambda o: o[1],
+             lambda o: o[0])):
+        args, kw = caps[key].args, caps[key].kw
+        assert kw["counted_rows"] == LRB_TRAIN_ROWS, kw
+        assert args[0].shape[1] == LRB_TRAIN_ROWS + LRB_NEXT_ROWS
+
+        def kern(*a, fn=fn, kw=kw):
+            return fn(*a, **kw)
+
+        def ref(*a, plain=plain, kw=kw, **k):
+            return plain(*a, **plain_kw(kw), **k)
+        st = check_histogram(f"lrb {kid} with passengers", kern, ref, args,
+                             hist_of, slots_of)
+        F, n = args[0].shape
+        W, B = (args[4].shape[0] if kid == "K2" else args[5].shape[1],
+                args[-1])
+        cnt = st["rows_counted"]
+        kernels[kid] = dict(
+            shape=f"F={F}, N={n} ({LRB_NEXT_ROWS} passengers), W={W}, "
+                  f"B={B}",
+            ms=cuda_ms(lambda: kern(*args), 5),
+            plain_ms=cuda_ms(lambda: ref(*args), 3),
+            max_abs_err=st["max_abs_err"],
+            max_abs_err_f64=st["max_abs_err_f64"],
+            phase8_ms=phase8[kid]["ms"], phase8_shape=phase8[kid]["shape"],
+            launches=counts[f"{kid}/f32"],
+            **pass_report("lrb valid", kid, kern, args, kw, cnt),
+            **(bound(F * n + 12 * n + 4 * W + 12 * W * F * B, 3 * F * cnt)
+               if kid == "K2" else
+               bound(F * n + 20 * n + 36 * W + 12 * W * F * B,
+                     n + 3 * F * cnt)))
+    print(f"lrb with a valid set ({smi}): {LRB_TRAIN_ROWS} rows + the next "
+          f"{LRB_NEXT_ROWS} as passengers through the C API, {n_it} "
+          f"iterations with GetEval(1) after each: median {run['ms']:.1f} "
+          f"ms/iteration (phase 6 without it {lrb['ms']:.1f}); model text "
+          f"equal to phase 6's; K1 {counts['K1']}, K2 {counts['K2']} "
+          f"launches as phase 6, K3 {counts['K3']} (2 a tree); eval names "
+          f"{names}; GetPredict(1) within {err_pred:.3g} of PredictForMat; "
+          f"RollbackOneIter after iteration {n_it}: the text saved after "
+          f"{n_it - 1}, GetPredict(0), GetPredict(1), GetEval(1) within "
+          f"{run['rollback_err']:.3g}; last valid eval {run['evals'][-1]}")
+    for kid, k in kernels.items():
+        print(f"lrb {kid} with passengers at [{k['shape']}]: {k['ms']:.3f} "
+              f"ms (phase 8 without them {k['phase8_ms']:.3f} ms at "
+              f"[{k['phase8_shape']}]), plain {k['plain_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}); bit-equal to the "
+              f"plain version in the kernels' order (sums, counts"
+              f"{', leaf ids' if kid == 'K1' else ''}), two launches "
+              f"bit-identical")
+    # an iteration with and without the valid set, in turns: phase 6's
+    # sequence on the same rows against this booster's update and
+    # GetEval(1)
+    ds = capi.LGBM_DatasetCreateFromMat(Xl, parameters=TRAIN_PARAMS)
+    capi.LGBM_DatasetSetField(ds, "label", yl)
+    plain = capi.LGBM_BoosterCreate(ds, TRAIN_PARAMS)
+    capi.LGBM_BoosterUpdateOneIter(plain)
+    turns = in_turns({
+        "plain": lambda: capi.LGBM_BoosterUpdateOneIter(plain),
+        "valid": lambda: (capi.LGBM_BoosterUpdateOneIter(bst),
+                          capi.LGBM_BoosterGetEval(bst, 1))},
+        2 * TURN_ROUNDS)
+    capi.LGBM_BoosterFree(plain)
+    print(f"lrb in turns ({2 * TURN_ROUNDS} x plain, valid, valid, plain): "
+          f"an update {turns['plain']:.1f} ms without the valid set, "
+          f"{turns['valid']:.1f} ms with it and GetEval(1)")
+    out["lrb"] = {"ms_per_iteration": run["ms"], "phase6_ms": lrb["ms"],
+                  "k3_launches": counts["K3"],
+                  "k3_per_tree": counts["K3"] / len(run["iters"]),
+                  "rollback_err": run["rollback_err"], "in_turns_ms": turns}
+    out.update(kernels)
+    capi.LGBM_BoosterFree(bst)
+    del caps, run, bst, ds
+
+    # (c) the int8 tier with exact counts (phase 11's parameters)
+    params = {**TRAIN_PARAMS, "tpu_quantized_hist": "true",
+              "tpu_count_proxy": "0"}
+    run = lrb_capi_with_valid(params, Xl, yl, Xn, yn, False)
+    assert run["text"] == earlier["lrb_int8_text"], \
+        "lrb int8: the model trained with a valid set differs from phase 11's"
+    for k in ("K2/int8", "K1/int8"):
+        assert run["counts"].get(k, 0) > 0, run["counts"]
+    assert run["counts"]["K3"] == 2 * len(run["iters"]), run["counts"]
+    print(f"lrb int8 with a valid set ({smi}): model text equal to phase "
+          f"11's; median {run['ms']:.1f} ms/iteration with GetEval(1); "
+          f"launches {run['counts']}")
+    out["lrb_int8_ms"] = run["ms"]
+    capi.LGBM_BoosterFree(run["bst"])
+    del run
+
+    # (d) early stopping: coin-flip valid labels
+    params = {k: v for k, v in TRAIN_PARAMS.items() if k != "num_iterations"}
+    coin = (np.random.default_rng(25).random(LRB_NEXT_ROWS) < 0.5).astype(
+        np.float32)
+    seen = []
+    t0 = time.perf_counter()
+    b = lgt.train(params, lgt.Dataset(Xl, label=yl), STOP_ROUNDS,
+                  valid_sets=[lgt.Dataset(Xn, label=coin)],
+                  early_stopping_rounds=STOP_PATIENCE, verbose_eval=False,
+                  callbacks=[lambda env: seen.append(env.iteration)])
+    torch.cuda.synchronize()
+    stop_s = time.perf_counter() - t0
+    bi, nt = b.best_iteration, b.num_trees()
+    bs = {k: dict(v) for k, v in b.best_score.items()}
+    assert nt == bi + STOP_PATIENCE < 50, (bi, nt)
+    assert seen == list(range(nt)), seen
+    print(f"early stopping ({smi}): {LRB_TRAIN_ROWS} LRB rows, "
+          f"{LRB_NEXT_ROWS} valid rows of coin-flip labels, "
+          f"early_stopping_rounds {STOP_PATIENCE} of {STOP_ROUNDS}: stopped "
+          f"after {nt} iterations, best iteration {bi}, best score {bs}, "
+          f"the user callback called at each; {stop_s:.2f} s with binning")
+    out["early_stop"] = {"best_iteration": bi, "trees": nt, "s": stop_s}
+    del b
+    print(f"valid set phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -2779,9 +3119,15 @@ def main() -> None:
         loop = lrb_loop_phase(dev, smi, tmp)
         fleet = fleet_phase(dev, smi, loop, text, X, tmp)
 
-    # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins
+    # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins;
+    # 21: valid sets, against phases 6, 7 and 11
+    kid_of = {"wave_histogram": "K2", "fused_partition_histogram": "K1",
+              "leaf_gather_add": "K3"}
     train, higgs_data = train_phases(dev)
     quant = quant_phases(dev, higgs_data, power_limit_w)
+    valid = valid_phases(dev, smi, higgs_data, {
+        kid_of[e["name"]]: e["lrb"] for e in train if e["name"] in (
+            "wave_histogram", "fused_partition_histogram")})
     del higgs_data
     # 15-18: categorical features
     k1_ms = next(e["ms"] for e in train
@@ -2810,13 +3156,19 @@ def main() -> None:
                                       "plain_ms", "bound_ms", "bound_by",
                                       "max_abs_err")}}
     forest["fleet"] = fleet
-    kid_of = {"wave_histogram": "K2", "fused_partition_histogram": "K1",
-              "leaf_gather_add": "K3"}
     for e in train:
         kid = kid_of[e["name"]]
         e["lrb_loop"] = {
             "launches": loop["counts"][kid if kid == "K3" else f"{kid}/f32"],
             "launches_per_window": loop["per_window"][kid]}
+        # phase 21: the same kernels with a valid set's passenger rows
+        e["valid_sets"] = (valid[kid] if kid != "K3" else
+                           {"higgs_launches_per_tree":
+                            valid["higgs"]["k3_per_tree"],
+                            "lrb_launches_per_tree":
+                            valid["lrb"]["k3_per_tree"],
+                            "higgs_launches": valid["higgs"]["k3_launches"],
+                            "lrb_launches": valid["lrb"]["k3_launches"]})
     print(json.dumps({"kernels": [forest] + train + quant + cat}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Dataset and Booster (the JAX package's ``basic.py``, reference
-python-package basic.py:626-2415): training on a Dataset, and scoring a
-trained or loaded model."""
+python-package basic.py:626-2415): training on a Dataset with valid sets
+and their evaluation, rollback, and scoring a trained or loaded model.
+Custom objectives (``fobj``), continued training, refit and query groups
+are not ported."""
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -68,37 +70,233 @@ def _data_to_2d(data, feature_name="auto", categorical_feature="auto"):
     return X, names, sorted(set(cat_idx))
 
 
+def _label_to_1d(y) -> np.ndarray:
+    try:
+        import pandas as pd
+    except ImportError:
+        pd = None
+    if pd is not None and isinstance(y, pd.DataFrame):
+        if y.shape[1] != 1:
+            raise LightGBMError("DataFrame for label should be 1-D")
+        y = y.iloc[:, 0]
+    if pd is not None and isinstance(y, pd.Series):
+        y = y.to_numpy()
+    return np.asarray(y, np.float32).reshape(-1)
+
 
 class Dataset:
-    """Training data (basic.py:626-1448 surface), binned lazily: the
-    rows are binned on the device of the Booster that first uses it."""
+    """Training or validation data (basic.py:626-1448 surface), binned
+    lazily: on the device of the Booster that first uses it, a valid
+    set (``reference``) with its reference's mappers on the reference's
+    device, and a ``subset`` of a binned set by selecting its bins on
+    the device."""
 
-    def __init__(self, data, label=None, weight=None, feature_name="auto",
+    def __init__(self, data, label=None, reference: "Dataset" = None,
+                 weight=None, init_score=None, feature_name="auto",
                  categorical_feature="auto",
-                 params: Optional[Dict[str, Any]] = None):
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = True):
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
+        self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
+        self.free_raw_data = free_raw_data
+        self.used_indices: Optional[np.ndarray] = None
+        self._subset_of: Optional["Dataset"] = None
         self._inner: Optional[BinnedDataset] = None
 
     def construct(self, device=None) -> "Dataset":
-        """Bin the rows on ``device`` (None: cuda:0), once; the raw rows
-        are dropped then."""
+        """Bin the rows on ``device`` (None: cuda:0), once; a valid set
+        bins on its reference's device, a subset of a binned set on its
+        parent's. The raw rows are dropped then unless
+        ``free_raw_data`` is False."""
         if self._inner is not None:
+            return self
+        parent = self._subset_of
+        if parent is not None and parent._inner is not None:
+            self._inner = parent._inner.subset(self.used_indices,
+                                               self._build_metadata())
             return self
         if self.data is None:
             raise LightGBMError("the Dataset's raw data was freed")
-        cfg = Config()
-        cfg.set(self.params)
         X, names, cat_idx = _data_to_2d(self.data, self.feature_name,
                                         self.categorical_feature)
-        self._inner = BinnedDataset(cfg, device).construct_from_matrix(
-            X, Metadata(label=self.label, weight=self.weight),
-            feature_names=names, categorical=cat_idx)
-        self.data = None
+        if self.used_indices is not None:
+            X = X[self.used_indices]
+        meta = self._build_metadata()
+        ref = self.reference
+        if ref is not None:
+            ref.construct(device)
+            self._inner = ref._inner.create_valid(X, meta)
+        else:
+            cfg = Config()
+            cfg.set(self.params)
+            self._inner = BinnedDataset(cfg, device).construct_from_matrix(
+                X, meta, feature_names=names, categorical=cat_idx)
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+    def _build_metadata(self) -> Metadata:
+        sub = self.used_indices
+        label = None if self.label is None else _label_to_1d(self.label)
+        weight = (None if self.weight is None
+                  else np.asarray(self.weight, np.float32).reshape(-1))
+        init = (None if self.init_score is None
+                else np.asarray(self.init_score, np.float64).reshape(-1))
+        if sub is not None:
+            label = None if label is None else label[sub]
+            weight = None if weight is None else weight[sub]
+            if init is not None:
+                n = self._parent_rows()
+                init = init.reshape(-1, n)[:, sub].reshape(-1)
+        return Metadata(label=label, weight=weight, init_score=init)
+
+    def _parent_rows(self) -> int:
+        """Rows of the data a subset's indices point into."""
+        parent = self._subset_of
+        if parent is not None:
+            return parent.num_data()
+        return _data_to_2d(self.data)[0].shape[0]
+
+    # -- fields (basic.py set_field/get_field) ------------------------------
+
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._inner is not None and label is not None:
+            self._inner.metadata.label = _label_to_1d(label)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._inner is not None and weight is not None:
+            self._inner.metadata.weights = np.asarray(
+                weight, np.float32).reshape(-1)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._inner is not None and init_score is not None:
+            self._inner.metadata.init_score = np.asarray(
+                init_score, np.float64).reshape(-1)
+        return self
+
+    def get_label(self):
+        if self._inner is not None:
+            return self._inner.metadata.label
+        return None if self.label is None else _label_to_1d(self.label)
+
+    def get_weight(self):
+        if self._inner is not None:
+            return self._inner.metadata.weights
+        return self.weight
+
+    def get_init_score(self):
+        if self._inner is not None:
+            return self._inner.metadata.init_score
+        return self.init_score
+
+    def get_group(self):
+        """Query groups are not ported: always None."""
+        return None
+
+    _FIELDS = ("label", "weight", "init_score")
+
+    def get_field(self, field_name: str):
+        if field_name not in self._FIELDS:
+            raise LightGBMError(f"Unknown field {field_name!r}")
+        return getattr(self, "get_" + field_name)()
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        if field_name not in self._FIELDS:
+            raise LightGBMError(f"Unknown field {field_name!r}")
+        return getattr(self, "set_" + field_name)(data)
+
+    # -- shape --------------------------------------------------------------
+
+    def num_data(self) -> int:
+        """Rows; read from the raw data while the set is not binned."""
+        if self._inner is not None:
+            return self._inner.num_data
+        if self.used_indices is not None:
+            return len(self.used_indices)
+        return _data_to_2d(self.data)[0].shape[0]
+
+    def num_feature(self) -> int:
+        if self._inner is not None:
+            return self._inner.num_total_features
+        if self._subset_of is not None:
+            return self._subset_of.num_feature()
+        return _data_to_2d(self.data)[0].shape[1]
+
+    def get_feature_name(self) -> List[str]:
+        if self._inner is None:
+            raise LightGBMError("construct the Dataset first")
+        return list(self._inner.feature_names)
+
+    # -- derived datasets ---------------------------------------------------
+
+    def create_valid(self, data, label=None, weight=None, init_score=None,
+                     params=None) -> "Dataset":
+        """A validation set binned with this Dataset's mappers
+        (basic.py:866-900)."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       init_score=init_score, params=params,
+                       free_raw_data=self.free_raw_data)
+
+    def subset(self, used_indices: Sequence[int],
+               params=None) -> "Dataset":
+        """Rows ``used_indices`` (basic.py:902-926): of a binned set, its
+        bins selected on its device with its mappers; of one not binned
+        yet, its raw rows, binned with mappers of their own."""
+        if self._inner is None and self.data is None:
+            raise LightGBMError("Cannot subset a Dataset whose raw data "
+                                "was freed")
+        ret = Dataset(None if self._inner is not None else self.data,
+                      label=self.label, weight=self.weight,
+                      init_score=self.init_score,
+                      feature_name=self.feature_name,
+                      categorical_feature=self.categorical_feature,
+                      params=params or self.params,
+                      free_raw_data=self.free_raw_data)
+        ret.used_indices = np.sort(np.asarray(used_indices, np.int64))
+        ret._subset_of = self
+        return ret
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        if reference is self.reference:
+            return self
+        if self._inner is not None:
+            raise LightGBMError("Cannot set reference after the dataset "
+                                "was constructed")
+        self.reference = reference
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        if categorical_feature == "auto":
+            return self
+        if self._inner is not None and list(categorical_feature) != list(
+                self.categorical_feature or []):
+            raise LightGBMError("Cannot change categorical_feature after "
+                                "the dataset was constructed")
+        self.categorical_feature = categorical_feature
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        if feature_name == "auto":
+            # keep what the Dataset already has (reference basic.py)
+            return self
+        self.feature_name = feature_name
+        if self._inner is not None and isinstance(feature_name,
+                                                  (list, tuple)):
+            if len(feature_name) != self._inner.num_total_features:
+                raise LightGBMError("Length of feature names doesn't equal "
+                                    "with num_feature")
+            self._inner.feature_names = [str(x) for x in feature_name]
         return self
 
 
@@ -114,9 +312,16 @@ class Booster:
                  model_str: Optional[str] = None, device=None):
         self.params = dict(params) if params else {}
         self.train_set = train_set
+        self.valid_sets: List[Dataset] = []
+        self.name_valid_sets: List[str] = []
         self.best_iteration = -1
+        self.best_score: Dict = {}
         self._train_data_name = "training"
+        self._metric_names: List[str] = []
         if train_set is not None:
+            if not isinstance(train_set, Dataset):
+                raise TypeError("Training data should be Dataset instance, "
+                                f"met {type(train_set).__name__}")
             self._init_from_train_set(train_set, device)
             return
         if model_file is not None:
@@ -125,6 +330,7 @@ class Booster:
         elif model_str is None:
             raise TypeError("Need a training dataset or model file or model "
                             "string to create a Booster")
+        self.config = None
         self._gbdt = GBDT(device).load_model_from_string(
             model_str, source=model_file or "")
 
@@ -136,26 +342,106 @@ class Booster:
         objective = create_objective(cfg.objective, cfg)
         if objective is not None:
             objective.init(inner.metadata, inner.num_data)
-        metrics = create_metrics(metric_names(cfg), cfg, inner.metadata,
+        self._metric_names = metric_names(cfg)
+        metrics = create_metrics(self._metric_names, cfg, inner.metadata,
                                  inner.num_data)
         self.config = cfg
         self._gbdt = GBDT(inner.device).init(cfg, inner, objective, metrics)
 
-    def update(self) -> bool:
-        """One boosting iteration; True when no further split was
-        possible (basic.py:1693-1746)."""
+    # -- training -----------------------------------------------------------
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Add a validation set, binned with the train set's mappers on
+        its device (basic.py:1540)."""
         if self.train_set is None:
+            raise LightGBMError("Add valid data requires a Booster with "
+                                "training data")
+        data.set_reference(self.train_set)
+        inner = data.construct(self._gbdt.device)._inner
+        metrics = create_metrics(self._metric_names, self.config,
+                                 inner.metadata, inner.num_data)
+        self._gbdt.add_valid_data(inner, metrics, name)
+        self.valid_sets.append(data)
+        self.name_valid_sets.append(name)
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration; True when no further split was
+        possible (basic.py:1693-1746). A booster whose datasets were
+        freed (``free_dataset``) trains on, as in the JAX package."""
+        if getattr(self._gbdt, "train_data", None) is None:
             raise LightGBMError("update needs a Booster with training data")
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("Replacing the train set mid-training is "
+                                "not supported; create a new Booster")
+        if fobj is not None:
+            raise NotImplementedError("custom objectives (fobj) are not "
+                                      "ported yet")
         return self._gbdt.train_one_iter()
 
-    def current_iteration(self) -> int:
-        return self._gbdt.iter_
+    def rollback_one_iter(self) -> "Booster":
+        self._gbdt.rollback_one_iter()
+        return self
 
-    def eval_train(self) -> List[tuple]:
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Reset training parameters, the learning rate among them
+        (gbdt.cpp ResetConfig): the grower is set up again."""
+        if self.config is not None:
+            self.config.set(params)
+            self._gbdt.reset_config()
+        self.params.update(params)
+        return self
+
+    def current_iteration(self) -> int:
+        return self._gbdt.current_iteration
+
+    # -- evaluation ---------------------------------------------------------
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = name
+        return self
+
+    def eval_train(self, feval=None) -> List[tuple]:
         """[(data name, metric name, value, bigger is better)] on the
-        train set."""
-        return [(self._train_data_name, name, val, bigger)
-                for name, val, bigger in self._gbdt.get_eval_at(0)]
+        train set, then ``feval``'s."""
+        return self.__eval(0, self._train_data_name, feval)
+
+    def eval_valid(self, feval=None) -> List[tuple]:
+        out = []
+        for i, name in enumerate(self.name_valid_sets):
+            out.extend(self.__eval(i + 1, name, feval))
+        return out
+
+    def eval(self, data: Dataset, name: str, feval=None) -> List[tuple]:
+        if data is self.train_set:
+            return self.eval_train(feval)
+        for i, vs in enumerate(self.valid_sets):
+            if data is vs:
+                return self.__eval(i + 1, name, feval)
+        raise LightGBMError("Data should be added with add_valid first")
+
+    def __eval(self, data_idx: int, name: str, feval=None) -> List[tuple]:
+        out = [(name, mname, val, bigger)
+               for mname, val, bigger in self._gbdt.get_eval_at(data_idx)]
+        if feval is not None:
+            ds = self.train_set if data_idx == 0 \
+                else self.valid_sets[data_idx - 1]
+            ret = feval(self.__inner_predict(data_idx), ds)
+            for fname, val, bigger in (ret if isinstance(ret, list)
+                                       else [] if ret is None else [ret]):
+                out.append((name, fname, val, bigger))
+        return out
+
+    def __inner_predict(self, data_idx: int) -> np.ndarray:
+        """Raw scores of the train set (0) or a valid set (1, ...), as
+        float64, flattened class-major when K > 1."""
+        scores = (self._gbdt.train_scores() if data_idx == 0
+                  else self._gbdt.valid_scores(data_idx))
+        raw = scores.cpu().numpy().astype(np.float64)
+        return raw[0] if raw.shape[0] == 1 else raw.reshape(-1)
+
+    # -- prediction ---------------------------------------------------------
 
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False, pred_leaf: bool = False,
@@ -174,8 +460,31 @@ class Booster:
             return self._gbdt.predict_raw(X, num_iteration, **pred_kw)
         return self._gbdt.predict(X, num_iteration, **pred_kw)
 
+    # -- introspection ------------------------------------------------------
+
     def num_trees(self) -> int:
         return len(self._gbdt.models)
+
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_model_per_iteration()
+
+    def num_feature(self) -> int:
+        return self._gbdt.max_feature_idx + 1
+
+    def feature_name(self) -> List[str]:
+        return list(self._gbdt.feature_names)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = 0) -> np.ndarray:
+        imp = self._gbdt.feature_importance(importance_type, iteration)
+        return imp.astype(np.int32) if importance_type == "split" else imp
+
+    def free_dataset(self) -> "Booster":
+        self.train_set = None
+        self.valid_sets = []
+        return self
+
+    # -- serialization ------------------------------------------------------
 
     def save_model(self, filename: str, num_iteration: int = -1,
                    start_iteration: int = 0) -> "Booster":

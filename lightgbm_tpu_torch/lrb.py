@@ -45,8 +45,8 @@ Where the port differs from the JAX driver:
 - No device ingest chunk ring (``tpu_lrb_ring``, ``io/ingest.py
   ChunkRing``, ROADMAP item 17): each window's matrix goes through
   ``LGBM_DatasetCreateFromMat`` whole.
-- No compiled-step registry (``ops/step_cache.py``, ROADMAP queue 1
-  item 3): the record has no ``step_cache_hits``, and ``compile_s`` is
+- No compiled-step registry (``ops/step_cache.py``, ROADMAP item 16):
+  the record has no ``step_cache_hits``, and ``compile_s`` is
   the nvcc time the window paid building the kernels
   (``utils/cuda_build.py``), 0 once they are built.
 - No metrics exporter or flight recorder (ROADMAP item 20):

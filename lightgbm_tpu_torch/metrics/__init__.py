@@ -1,5 +1,5 @@
-from .metric import (AUCMetric, BinaryLoglossMetric, Metric, create_metric,
-                     create_metrics, metric_names)
+from .metric import (AUCMetric, BinaryErrorMetric, BinaryLoglossMetric,
+                     Metric, create_metric, create_metrics, metric_names)
 
-__all__ = ["AUCMetric", "BinaryLoglossMetric", "Metric", "create_metric",
-           "create_metrics", "metric_names"]
+__all__ = ["AUCMetric", "BinaryErrorMetric", "BinaryLoglossMetric", "Metric",
+           "create_metric", "create_metrics", "metric_names"]

@@ -1,11 +1,14 @@
 """Evaluation metrics of the binary objective.
 
 Counterparts of the JAX package's ``metrics/metric.py``
-``BinaryLoglossMetric`` (:241), ``AUCMetric`` (:317) and
-``create_metrics`` (:620) (reference binary_metric.hpp). Each evaluates
-on the device that holds the scores and returns one float: the scores
-never travel to the host. Sums run in float64, so a value agrees with
-the JAX package's f32 device reduction to its f32 rounding.
+``BinaryLoglossMetric`` (:241), ``BinaryErrorMetric`` (:294),
+``AUCMetric`` (:317) and ``create_metrics`` (:620), with the metric-name
+resolution of its ``basic.py`` (:422 ``_resolve_metric_names``;
+reference binary_metric.hpp, config.cpp GetMetricType). Each metric
+evaluates on the device that holds the scores: ``eval_tensor`` gives a
+float64 scalar tensor there with no readback (the scores never travel to
+the host), ``eval`` its value. Sums run in float64, so a value agrees
+with the JAX package's f32 device reduction to its f32 rounding.
 """
 from __future__ import annotations
 
@@ -41,9 +44,21 @@ class Metric:
                 None if w is None else torch.from_numpy(w).to(dev))
         return self._dev[dev]
 
+    def eval_tensor(self, scores: torch.Tensor,
+                    objective) -> torch.Tensor:
+        """The value, a float64 scalar on the scores' device, of
+        ``scores`` [K, N] raw scores."""
+        raise NotImplementedError
+
     def eval(self, scores: torch.Tensor, objective) -> float:
         """``scores`` [K, N] raw scores on any device."""
-        raise NotImplementedError
+        return float(self.eval_tensor(scores, objective))
+
+    def _average(self, loss: torch.Tensor, w) -> torch.Tensor:
+        """The (weighted) mean of float64 per-row losses."""
+        if w is None:
+            return loss.mean()
+        return (loss * w).sum() / self.sum_weights
 
 
 class BinaryLoglossMetric(Metric):
@@ -52,15 +67,27 @@ class BinaryLoglossMetric(Metric):
     device path does."""
     name = "binary_logloss"
 
-    def eval(self, scores, objective):
+    def eval_tensor(self, scores, objective):
         y, w = self._arrays(scores.device)
         sa = float(objective.sigmoid) * scores[0].to(torch.float64)
         zero = torch.zeros((), dtype=torch.float64, device=sa.device)
         loss = (y * torch.logaddexp(zero, -sa)
                 + (1.0 - y) * torch.logaddexp(zero, sa))
-        if w is None:
-            return float(loss.mean())
-        return float((loss * w).sum() / self.sum_weights)
+        return self._average(loss, w)
+
+
+class BinaryErrorMetric(Metric):
+    """binary_metric.hpp BinaryErrorMetric: the share of rows whose
+    converted score (f32, as the JAX device path converts it) is on the
+    wrong side of 0.5."""
+    name = "binary_error"
+
+    def eval_tensor(self, scores, objective):
+        y, w = self._arrays(scores.device)
+        p = scores[0]
+        if objective is not None:
+            p = objective.convert_output(p)
+        return self._average(((p > 0.5) != (y > 0)).to(torch.float64), w)
 
 
 class AUCMetric(Metric):
@@ -69,9 +96,10 @@ class AUCMetric(Metric):
     name = "auc"
     bigger_is_better = True
 
-    def eval(self, scores, objective):
+    def eval_tensor(self, scores, objective):
         y, w = self._arrays(scores.device)
         s = scores[0]
+        n = s.shape[0]
         order = torch.argsort(s, stable=True)
         s_s = s[order]
         y_s = y[order]
@@ -81,24 +109,28 @@ class AUCMetric(Metric):
         first = torch.ones_like(s_s, dtype=torch.bool)
         first[1:] = s_s[1:] != s_s[:-1]
         gid = torch.cumsum(first.to(torch.int64), 0) - 1
-        ng = int(gid[-1]) + 1 if len(gid) else 0
-        grp_pos = torch.zeros(ng, dtype=torch.float64,
+        # one slot a row: the groups past the last stay empty, so the
+        # group count need not be read back
+        grp_pos = torch.zeros(n, dtype=torch.float64,
                               device=s.device).index_add_(0, gid, pos_w)
-        grp_neg = torch.zeros(ng, dtype=torch.float64,
+        grp_neg = torch.zeros(n, dtype=torch.float64,
                               device=s.device).index_add_(0, gid, neg_w)
         before = torch.cumsum(grp_neg, 0) - grp_neg
         auc_sum = torch.sum(grp_pos * (before + 0.5 * grp_neg))
-        tp, tn = float(pos_w.sum()), float(neg_w.sum())
-        if tp == 0.0 or tn == 0.0:
-            return 1.0
-        return float(auc_sum) / (tp * tn)
+        tp, tn = pos_w.sum(), neg_w.sum()
+        one = torch.ones((), dtype=torch.float64, device=s.device)
+        return torch.where((tp == 0.0) | (tn == 0.0), one,
+                           auc_sum / (tp * tn))
 
 
 _METRICS = {
     "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
-    "auc": AUCMetric,
+    "binary_error": BinaryErrorMetric, "auc": AUCMetric,
 }
 
+# an objective's metric when none is configured (config.cpp
+# GetMetricType; the JAX package's basic.py _DEFAULT_METRIC), for the
+# objectives the port has
 _DEFAULT_METRIC = {"binary": "binary_logloss"}
 
 

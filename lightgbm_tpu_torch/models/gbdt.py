@@ -10,6 +10,12 @@ numerical and categorical features:
 (the step body of the JAX package's ``ops/step_cache.py:324-406``:
 gradients, the tree, the shrinkage fold, the score update through the
 leaf-gather kernel, the boost-from-average bias on the stored record).
+Valid sets (``add_valid_data``) ride the grower's bin matrix as weight-0
+passenger columns after the training rows, as in the JAX package
+(gbdt.py:977-1013, :1165-1220): every split moves them, nothing counts
+them, and each iteration's valid-score update is one leaf-gather launch
+on their slice of the leaf ids. ``rollback_one_iter`` replays the last
+tree and subtracts it (shrink -1.0) from the train and valid scores.
 Bagging and feature sampling draw from the same numpy PCG64 streams as
 the JAX package, so both pick the same rows and features. Prediction
 goes through the stacked forest kernel (ops/stacked_predict.py) for
@@ -27,14 +33,16 @@ from ..config import Config
 from ..io.binning import BinType
 from .tree import Tree, tree_from_record
 from ..analysis import lockorder
+from ..ops.grower import TreeRecord
 from ..objectives import ObjectiveFunction, parse_objective_from_model_string
 from ..ops.f32math import fma
 from ..ops import predict_cache
-from ..ops.predict import add_leaf_outputs
+from ..ops.predict import add_leaf_outputs, replay_partition
 from ..ops.split import SplitParams
 from ..ops.wave_grower import WaveGrower, WaveGrowerConfig
 from ..utils import log
 from ..utils.device import resolve_device
+from ..utils.log import LightGBMError
 
 K_MODEL_VERSION = "v2"     # gbdt.h kModelVersion
 
@@ -112,14 +120,21 @@ class GBDT:
         self.feature_names = list(train_data.feature_names)
         self.feature_infos = train_data.feature_infos()
         self.models, self.records, self._tree_shrinkage = [], [], []
+        # valid sets (io/dataset BinnedDatasets), their names, metrics,
+        # [K, Nv] scores and (offset, rows) in the grower's bin matrix
+        self.valid_sets, self.valid_names, self.valid_metrics = [], [], []
+        self._valid_scores: List[torch.Tensor] = []
+        self._valid_row_slices: List[tuple] = []
         self._invalidate_stacked()
         # the process default of the serving buckets
         # (ops/predict_cache.py); each stack keeps its own booster's
         predict_cache.configure(config.tpu_serve_bucket)
-        self._n = n = train_data.num_data
+        self._n = n = self._n_total = train_data.num_data
+        self._host_meta = train_data.feature_meta()
+        self._grower_cfg = None
         self._setup_grower()
         dev = self.device
-        self._scores = torch.zeros((1, n), dtype=torch.float32, device=dev)
+        self._scores = self._initial_scores(train_data)
         self._full_mask = torch.ones(n, dtype=torch.float32, device=dev)
         self._bagging_rng = np.random.default_rng(config.bagging_seed)
         self._feature_rng = np.random.default_rng(
@@ -210,16 +225,101 @@ class GBDT:
         B = max(td.max_bin_global, 2)
         if cfg.tpu_row_bucket != 0:
             B = 1 << (max(B, 16) - 1).bit_length()
-        self._grower_cfg = WaveGrowerConfig(
+        grower_cfg = WaveGrowerConfig(
             num_leaves=max(cfg.num_leaves, 2), num_bins=B, wave_size=W,
             max_depth=cfg.max_depth, hp=hp, precision=precision,
             count_proxy=proxy, packed4=packed4)
+        if self._grower_cfg == grower_cfg:
+            return                      # reset_config changed no field
+        self._grower_cfg = grower_cfg
         if packed4:
-            nbytes = td.grower_bins(True).numel()
+            nbytes = -(-td.num_features // 2) * self._n
             log.info("4-bit packed bins: %.1f MB HBM (vs %.1f MB unpacked)",
                      nbytes / 1e6, 2 * nbytes / 1e6)
         self._grower = WaveGrower(self._grower_cfg, td.feature_meta(),
                                   self.device)
+
+    def _initial_scores(self, data) -> torch.Tensor:
+        """[K, N] f32 scores of ``data`` before any tree: its init scores
+        (class-major), else zeros (the JAX package's _init_scores)."""
+        k, n = self.num_tree_per_iteration, data.num_data
+        init = np.zeros((k, n), np.float32)
+        if data.metadata.init_score is not None:
+            init += np.asarray(data.metadata.init_score,
+                               np.float32).reshape(k, n)
+        return torch.from_numpy(init).to(self.device)
+
+    def _replay(self, rec, bins_t: torch.Tensor) -> torch.Tensor:
+        """Leaf ids of the rows of ``bins_t`` [F, N] (unpacked) in a
+        grown tree, its splits read from one host copy of the record."""
+        return replay_partition(TreeRecord(**rec.to_numpy()), bins_t,
+                                self._host_meta)
+
+    def add_valid_data(self, valid_data, metrics: Sequence = (),
+                       name: str = "") -> None:
+        """Add a validation set (io/dataset BinnedDataset binned with the
+        train set's mappers; the JAX package's gbdt.py:977): its scores
+        start from its init scores plus the trees so far, replayed at
+        shrink 1.0, and from then on its rows ride the grower's bin
+        matrix as passengers."""
+        if valid_data.device != self.device:
+            raise LightGBMError(f"the validation set is on "
+                                f"{valid_data.device}, the model on "
+                                f"{self.device}")
+        self.valid_sets.append(valid_data)
+        self.valid_names.append(name or f"valid_{len(self.valid_sets)}")
+        self.valid_metrics.append(list(metrics))
+        scores = self._initial_scores(valid_data)
+        self._valid_scores.append(scores)
+        if self.records:
+            bins = valid_data.bins_t
+            k = self.num_tree_per_iteration
+            for t_idx, rec in enumerate(self.records):
+                add_leaf_outputs(scores[t_idx % k], self._replay(rec, bins),
+                                 rec.leaf_output, 1.0)
+        self._rebuild_grower_bins()
+
+    def _rebuild_grower_bins(self) -> None:
+        """The grower's bin matrix: the training columns, then each valid
+        set's (the JAX package's _rebuild_grower_bins), in the grower's
+        form (4-bit packed or not). Each set then holds a view of its
+        columns of it rather than a copy; the masks pad with zeros to the
+        combined width."""
+        packed4 = self._grower_cfg.packed4
+        sets = [self.train_data] + self.valid_sets
+        parts = [ds.bins_in(packed4) for ds in sets]
+        combined = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        slices, off = [], 0
+        for ds in sets:
+            ds.share_bins(combined[:, off:off + ds.num_data])
+            slices.append((off, ds.num_data))
+            off += ds.num_data
+        self._bins_dev = combined
+        self._valid_row_slices = slices[1:]
+        self._n_total = off
+        self._full_mask = torch.cat([
+            torch.ones(self._n, dtype=torch.float32, device=self.device),
+            torch.zeros(off - self._n, dtype=torch.float32,
+                        device=self.device)])
+
+    def _grower_bins(self) -> torch.Tensor:
+        """The bin matrix a tree grows on: the train set's, or with valid
+        sets the combined one."""
+        if self.valid_sets:
+            return self._bins_dev
+        return self.train_data.grower_bins(self._grower_cfg.packed4)
+
+    def reset_config(self) -> None:
+        """Take up a changed ``config`` (ResetConfig, the JAX package's
+        Booster.reset_parameter): the learning rate, and a new grower
+        only if a field of its ``WaveGrowerConfig`` changed; the valid
+        sets' columns are packed anew only if the grower's bin form
+        changed."""
+        packed4 = self._grower_cfg.packed4
+        self.shrinkage_rate = self.config.learning_rate
+        self._setup_grower()
+        if self.valid_sets and self._grower_cfg.packed4 != packed4:
+            self._rebuild_grower_bins()
 
     def _bagging_mask(self, iteration: int) -> Optional[np.ndarray]:
         """Bagging (gbdt.cpp:161-243): a fresh subset every
@@ -250,12 +350,16 @@ class GBDT:
 
     def boost_from_average(self, class_id: int) -> float:
         """BoostFromAverage (gbdt.cpp:311-330): only while the model is
-        empty."""
-        if self.models or not self.config.boost_from_average:
+        empty and the train set has no init scores; the valid sets'
+        scores take the same bias."""
+        if (self.models or not self.config.boost_from_average
+                or self.train_data.metadata.init_score is not None):
             return 0.0
         init = self.objective.boost_from_score(class_id)
         if init != 0.0:
-            self._scores[class_id] += float(np.float32(init))
+            bias = float(np.float32(init))
+            for scores in [self._scores] + self._valid_scores:
+                scores[class_id] += bias
             log.info("Start training from score %g", init)
         return init
 
@@ -272,13 +376,23 @@ class GBDT:
         init_score = self.boost_from_average(0)
         first_iteration = not self.models
         dev = self.device
+        n, tail = self._n, self._n_total - self._n
         mask_np = self._bagging_mask(self.iter_)
-        mask = (self._full_mask if mask_np is None
-                else torch.from_numpy(mask_np).to(dev))
+        if mask_np is None:
+            mask = self._full_mask
+        else:
+            if tail:
+                mask_np = np.concatenate([mask_np,
+                                          np.zeros(tail, np.float32)])
+            mask = torch.from_numpy(mask_np).to(dev)
         fmask = torch.from_numpy(self._feature_mask()).to(dev)
         g, h = self.objective.get_gradients(self._scores[0])
-        bins = self.train_data.grower_bins(self._grower_cfg.packed4)
-        rec, leaf_ids = self._grower.grow(bins, g, h, mask, fmask)
+        if tail:
+            # the passengers' g and h: exact +0.0
+            g = torch.cat([g, g.new_zeros(tail)])
+            h = torch.cat([h, h.new_zeros(tail)])
+        rec, leaf_ids = self._grower.grow(self._grower_bins(), g, h, mask,
+                                          fmask, counted_rows=n)
         splitless = rec.num_leaves <= 1
         if splitless:
             log.warning("Stopped training because there are no more leaves "
@@ -289,7 +403,13 @@ class GBDT:
         # out-of-bag rows included: the partition covers every row; the
         # shrinkage rides the add as one fused multiply-add, as XLA
         # contracts the JAX package's step
-        add_leaf_outputs(self._scores[0], leaf_ids, rec.leaf_output, shrink)
+        add_leaf_outputs(self._scores[0], leaf_ids[:n], rec.leaf_output,
+                         shrink)
+        # each valid set's rows: their slice of the leaf ids, one launch
+        for scores, (off, nv) in zip(self._valid_scores,
+                                     self._valid_row_slices):
+            add_leaf_outputs(scores[0], leaf_ids[off:off + nv],
+                             rec.leaf_output, shrink)
         # AddBias on the stored record only (tree.h:151): the init score
         # reached the scores through boost_from_average already
         # (XLA contracts the JAX package's shrinkage and bias into one
@@ -317,13 +437,88 @@ class GBDT:
                 tree.shrinkage = self._tree_shrinkage[i]
                 self.models[i] = tree
 
+    def _drop_last_iterations(self, n_groups: int) -> None:
+        """Remove the last ``n_groups`` iterations and subtract their
+        trees, replayed, from the train and valid scores (shrink -1.0:
+        one rounding each, as the JAX package's gbdt.py:1747; the forward
+        step's fma rounded once too, so the scores come back within an
+        ulp or two, not always to their bits)."""
+        K = self.num_tree_per_iteration
+        train_bins = self.train_data.bins_t
+        valid_bins = [v.bins_t for v in self.valid_sets]
+        for _ in range(n_groups):
+            for k in range(K - 1, -1, -1):
+                rec = self.records.pop()
+                self.models.pop()
+                self._tree_shrinkage.pop()
+                add_leaf_outputs(self._scores[k],
+                                 self._replay(rec, train_bins),
+                                 rec.leaf_output, -1.0)
+                for scores, bins in zip(self._valid_scores, valid_bins):
+                    add_leaf_outputs(scores[k], self._replay(rec, bins),
+                                     rec.leaf_output, -1.0)
+            self.iter_ -= 1
+        self._invalidate_stacked()
+
+    def rollback_one_iter(self) -> None:
+        """RollbackOneIter (gbdt.cpp:414-430)."""
+        if self.iter_ > 0:
+            self._drop_last_iterations(1)
+
+    def train_scores(self) -> torch.Tensor:
+        """[K, N] raw scores of the train set, on the device."""
+        return self._scores
+
+    def valid_scores(self, data_idx: int) -> torch.Tensor:
+        """[K, Nv] raw scores of valid set ``data_idx`` (1, 2, ...), on
+        the device."""
+        return self._valid_scores[data_idx - 1]
+
     def get_eval_at(self, data_idx: int) -> List[tuple]:
         """[(metric name, value, bigger is better)] on the train set
-        (data_idx 0); valid sets are not ported yet."""
-        if data_idx != 0:
-            raise NotImplementedError("valid sets are not ported yet")
-        return [(m.name, m.eval(self._scores, self.objective),
-                 m.bigger_is_better) for m in self.training_metrics]
+        (data_idx 0) or a valid set (1, 2, ...). Each metric gives a
+        float64 scalar on the device; their values come back in one
+        readback."""
+        if data_idx == 0:
+            scores, metrics = self._scores, self.training_metrics
+        else:
+            scores = self.valid_scores(data_idx)
+            metrics = self.valid_metrics[data_idx - 1]
+        if not metrics:
+            return []
+        vals = torch.stack([m.eval_tensor(scores, self.objective)
+                            for m in metrics])
+        return [(m.name, v, m.bigger_is_better)
+                for m, v in zip(metrics, vals.tolist())]
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = 0) -> np.ndarray:
+        """Per feature, the times it is split on ("split") or its splits'
+        summed gains ("gain") in the first ``iteration`` iterations (0:
+        all), the JAX package's gbdt.py:2731."""
+        self._ensure_host_trees()
+        n_models = len(self.models)
+        if iteration > 0:
+            n_models = min(n_models, iteration * self.num_tree_per_iteration)
+        return self._importance(n_models, importance_type)
+
+    def _importance(self, n_models: int, importance_type: str) -> np.ndarray:
+        """``feature_importance`` over the first ``n_models`` trees (the
+        model file's ``feature importances:`` block counts splits)."""
+        imp = np.zeros(self.max_feature_idx + 1, np.float64)
+        for t in self.models[:n_models]:
+            for i in range(t.num_leaves - 1):
+                imp[t.split_feature[i]] += (
+                    1.0 if importance_type == "split"
+                    else max(t.split_gain[i], 0.0))
+        return imp
+
+    @property
+    def current_iteration(self) -> int:
+        return len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    def num_model_per_iteration(self) -> int:
+        return self.num_tree_per_iteration
 
     def prepare_serving(self, warm_rows: int = 0) -> bool:
         """Build this model's serving path BEFORE it is published into a
@@ -449,15 +644,6 @@ class GBDT:
 
     # -- model text (gbdt_model_text.cpp:240-450) ---------------------------
 
-    def _split_counts(self, n_models: int) -> np.ndarray:
-        """Times each feature is split on in the first ``n_models``
-        trees (the model file's ``feature importances:`` block)."""
-        imp = np.zeros(self.max_feature_idx + 1, np.float64)
-        for t in self.models[:n_models]:
-            for i in range(t.num_leaves - 1):
-                imp[t.split_feature[i]] += 1.0
-        return imp
-
     def model_to_string(self, start_iteration: int = 0,
                         num_iteration: int = -1) -> str:
         lines = ["tree"]
@@ -495,7 +681,7 @@ class GBDT:
         # as the JAX package counts: whole iterations, or every tree
         # when fewer than one iteration is written
         k = max(self.num_tree_per_iteration, 1)
-        imp = self._split_counts(num_used // k * k or eff)
+        imp = self._importance(num_used // k * k or eff, "split")
         pairs = [(int(imp[i]), self.feature_names[i])
                  for i in range(len(imp)) if imp[i] > 0]
         pairs.sort(key=lambda p: -p[0])

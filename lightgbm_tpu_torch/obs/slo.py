@@ -26,10 +26,12 @@ Left out, and why:
   recorder until ROADMAP item 20, so exhaustion is latched and logged
   only.
 
-The port's predict path records no ``predict/latency_s`` yet (the JAX
-package's does), so a ``predict_pNN_ms`` spec has no events and stays
-compliant; the fleet's ``fleet/tenant_latency_s/<t>`` and the LRB
-loop's ``lrb/*`` instruments are recorded.
+Neither package's predict path records ``predict/latency_s``: in the
+repo only the JAX package's bench script (``bench.py``) writes that
+histogram, once a batch. So here, as there, a ``predict_pNN_ms`` spec
+has no events unless a bench feeds it, and stays compliant; the fleet's
+``fleet/tenant_latency_s/<t>`` and the LRB loop's ``lrb/*`` instruments
+are recorded.
 
 Spec grammar (``tpu_slo``; ``;``-separated, ops ``<``/``<=``/``>``/
 ``>=``)::

@@ -231,12 +231,18 @@ def hist_plan(n: int, num_features: int, num_slots: int,
     return HistPlan(fg, K, warps, groups, max(-(-n // per), 1), per, smem)
 
 
-def row_ranges(n: int, num_features: int, num_slots: int, num_bins: int):
+def row_ranges(n: int, num_features: int, num_slots: int, num_bins: int,
+               counted=None):
     """(ranges R, rows per range) of the f32 histogram pass, the one
     definition of its order of addition: R * rows >= n > (R - 1) * rows
-    (R = 1 when n = 0), rows a multiple of TILE_ROWS."""
-    p = hist_plan(n, num_features, num_slots, num_bins)
-    return p.ranges, p.rows_per_range
+    (R = 1 when n = 0), rows a multiple of TILE_ROWS. ``counted``: the
+    rows that can be counted, the first of the n when the others are
+    passengers (valid rows, never counted); the rows per range are
+    planned from them alone, so a counted row's range, and so the bits
+    of its sums, do not depend on the passengers behind it."""
+    per = hist_plan(n if counted is None else counted, num_features,
+                    num_slots, num_bins).rows_per_range
+    return max(-(-n // per), 1), per
 
 
 def int_smem_bytes(W: int, B: int, C: int, fg: int, classes: int,
@@ -416,10 +422,11 @@ def _int_launch_args(bins_t, g, h, n, F, W, B, C, packed4, dev) -> tuple:
 
 
 def launch_plan(n: int, F: int, W: int, B: int, packed4: bool,
-                dev: torch.device) -> dict:
+                dev: torch.device, counted=None) -> dict:
     """``hist_plan`` of an f32 launch on ``dev``, with its grid
-    (``utils.device.card_plan``)."""
-    p = hist_plan(n, F, W, B)
+    (``utils.device.card_plan``); its ranges are ``row_ranges``'."""
+    p = hist_plan(n if counted is None else counted, F, W, B)._replace(
+        ranges=row_ranges(n, F, W, B, counted)[0])
     return card_plan(p, p.groups * p.ranges, dev,
                      (_fn("hist_wave_smem_bytes"), W, B, p.fg, p.classes),
                      (_fn("hist_wave_resident_blocks"), int(packed4), W, B,
@@ -530,7 +537,7 @@ def scatter_in_ranges(bins_t, g, h, base, num_bins: int, num_slots: int,
 
 
 def _scatter(bins_t, g, h, base, num_bins, num_slots, count_proxy,
-             kernel_order=False):
+             kernel_order=False, counted=None):
     """The tier's scatter: int8 g/h give exact int32 sums (2 channels
     under count-proxy), f32 or f64 g/h their own dtype's sums, with
     ``kernel_order`` in the f32 kernel's order (``scatter_in_ranges``
@@ -541,7 +548,8 @@ def _scatter(bins_t, g, h, base, num_bins, num_slots, count_proxy,
     if kernel_order:
         F, n = bins_t.shape
         return scatter_in_ranges(bins_t, g, h, base, num_bins, num_slots,
-                                 row_ranges(n, F, num_slots, num_bins))
+                                 row_ranges(n, F, num_slots, num_bins,
+                                            counted))
     return _scatter_hist3(bins_t, g, h, base, num_bins, num_slots)
 
 
@@ -567,10 +575,12 @@ def _first_slot(memb):
 
 def wave_histogram_plain(bins_t, g, h, leaf_ids, wave_leaves, num_bins,
                          count_proxy=False, packed4=False,
-                         num_features=None, kernel_order=False):
+                         num_features=None, kernel_order=False,
+                         counted_rows=None):
     """``wave_histogram_xla`` (hist_wave.py:85) in PyTorch: raw sums in
     the tier of g's dtype (int8 -> int32); f32 sums with
-    ``kernel_order`` in the kernel's order of addition."""
+    ``kernel_order`` in the kernel's order of addition (``row_ranges``
+    of ``counted_rows``)."""
     if packed4:
         bins_t = unpack4(bins_t, num_features)
     F, n = bins_t.shape
@@ -580,13 +590,15 @@ def wave_histogram_plain(bins_t, g, h, leaf_ids, wave_leaves, num_bins,
           & (wave_leaves >= 0)[:, None])
     found, slot = _first_slot(eq)
     base = torch.where(found, slot * (F * B), W * F * B)
-    return _scatter(bins_t, g, h, base, B, W, count_proxy, kernel_order)
+    return _scatter(bins_t, g, h, base, B, W, count_proxy, kernel_order,
+                    counted_rows)
 
 
 def fused_partition_histogram_plain(bins_t, g, h, sample_mask, leaf_ids, tbl,
                                     num_bins, count_proxy=False,
                                     packed4=False, num_features=None,
-                                    any_cat=False, kernel_order=False):
+                                    any_cat=False, kernel_order=False,
+                                    counted_rows=None):
     """``fused_partition_histogram_xla`` (hist_wave.py:150) in PyTorch:
     returns (new leaf ids [N], hist [W, F, B, C]) with raw sums in the
     tier of g's dtype, and with ``count_proxy`` also cnt_r [W] f32, each
@@ -620,7 +632,8 @@ def fused_partition_histogram_plain(bins_t, g, h, sample_mask, leaf_ids, tbl,
             & (small_ids >= 0)[:, None] & in_bag[None, :])
     found, slot = _first_slot(memb)
     base = torch.where(found, slot * (F * B), W * F * B)
-    hist = _scatter(bins_t, g, h, base, B, W, count_proxy, kernel_order)
+    hist = _scatter(bins_t, g, h, base, B, W, count_proxy, kernel_order,
+                    counted_rows)
     if not count_proxy:
         return leaf_new, hist
     cnt_r = (moved & in_bag[None, :]).sum(dim=1).to(torch.float32)
@@ -715,18 +728,21 @@ def _finish(hist, gh_scale, precision):
 def wave_histogram(bins_t, g, h, leaf_ids, wave_leaves, num_bins: int, *,
                    precision: str = "f32", count_proxy: bool = False,
                    packed4: bool = False, num_features=None,
-                   gh_scale=None):
+                   gh_scale=None, counted_rows=None):
     """[W, F, B, C] histograms of the rows whose leaf id equals each wave
     leaf (-1 slots give zeros). g and h are pre-masked by bagging;
     out-of-bag rows carry leaf id -1. See the module docstring for the
-    tiers; int8 sums come back raw unless ``gh_scale`` is given."""
+    tiers; int8 sums come back raw unless ``gh_scale`` is given.
+    ``counted_rows``: only the first rows can be counted, the others are
+    passengers (``row_ranges``)."""
     n = bins_t.shape[1]
     _check_tier(n, num_bins, precision, count_proxy, packed4, num_features,
                 g)
     if bins_t.device.type == "cpu":
         return _finish(wave_histogram_plain(
             bins_t, g, h, leaf_ids, wave_leaves, num_bins, count_proxy,
-            packed4, num_features), gh_scale, precision)
+            packed4, num_features, counted_rows=counted_rows), gh_scale,
+            precision)
     if bins_t.device.type != "cuda":
         raise LightGBMError(f"no histogram kernel for {bins_t.device}")
     F = _logical_features(bins_t, packed4, num_features)
@@ -759,7 +775,7 @@ def wave_histogram(bins_t, g, h, leaf_ids, wave_leaves, num_bins: int, *,
                 slot.data_ptr(), part.data_ptr(), *parts, out.data_ptr(),
                 stream)
         else:
-            lp = launch_plan(n, F, W, num_bins, packed4, dev)
+            lp = launch_plan(n, F, W, num_bins, packed4, dev, counted_rows)
             part = torch.empty((lp["ranges"], F, W, num_bins, 3),
                                dtype=torch.float32, device=dev)
             err = _fn("wave_histogram_launch")(
@@ -778,14 +794,16 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                               num_bins: int, *, precision: str = "f32",
                               count_proxy: bool = False,
                               packed4: bool = False, num_features=None,
-                              gh_scale=None, any_cat: bool = False):
+                              gh_scale=None, any_cat: bool = False,
+                              counted_rows=None):
     """Apply one wave of splits and build its smaller-child histograms:
     (new leaf ids [N] int32, hist [W, F, B, C]), and with ``count_proxy``
     also cnt_r [W] f32, each slot's in-bag rows moved right. ``tbl`` is
     the packed [TBL_ROWS, W] int32 split table (TBL_* rows; inactive
     slots have parent -1 and safe feature 0); without ``any_cat`` its
     first TBL_ROWS_NUM rows suffice. g and h are pre-masked; out-of-bag
-    rows (sample_mask 0) move but are never counted."""
+    rows (sample_mask 0) move but are never counted; so do passengers,
+    the rows past ``counted_rows`` (``row_ranges``)."""
     n = bins_t.shape[1]
     _check_tier(n, num_bins, precision, count_proxy, packed4, num_features,
                 g)
@@ -796,7 +814,7 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
     if bins_t.device.type == "cpu":
         out = fused_partition_histogram_plain(
             bins_t, g, h, sample_mask, leaf_ids, tbl, num_bins, count_proxy,
-            packed4, num_features, any_cat)
+            packed4, num_features, any_cat, counted_rows=counted_rows)
         return (out[0], _finish(out[1], gh_scale, precision)) + out[2:]
     if bins_t.device.type != "cuda":
         raise LightGBMError(f"no histogram kernel for {bins_t.device}")
@@ -837,7 +855,8 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                     slot.data_ptr(), cnt.data_ptr() if count_proxy else None,
                     part.data_ptr(), *parts, out.data_ptr(), stream)
             else:
-                lp = launch_plan(n, F, W, num_bins, packed4, dev)
+                lp = launch_plan(n, F, W, num_bins, packed4, dev,
+                                 counted_rows)
                 part = torch.empty((lp["ranges"], F, W, num_bins, 3),
                                    dtype=torch.float32, device=dev)
                 err = _fn("fused_partition_histogram_launch")(

@@ -120,11 +120,18 @@ class WaveGrower:
 
     def grow(self, bins_t: torch.Tensor, grad: torch.Tensor,
              hess: torch.Tensor, sample_mask: torch.Tensor,
-             feature_mask: torch.Tensor):
+             feature_mask: torch.Tensor, counted_rows=None):
         """One tree. bins_t [F, N] (packed4: [ceil(F/2), N]); grad, hess,
         sample_mask [N] f32 (mask 0/1 from bagging); feature_mask [F]
         bool. Returns (TreeRecord, leaf ids [N] int32 of every row,
-        out-of-bag rows included, for the score update)."""
+        out-of-bag rows included, for the score update).
+
+        ``counted_rows``: the training rows, the first of the N; the
+        columns past them are passengers (the valid sets' rows, the JAX
+        package's gbdt.py:1165), whose grad, hess and sample_mask are 0:
+        every split moves them and nothing counts them, and the f32
+        passes keep the training rows' order of addition
+        (``hist_wave.row_ranges``)."""
         cfg, meta, L, W = self.cfg, self.meta, self.L, self.W
         hp = cfg.hp
         B = cfg.num_bins
@@ -139,7 +146,8 @@ class WaveGrower:
         in_bag = sample_mask > 0
         proxy = cfg.count_proxy
         tier = dict(precision=cfg.precision, count_proxy=proxy,
-                    packed4=cfg.packed4, num_features=F)
+                    packed4=cfg.packed4, num_features=F,
+                    counted_rows=counted_rows)
         if cfg.precision == "int8":
             q = quantize(grad, hess)
             hg, hh, scale = q.gq, q.hq, (q.sg, q.sh)

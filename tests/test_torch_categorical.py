@@ -611,7 +611,9 @@ def test_pandas_category_columns_are_categorical():
     jb = lgb.train(params, lgb.Dataset(df, label=y), num_boost_round=5)
     tb = lgt.train(params, lgt.Dataset(df, label=y), num_boost_round=5,
                    device="cpu")
-    inner = tb.train_set._inner
+    # train() lets go of the Dataset (keep_training_booster=False); the
+    # model keeps the binned set it trained on
+    inner = tb._gbdt.train_data
     assert inner.mappers[0].bin_type == 1
     assert inner.feature_names == ["c", "x"]
     _check_models(jb.model_to_string(), tb.model_to_string(), X, y)

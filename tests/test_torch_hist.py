@@ -651,3 +651,114 @@ def test_leaf_gather_kernel_unaligned_row_views(cuda, extra):
             assert torch.equal(m[row, n:], mat[row, n:])
             others = [k for k in range(3) if k != row]
             assert torch.equal(m[others], mat[others])
+
+
+def _with_passengers(case, nv, seed):
+    """``_f32_case``'s inputs with ``nv`` passenger columns appended, as
+    a valid set rides the grower's bin matrix: random bins, g = h = 0,
+    sample mask 0, leaf id -1 for K2 and a wave leaf's id for K1 (every
+    split moves them; nothing counts them). Returns (train inputs,
+    combined inputs), each as ``_f32_case`` gives them."""
+    bt, g, h, mask, leaf, lb, wl, tbl, B, kw = _f32_case(case)
+    r = np.random.default_rng(seed)
+    F = kw.get("num_features", bt.shape[0])
+    pb = torch.from_numpy(r.integers(0, B, (F, nv)).astype(np.uint8))
+    if kw.get("packed4"):
+        pb = hw.pack4(pb)
+    live = tbl[hw.TBL_PARENT][tbl[hw.TBL_PARENT] >= 0].numpy()
+    pleaf = torch.from_numpy(r.choice(live, nv).astype(np.int32))
+    zero = torch.zeros(nv, dtype=torch.float32)
+    both = (torch.cat([bt, pb], 1), torch.cat([g, zero]),
+            torch.cat([h, zero]), torch.cat([mask, zero]),
+            torch.cat([leaf, pleaf]),
+            torch.cat([lb, torch.full((nv,), -1, dtype=torch.int32)]),
+            wl, tbl, B, kw)
+    return (bt, g, h, mask, leaf, lb, wl, tbl, B, kw), both
+
+
+def test_row_ranges_of_counted_rows():
+    """With passengers behind the n counted rows, the ranges keep the
+    rows per range of the n rows alone and cover the combined width."""
+    for n, nv, F, W, B in ((1_000_000, 65_536, 53, 30, 256),
+                           (11_000_000, 500_000, 28, 24, 64),
+                           (5_000, 3_000, 6, 8, 64)):
+        R, per = hw.row_ranges(n, F, W, B)
+        Rc, perc = hw.row_ranges(n + nv, F, W, B, counted=n)
+        assert perc == per and Rc * per >= n + nv > (Rc - 1) * per
+        assert Rc >= R
+
+
+@pytest.mark.parametrize("case", ["w1", "skewed", "categorical"])
+def test_plain_in_ranges_unmoved_by_passengers(case):
+    """On the CPU: the plain versions in the kernels' order of addition
+    give the training rows' sums bit for bit with 20,000 passenger
+    columns behind them (``counted_rows``) as without them, and K1 moves
+    the passengers as it moves any row."""
+    tr, both = _with_passengers(case, 20_000, 4)
+    bt, g, h, mask, leaf, lb, wl, tbl, B, kw = tr
+    cb, cg, ch, cm, cl, clb = both[:6]
+    kw2 = {k: v for k, v in kw.items() if k != "any_cat"}
+    n = bt.shape[1]
+    alone = hw.wave_histogram_plain(bt, g, h, lb, wl, B, kernel_order=True,
+                                    **kw2)
+    ride = hw.wave_histogram_plain(cb, cg, ch, clb, wl, B, kernel_order=True,
+                                   counted_rows=n, **kw2)
+    assert torch.equal(alone, ride)
+    la, ha = hw.fused_partition_histogram_plain(
+        bt, g, h, mask, leaf, tbl, B, kernel_order=True, **kw)
+    lr, hr = hw.fused_partition_histogram_plain(
+        cb, cg, ch, cm, cl, tbl, B, kernel_order=True, counted_rows=n, **kw)
+    assert torch.equal(ha, hr) and torch.equal(la, lr[:n])
+    assert bool((lr[n:] != cl[n:]).any())
+
+
+@pytest.mark.parametrize("case", ["w1", "w64_b256", "categorical", "packed"])
+def test_f32_kernels_with_passenger_columns(cuda, case):
+    """K2 and K1 on the f32 tier with 65,536 passenger columns behind the
+    training rows (a valid set): bit for bit against their plain
+    versions run on the CPU in the kernels' order of the counted rows'
+    ranges (every channel, K1's leaf ids), two launches bit-identical,
+    and the training rows' sums and leaf ids bit-equal to the launches
+    without the passengers."""
+    tr, both = _with_passengers(case, 65_536, 5)
+    bt, g, h, mask, leaf, lb, wl, tbl, B, kw = [
+        a.to(cuda) if torch.is_tensor(a) else a for a in tr]
+    cb, cg, ch, cm, cl, clb = [a.to(cuda) for a in both[:6]]
+    n = bt.shape[1]
+    kw2 = {k: v for k, v in kw.items() if k != "any_cat"}
+    k2 = [hw.wave_histogram(cb, cg, ch, clb, wl, B, counted_rows=n, **kw2)
+          for _ in "ab"]
+    want = hw.plain_in_kernel_order(hw.wave_histogram_plain, cb, cg, ch,
+                                    clb, wl, B, counted_rows=n, **kw2)
+    alone = hw.wave_histogram(bt, g, h, lb, wl, B, **kw2)
+    assert torch.equal(k2[0], k2[1]) and torch.equal(k2[0], want)
+    assert torch.equal(k2[0], alone)
+    k1 = [hw.fused_partition_histogram(cb, cg, ch, cm, cl, tbl, B,
+                                       counted_rows=n, **kw)
+          for _ in "ab"]
+    want = hw.plain_in_kernel_order(hw.fused_partition_histogram_plain, cb,
+                                    cg, ch, cm, cl, tbl, B, counted_rows=n,
+                                    **kw)
+    for a, b, c in zip(k1[0], k1[1], want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    la, ha = hw.fused_partition_histogram(bt, g, h, mask, leaf, tbl, B, **kw)
+    assert torch.equal(k1[0][1], ha) and torch.equal(k1[0][0][:n], la)
+
+
+def test_leaf_gather_kernel_on_slices_of_leaf_ids(cuda):
+    """K3 with leaf ids that are slices of one [N + Nv] vector, as the
+    train update (``leaf_ids[:n]``) and a valid set's
+    (``leaf_ids[n:n + nv]``, a view with a storage offset) read them:
+    bit for bit against the plain version."""
+    r = np.random.default_rng(11)
+    n, nv, L = 1_000_003, 65_537, 31
+    leaf = torch.from_numpy(r.integers(0, L, n + nv).astype(np.int32)
+                            ).to(cuda)
+    table = torch.from_numpy(r.normal(size=L).astype(np.float32)).to(cuda)
+    for rows in (slice(0, n), slice(n, n + nv), slice(7, n + 3)):
+        scores = torch.from_numpy(r.normal(size=rows.stop - rows.start)
+                                  .astype(np.float32)).to(cuda)
+        got = pr.add_leaf_outputs(scores.clone(), leaf[rows], table, 0.1)
+        want = pr.add_leaf_outputs_plain(scores.clone(), leaf[rows], table,
+                                         0.1)
+        assert torch.equal(got, want)
