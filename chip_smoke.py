@@ -173,9 +173,34 @@ the entry points a user calls:
    records the iterations it sees: stopped before round 50, five
    iterations after the best, the callback called once an iteration. For
    (a) and (b) an iteration's host-clock ms with and without the valid
-   set, in turns on this card, and the card's busy share.
+   set, in turns on this card, and the card's busy share;
+22. every objective family, after phases 15-18, in at most 150 s: (a)
+   multiclass at UCI Covertype's shape (``make_covertype_like``:
+   464,809 train rows x 54 columns, 10 numerical, 4 + 40 one-hot; 7
+   classes; the 116,203-row holdout as a valid set with multi_logloss
+   and multi_error), 255 leaves, max_bin 255, 10 iterations (70 trees)
+   through ``train``: ms an iteration, the card's busy share, K1/K2/K3
+   launches an iteration (K3 7 + 7), K3 on class row 3 of the train
+   scores bit-equal to its plain version, K4's [N, 7] holdout scores and
+   leaf indices bit-equal to plain (``check_forest``), each row's class
+   probabilities summing to 1 within 1e-6; (b) ``regression`` and
+   ``regression_l1`` at YearPredictionMSD's shape and published split
+   (``make_year_like``: 463,715 / 51,630 rows x 90), 10 iterations of
+   255 leaves with l2 / l1 on the test rows: L2 at the hilo3 wave width
+   W=40, the renewal's ms a tree (CUDA events), renewed outputs that
+   differ from the grower's, the renewal bit-equal to its CPU run on the
+   same leaf ids and residuals; (c) ``lambdarank`` at MSLR-WEB10K Fold
+   1's shape (``make_mslr_like``: 723,412 rows x 136 in 6,000 queries,
+   relevance 0-4, a tail to 908 rows a query), 10 iterations of 255
+   leaves, NDCG@1,3,5,10 on a 1,000-query holdout within 1e-9 of the
+   host's float64 NDCG (``ndcg_np``), the gradient step's ms and its
+   chunks; (d) card against CPU (``card_and_cpu``, ``judge_trees``) at
+   20,000 rows, 31 leaves, 5 iterations for multiclass, multiclassova,
+   regression, regression_l1, huber, poisson, lambdarank (200 queries)
+   and a custom ``fobj`` with L2's gradients, whose model text equals
+   the regression model's. Each part's wall is printed.
 
-Phases 6-7, 10-12, 15-16, 19, 20 and 21 check that the main path launched
+Phases 6-7, 10-12, 15-16 and 19-22 check that the main path launched
 each kernel (and each histogram variant) of its tier. Prints a JSON line
 of the kernels, then the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero without that
@@ -291,6 +316,28 @@ INT8_MS_BEFORE = {("K1", "proxy"): 1.372, ("K1", "proxy_packed4"): 1.324,
                   ("K2", "proxy_packed4"): 1.240, ("K2", "int8"): 0.294,
                   ("K1", "int8_cat"): 0.890}
 
+# phase 22: every objective, at the published widths of public sets
+COVERTYPE_ROWS = 581_012        # UCI Covertype: 54 columns, 7 classes
+COVERTYPE_TRAIN = 464_809       # the train/holdout split of 464,809 and
+COVERTYPE_CLASSES = 7           # 116,203 rows
+YEAR_ROWS = 515_345             # UCI YearPredictionMSD: 90 columns, the
+YEAR_TRAIN = 463_715            # published split of 463,715 / 51,630
+YEAR_FEATURES = 90
+MSLR_ROWS = 723_412             # MSLR-WEB10K Fold 1 train: 136 columns,
+MSLR_QUERIES = 6_000            # 6,000 queries, relevance 0-4
+MSLR_FEATURES = 136
+MSLR_HOLDOUT_QUERIES = 1_000
+MSLR_MAX_QUERY = 908            # the longest query of the generator
+OBJ_PARAMS = {"num_leaves": 255, "max_bin": 255, "verbose": -1}
+OBJ_ITERS = 10
+OBJ_CPU_ROWS = 20_000           # (d): card against CPU
+OBJ_CPU_LEAVES = 31
+OBJ_CPU_ITERS = 5
+OBJ_CPU_QUERIES = 200
+OBJ_METRIC_TOL = 1e-3           # card vs CPU train metric, relative
+NDCG_TOL = 1e-9
+PHASE22_BUDGET_S = 150.0
+
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 7):
     """Synthetic HIGGS-shaped task (bench.py): 28 continuous features,
@@ -364,6 +411,117 @@ def airline_labels(X: np.ndarray, seed: int) -> np.ndarray:
              + 0.0009 * (X[:, 3] - 1400.0) - 1.0)
     noise = np.random.default_rng(seed).logistic(size=X.shape[0])
     return (logit + noise > 0).astype(np.float32)
+
+
+def make_covertype_like(n_rows: int, seed: int):
+    """Rows in the column layout of UCI Covertype: 10 numerical columns
+    in their published ranges (elevation, aspect, slope, four
+    distances, three hillshades), then 4 wilderness-area and 40
+    soil-type one-hot columns; labels 0..6 from a seeded rule with
+    learnable signal (elevation bands shifted by the area, a soil term
+    and noise)."""
+    rng = np.random.default_rng(seed)
+    n = n_rows
+    X = np.zeros((n, 54), np.float64)
+    X[:, 0] = rng.normal(2960, 280, n).clip(1859, 3858)         # elevation
+    X[:, 1] = rng.uniform(0, 360, n)                            # aspect
+    X[:, 2] = rng.gamma(3.0, 4.7, n).clip(0, 66)                # slope
+    X[:, 3] = rng.exponential(270, n).clip(0, 1397)
+    X[:, 4] = rng.normal(46, 58, n).clip(-173, 601)
+    X[:, 5] = rng.exponential(2350, n).clip(0, 7117)
+    for j in (6, 7, 8):                                         # hillshade
+        X[:, j] = rng.normal(212 - 40 * (j - 7) ** 2, 27, n).clip(0, 254)
+    X[:, 9] = rng.exponential(1980, n).clip(0, 7173)
+    area = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = rng.integers(0, 40, n)
+    X[np.arange(n), 10 + area] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    z = (X[:, 0] - 2960) / 280 + 0.6 * area - 0.5 * np.sin(soil * 0.7)
+    z = z + 0.3 * (X[:, 5] - 2350) / 1600 - 0.2 * X[:, 2] / 14
+    z = z + rng.normal(0, 0.35, n)
+    y = np.digitize(z, [-1.6, -0.7, 0.0, 0.6, 1.2, 1.9]).astype(np.float64)
+    return X, y
+
+
+def make_year_like(n_rows: int, seed: int):
+    """Rows in the column layout of UCI YearPredictionMSD: 12 timbre
+    averages and 78 timbre covariances (90 real columns of their wide
+    scales); the year, 1922-2011 and most of it after 1990, from a
+    seeded rule with learnable signal and noise."""
+    rng = np.random.default_rng(seed)
+    n = n_rows
+    X = np.empty((n, YEAR_FEATURES), np.float64)
+    X[:, :12] = rng.normal(0, 1, (n, 12)) * np.linspace(60, 8, 12)
+    X[:, 12:] = rng.standard_t(5, (n, 78)) * np.linspace(3000, 20, 78)
+    z = (0.5 * X[:, 0] / 60 - 0.3 * X[:, 1] / 55 + 0.2 * np.tanh(
+        X[:, 12] / 3000) + 0.2 * X[:, 5] * X[:, 6] / 1200
+         + rng.normal(0, 0.5, n))
+    y = np.clip(np.round(1998 + 7 * z), 1922, 2011)
+    return X, y
+
+
+def mslr_query_lengths(n_queries: int, n_rows: int, seed: int):
+    """Query lengths of the MSLR-WEB10K shape: a mean of n_rows /
+    n_queries (about 120), a long tail to ``MSLR_MAX_QUERY``, and exactly
+    ``n_rows`` rows in all."""
+    rng = np.random.default_rng(seed)
+    c = rng.lognormal(np.log(90.0), 0.75, n_queries)
+    c = np.clip(np.round(c * n_rows / c.sum()), 1, MSLR_MAX_QUERY)
+    c = c.astype(np.int64)
+    c[np.argmax(c)] = MSLR_MAX_QUERY
+    while c.sum() != n_rows:
+        d = n_rows - int(c.sum())
+        idx = rng.choice(n_queries, min(abs(d), n_queries), replace=False)
+        step = 1 if d > 0 else -1
+        ok = (c[idx] + step >= 1) & (c[idx] + step < MSLR_MAX_QUERY)
+        c[idx[ok]] += step
+    return c
+
+
+def make_mslr_like(n_queries: int, n_rows: int, seed: int):
+    """(X [N, 136], relevance 0-4, query lengths) in the shape of
+    MSLR-WEB10K: 136 non-negative feature columns (counts and scores of
+    their usual scales), relevance from a seeded latent score with a
+    per-query offset, in the set's proportions (about 52%, 32%, 13%, 2%,
+    1% for 0..4)."""
+    rng = np.random.default_rng(seed)
+    counts = mslr_query_lengths(n_queries, n_rows, seed + 1)
+    n = int(counts.sum())
+    X = np.abs(rng.normal(0, 1, (n, MSLR_FEATURES)))
+    X[:, :40] = np.floor(X[:, :40] * 6)                          # counts
+    X[:, 40:100] *= np.linspace(1, 200, 60)                      # scores
+    q_off = np.repeat(rng.normal(0, 0.5, n_queries), counts)
+    latent = (X[:, 0] / 6 + 0.6 * X[:, 41] / 2 - 0.3 * X[:, 100]
+              + 0.4 * np.sqrt(X[:, 5] * X[:, 7]) / 3 + q_off
+              + rng.normal(0, 0.6, n))
+    cut = np.quantile(latent, [0.52, 0.84, 0.97, 0.99])
+    y = np.digitize(latent, cut).astype(np.float64)
+    return X, y, counts
+
+
+def ndcg_np(scores: np.ndarray, labels: np.ndarray, counts, ks,
+            label_gain=None) -> list:
+    """NDCG at each of ``ks``, averaged over the queries, in float64 on
+    the host (rank_metric.hpp; the JAX package's NDCGMetric.eval): each
+    query ranked by a stable descending sort of its scores; a query
+    without relevant rows counts 1."""
+    gain = (np.asarray(label_gain, np.float64) if label_gain is not None
+            else 2.0 ** np.arange(31) - 1.0)
+    out = {k: [] for k in ks}
+    lo = 0
+    for c in counts:
+        hi = lo + int(c)
+        g = gain[labels[lo:hi].astype(np.int64)]
+        order = np.argsort(-scores[lo:hi], kind="mergesort")
+        ideal = np.sort(g)[::-1]
+        disc = 1.0 / np.log2(np.arange(hi - lo) + 2.0)
+        for k in ks:
+            kk = min(k, hi - lo)
+            dcg = np.sum(g[order[:kk]] * disc[:kk])
+            best = np.sum(ideal[:kk] * disc[:kk])
+            out[k].append(1.0 if best <= 0 else dcg / best)
+        lo = hi
+    return [float(np.mean(out[k])) for k in ks]
 
 
 def host_raw(gbdt, X: np.ndarray) -> np.ndarray:
@@ -443,7 +601,7 @@ def leaf_depths(gbdt, n_leaves: int) -> np.ndarray:
     return out
 
 
-def measure_kernel(gbdt, codes, dev) -> dict:
+def measure_kernel(gbdt, codes, dev, alternatives: bool = True) -> dict:
     """The forest kernel's time on ``codes`` (one [F, n] row chunk on the
     card, as predict cuts them): ``ms`` by calls back to back
     (``cuda_ms``, as for every kernel since the first slice) and
@@ -455,7 +613,8 @@ def measure_kernel(gbdt, codes, dev) -> dict:
     the leaves it reaches, plus one f32 add per row-tree) over the f32
     rate. ``bound_ms_jax_layout`` counts the JAX layout's per-node tables
     (and every feature's codes) instead of the compact ones, as the
-    bound of the first slices did."""
+    bound of the first slices did. ``alternatives``: also time the other
+    launches the code keeps (``plan_readings``)."""
     import torch
     from lightgbm_tpu_torch.ops import forest as forest_ops
     fc = gbdt._stacked_model().forest
@@ -505,7 +664,8 @@ def measure_kernel(gbdt, codes, dev) -> dict:
     host = host_us(lambda: forest_ops.forest_predict(codes, fc, 0, T), 50)
     return {"rows": n, "ms": ms, "queued_ms": queued,
             "plain_ms": plain_ms, "host_us": host,
-            "alternatives": plan_readings(gbdt, codes, dev),
+            "alternatives": (plan_readings(gbdt, codes, dev)
+                             if alternatives else {}),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_ms_jax_layout": max(jax_bytes_ms, ops_ms),
@@ -597,14 +757,15 @@ def kernel_line(label: str, r: dict, T: int) -> str:
 
 
 def check_forest(label: str, bst, X: np.ndarray, prob: np.ndarray,
-                 dev) -> dict:
+                 dev, convert=None, alternatives: bool = True) -> dict:
     """Every row of ``bst.predict(X)``'s forest launches (``prob``, the
     main path's output) against the plain version on the same codes, cut
     into chunks as predict cuts them (device binning where the model has
     it, else the host's): scores and leaf indices bit for bit, and the
-    main path's probabilities from the plain scores. Returns the
-    kernel's reading at the first chunk (``measure_kernel``) with
-    ``max_abs_err``."""
+    main path's probabilities from the plain scores (``convert`` of the
+    [N, K] float64 raw scores; None: the binary sigmoid of column 0).
+    Returns the kernel's reading at the first chunk (``measure_kernel``,
+    with or without ``alternatives``) with ``max_abs_err``."""
     import torch
     from lightgbm_tpu_torch.ops import forest as forest_ops
     from lightgbm_tpu_torch.ops import stacked_predict as sp
@@ -633,9 +794,11 @@ def check_forest(label: str, bst, X: np.ndarray, prob: np.ndarray,
     del fcd
     k_raw, p_raw = torch.cat(k_raw), torch.cat(p_raw)
     assert torch.equal(k_raw, p_raw), f"{label}: kernel != plain scores"
-    want = 1.0 / (1.0 + np.exp(-p_raw.numpy()[:, 0].astype(np.float64)))
+    raw = p_raw.numpy().astype(np.float64)
+    want = (1.0 / (1.0 + np.exp(-raw[:, 0])) if convert is None
+            else convert(raw))
     assert np.array_equal(prob, want), f"{label}: main path != plain"
-    r = measure_kernel(bst._gbdt, first, dev)
+    r = measure_kernel(bst._gbdt, first, dev, alternatives)
     r["max_abs_err"] = float((k_raw - p_raw).abs().max())
     print(f"{label} check: kernel == plain on all {X.shape[0]} rows, "
           f"scores and leaf indices (the main path's probabilities too)")
@@ -1028,11 +1191,12 @@ def explain_difference(runs: dict, t: int, i: int,
             "gain_tie": gap <= rounding, "hessian_boundary": boundary}
 
 
-def card_and_cpu(params: dict, X, y, iters: int, **ds_kw) -> dict:
-    """``iters`` ``Booster.update`` calls from the same rows on the card
-    and with ``device="cpu"``: {"cuda" | "cpu": (booster, train metrics,
-    seconds, each tree's grower inputs on the CPU)}; the inputs let
-    ``explain_difference`` attribute a first difference."""
+def card_and_cpu(params: dict, X, y, iters: int, fobj=None,
+                 **ds_kw) -> dict:
+    """``iters`` ``Booster.update(fobj=fobj)`` calls from the same rows on
+    the card and with ``device="cpu"``: {"cuda" | "cpu": (booster, train
+    metrics, seconds, each tree's grower inputs on the CPU)}; the inputs
+    let ``explain_difference`` attribute a first difference."""
     import lightgbm_tpu_torch as lgt
     runs = {}
     for where in ("cuda", "cpu"):
@@ -1047,23 +1211,26 @@ def card_and_cpu(params: dict, X, y, iters: int, **ds_kw) -> dict:
             return _grow(*args, **kw)
         grower.grow = grow
         for _ in range(iters):
-            b.update()
+            b.update(fobj=fobj)
         b.model_to_string()
         runs[where] = (b, dict((m, v) for _, m, v, _ in b.eval_train()),
                        time.perf_counter() - t0, inputs)
     return runs
 
 
-def judge_trees(runs: dict, quantized: bool = False) -> tuple:
+def judge_trees(runs: dict, quantized: bool = False, metric: str = "auc",
+                tol: float = 0.0) -> tuple:
     """The card's trees against the CPU's: equal, or equal up to a first
-    difference that ``explain_difference`` finds a near tie; train AUC
-    within AUC_TOL. Returns (tree_diff's result, a line saying where the
-    trees part)."""
+    difference that ``explain_difference`` finds a near tie; the train
+    AUC within AUC_TOL, or another train ``metric`` within ``tol``
+    relative. Returns (tree_diff's result, a line saying where the trees
+    part)."""
     gm, cm = runs["cuda"][0]._gbdt.models, runs["cpu"][0]._gbdt.models
     assert len(gm) == len(cm), (len(gm), len(cm))
     diff = tree_diff(gm, cm)
-    d_auc = abs(runs["cuda"][1]["auc"] - runs["cpu"][1]["auc"])
-    assert d_auc <= AUC_TOL, f"card vs CPU auc differs by {d_auc}"
+    a, b = runs["cuda"][1][metric], runs["cpu"][1][metric]
+    bar = AUC_TOL if metric == "auc" else tol * max(abs(b), 1e-12)
+    assert abs(a - b) <= bar, f"card vs CPU {metric}: {a} against {b}"
     if diff is None:
         where = f"all {len(gm)} trees equal in structure and counts"
         if (runs["cuda"][0].model_to_string()
@@ -2864,6 +3031,10 @@ def valid_phases(dev, smi: str, earlier: dict, phase8: dict) -> dict:
             max_abs_err_f64=st["max_abs_err_f64"],
             phase8_ms=phase8[kid]["ms"], phase8_shape=phase8[kid]["shape"],
             launches=counts[f"{kid}/f32"],
+            # K2's yardstick: one index_add_ of the same rows (none for
+            # K1, which no PyTorch call computes)
+            library_ms=(lib_index_add(args, dev, kw) if kid == "K2"
+                        else None),
             **pass_report("lrb valid", kid, kern, args, kw, cnt),
             **(bound(F * n + 12 * n + 4 * W + 12 * W * F * B, 3 * F * cnt)
                if kid == "K2" else
@@ -2882,9 +3053,12 @@ def valid_phases(dev, smi: str, earlier: dict, phase8: dict) -> dict:
     for kid, k in kernels.items():
         print(f"lrb {kid} with passengers at [{k['shape']}]: {k['ms']:.3f} "
               f"ms (phase 8 without them {k['phase8_ms']:.3f} ms at "
-              f"[{k['phase8_shape']}]), plain {k['plain_ms']:.3f} ms, bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']}); bit-equal to the "
-              f"plain version in the kernels' order (sums, counts"
+              f"[{k['phase8_shape']}]), plain {k['plain_ms']:.3f} ms, "
+              + (f"index_add_ {k['library_ms']:.3f} ms, "
+                 if k["library_ms"] is not None else "")
+              + f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}); "
+              f"bit-equal to the plain version in the kernels' order "
+              f"(sums, counts"
               f"{', leaf ids' if kid == 'K1' else ''}), two launches "
               f"bit-identical")
     # an iteration with and without the valid set, in turns: phase 6's
@@ -2951,6 +3125,312 @@ def valid_phases(dev, smi: str, earlier: dict, phase8: dict) -> dict:
     out["early_stop"] = {"best_iteration": bi, "trees": nt, "s": stop_s}
     del b
     print(f"valid set phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+class _RowCapture:
+    """Wraps the boosting loop's K3 calls (``models/gbdt.add_leaf_outputs``)
+    and keeps clones of the arguments of call number ``index``."""
+
+    def __init__(self, fn, index: int):
+        self.fn, self.index, self.calls, self.args = fn, index, 0, None
+
+    def __call__(self, *args, **kw):
+        if self.calls == self.index:
+            self.args = _clone(args)
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+class _RenewProbe:
+    """Wraps ``models/gbdt.renew_leaf_outputs``: each call timed between
+    CUDA events, the first call's inputs and output kept, and whether any
+    call changed a leaf output."""
+
+    def __init__(self, fn):
+        self.fn, self.ms, self.first, self.changed = fn, [], None, 0
+
+    def __call__(self, *args, **kw):
+        import torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.fn(*args, **kw)
+        b.record()
+        b.synchronize()
+        self.ms.append(a.elapsed_time(b))
+        cur = args[5]
+        self.changed += int(not torch.equal(out, cur))
+        if self.first is None:
+            self.first = (_clone(args), dict(kw), out.clone())
+        return out
+
+
+def _train_timed(params, ds, iters, **kw):
+    """lgt.train on the card with the launch counts reset before it and
+    read after it: (booster, seconds, counts)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    reset_counts()
+    t0 = time.perf_counter()
+    bst = lgt.train(params, ds, num_boost_round=iters, verbose_eval=False,
+                    keep_training_booster=True, **kw)
+    torch.cuda.synchronize()
+    return bst, time.perf_counter() - t0, read_counts()
+
+
+def _l2_fobj(preds, data):
+    """A custom objective: L2's gradients from float64 raw scores."""
+    return preds - data.get_label(), np.ones_like(preds)
+
+
+def objective_phases(dev, smi: str) -> dict:
+    """Phase 22 of the module docstring: every objective family on the
+    card at the published widths of public sets, and card against CPU at
+    small sizes. Returns the readings the kernels line keeps."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.objectives.objective import \
+        LAMBDARANK_CHUNK_BYTES
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import renew as renew_mod
+    from lightgbm_tpu_torch.ops import stacked_predict as sp
+    t_phase = time.perf_counter()
+    out = {}
+    walls = {}
+
+    # (a) multiclass: Covertype's shape, the holdout as a valid set
+    t0 = time.perf_counter()
+    X, y = make_covertype_like(COVERTYPE_ROWS, seed=61)
+    Xt, yt = X[COVERTYPE_TRAIN:], y[COVERTYPE_TRAIN:]
+    X, y = X[:COVERTYPE_TRAIN], y[:COVERTYPE_TRAIN]
+    K = COVERTYPE_CLASSES
+    params = {**OBJ_PARAMS, "objective": "multiclass", "num_class": K,
+              "metric": "multi_logloss,multi_error"}
+    ds = lgt.Dataset(X, label=y, params=params).construct()
+    dv = ds.create_valid(Xt, label=yt).construct()
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    res = {}
+    # K3 on class row 3 of the train scores in iteration 2 (each class
+    # updates the train rows, then the holdout's)
+    cap = _RowCapture(gbdt_mod.add_leaf_outputs, 2 * K * 1 + 2 * 3)
+    gbdt_mod.add_leaf_outputs = cap
+    try:
+        bst, train_s, counts = _train_timed(
+            params, ds, OBJ_ITERS, valid_sets=[dv], valid_names=["holdout"],
+            evals_result=res)
+    finally:
+        gbdt_mod.add_leaf_outputs = cap.fn
+    g = bst._gbdt
+    iters = bst.current_iteration()
+    assert iters == OBJ_ITERS and len(g.models) == K * OBJ_ITERS
+    assert counts["K3"] == 2 * K * OBJ_ITERS, counts
+    assert cap.args is not None and cap.args[0].shape[0] == COVERTYPE_TRAIN
+    k3 = check_leaf_gather(cap.args)
+    forest_ops.launches.reset()
+    sp.fallbacks.reset()
+    prob = bst.predict(Xt)
+    torch.cuda.synchronize()
+    k4_launches = forest_ops.launches.value
+    assert k4_launches > 0 and sp.fallbacks.value == 0
+    assert prob.shape == (len(yt), K) and np.isfinite(prob).all()
+    row_sum = float(np.abs(prob.sum(axis=1) - 1.0).max())
+    assert row_sum <= 1e-6, f"covertype: class probabilities sum {row_sum}"
+
+    def softmax_rows(raw):
+        return g.objective.convert_output(
+            torch.from_numpy(np.ascontiguousarray(raw.T))).numpy().T
+    k4 = check_forest("covertype", bst, Xt, prob, dev, convert=softmax_rows,
+                      alternatives=False)
+    acc = float((prob.argmax(axis=1) == yt).mean())
+    rec = {k: res["holdout"][k][-1] for k in ("multi_logloss",
+                                              "multi_error")}
+    assert abs(rec["multi_error"] - (1.0 - acc)) <= 1e-6, (rec, acc)
+    checks_s = time.perf_counter() - t0 - prep_s - train_s
+    wall, busy = device_busy(bst.update, 1)       # an 11th iteration
+    cfg = g._grower_cfg
+    ms = 1e3 * train_s / iters
+    print(f"covertype multiclass ({smi}): {COVERTYPE_TRAIN} x 54 train rows "
+          f"+ the {len(yt)}-row holdout as passengers, {K} classes, "
+          f"{iters} iterations of {K} trees of {OBJ_PARAMS['num_leaves']} "
+          f"leaves, W={cfg.wave_size}, B={cfg.num_bins}: {ms:.1f} ms an "
+          f"iteration ({ms / K:.1f} a tree); profile of 1 iteration: wall "
+          f"{wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); per iteration K1 "
+          f"{counts['K1'] / iters:.1f}, K2 {counts['K2'] / iters:.1f}, K3 "
+          f"{counts['K3'] / iters:.1f} ({K} train + {K} holdout) launches; "
+          f"holdout multi_logloss {rec['multi_logloss']:.5f}, multi_error "
+          f"{rec['multi_error']:.5f} (accuracy {acc:.5f} from K4's "
+          f"probabilities, whose rows sum to 1 within {row_sum:.2g}); "
+          f"walls: data and binning {prep_s:.1f} s, training "
+          f"{train_s:.1f} s, K3/K4 checks {checks_s:.1f} s")
+    print(f"covertype K3 on class row 3 [{k3['shape']}]: bit-equal to its "
+          f"plain version; {k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} "
+          f"ms, index_select {k3['library_ms']:.4f} ms, bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+    out["covertype"] = {
+        "ms_per_iteration": ms, "busy": busy / wall,
+        "launches_per_iteration": {k: counts[k] / iters
+                                   for k in ("K1", "K2", "K3")},
+        "k3_row3": k3, "k4": k4, "k4_launches": k4_launches,
+        "holdout": rec}
+    del X, y, Xt, yt, ds, dv, bst, g
+    walls["a"] = time.perf_counter() - t0
+
+    # (b) regression: YearPredictionMSD's shape and split, L2 and L1
+    t0 = time.perf_counter()
+    X, y = make_year_like(YEAR_ROWS, seed=62)
+    Xt, yt = X[YEAR_TRAIN:], y[YEAR_TRAIN:]
+    X, y = X[:YEAR_TRAIN], y[:YEAR_TRAIN]
+    for objective, metric in (("regression", "l2"), ("regression_l1", "l1")):
+        params = {**OBJ_PARAMS, "objective": objective, "metric": metric}
+        ds = lgt.Dataset(X, label=y, params=params).construct()
+        dv = ds.create_valid(Xt, label=yt).construct()
+        res = {}
+        probe = _RenewProbe(gbdt_mod.renew_leaf_outputs)
+        gbdt_mod.renew_leaf_outputs = probe
+        try:
+            bst, train_s, counts = _train_timed(
+                params, ds, OBJ_ITERS, valid_sets=[dv],
+                valid_names=["test"], evals_result=res)
+        finally:
+            gbdt_mod.renew_leaf_outputs = probe.fn
+        g = bst._gbdt
+        cfg = g._grower_cfg
+        # the recorded metric against the valid scores in float64, and
+        # those scores (f32 sums near 2000) against K4's predictions
+        raw = g.valid_scores(1)[0].double().cpu().numpy()
+        pred = np.asarray(bst.predict(Xt))
+        gap = float(np.abs(raw - pred).max())
+        assert gap <= 1e-6 * float(np.abs(pred).max()), (objective, gap)
+        err = (np.mean((raw - yt) ** 2) if metric == "l2"
+               else np.mean(np.abs(raw - yt)))
+        got = res["test"][metric][-1]
+        assert abs(got - err) <= 1e-9 * err, (metric, got, err)
+        line = (f"year {objective} ({smi}): {YEAR_TRAIN} x {YEAR_FEATURES} "
+                f"train rows + {len(yt)} test rows as passengers, "
+                f"{OBJ_ITERS} iterations of {OBJ_PARAMS['num_leaves']} "
+                f"leaves, W={cfg.wave_size}: "
+                f"{1e3 * train_s / OBJ_ITERS:.1f} ms an iteration; K1 "
+                f"{counts['K1'] / OBJ_ITERS:.1f} a tree; test {metric} "
+                f"{got:.4f}; the test rows' scores within {gap:.3g} of "
+                f"K4's predictions")
+        if objective == "regression":
+            # hilo3: constant hessians
+            assert cfg.wave_size == min(40, OBJ_PARAMS["num_leaves"] - 1), cfg
+            assert not probe.ms
+            out["year_l2"] = {"ms_per_iteration": 1e3 * train_s / OBJ_ITERS,
+                              "W": cfg.wave_size, metric: got}
+        else:
+            assert len(probe.ms) == OBJ_ITERS and probe.changed > 0
+            args, kw, card_out = probe.first
+            cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+            cpu_out = renew_mod.renew_leaf_outputs(*cpu_args, **kw)
+            assert torch.equal(card_out.cpu(), cpu_out), \
+                "renewal: card != CPU on the same leaf ids and residuals"
+            med = float(np.median(probe.ms))
+            line += (f"; renewal {med:.2f} ms a tree (median of "
+                     f"{len(probe.ms)}, CUDA events; {probe.changed} trees "
+                     f"renewed to other outputs), bit-equal to its CPU run "
+                     f"on the same leaf ids and residuals")
+            out["year_l1"] = {"ms_per_iteration": 1e3 * train_s / OBJ_ITERS,
+                              "W": cfg.wave_size, metric: got,
+                              "renew_ms": med, "renewed_trees":
+                              probe.changed}
+        print(line)
+        del ds, dv, bst, g
+    del X, y, Xt, yt
+    walls["b"] = time.perf_counter() - t0
+
+    # (c) lambdarank: MSLR-WEB10K Fold 1's shape, a 1,000-query holdout
+    t0 = time.perf_counter()
+    X, y, counts_q = make_mslr_like(MSLR_QUERIES, MSLR_ROWS, seed=63)
+    Xt, yt, counts_t = make_mslr_like(
+        MSLR_HOLDOUT_QUERIES, int(MSLR_ROWS * MSLR_HOLDOUT_QUERIES
+                                  / MSLR_QUERIES), seed=64)
+    ks = [1, 3, 5, 10]
+    params = {**OBJ_PARAMS, "objective": "lambdarank", "metric": "ndcg",
+              "eval_at": ",".join(map(str, ks))}
+    ds = lgt.Dataset(X, label=y, group=counts_q, params=params).construct()
+    dv = ds.create_valid(Xt, label=yt, group=counts_t).construct()
+    res = {}
+    bst, train_s, counts = _train_timed(
+        params, ds, OBJ_ITERS, valid_sets=[dv], valid_names=["holdout"],
+        evals_result=res)
+    g = bst._gbdt
+    obj = g.objective
+    grad_ms = cuda_ms(lambda: obj.get_gradients(g._scores[0]), 3)
+    widths = sorted({w for _, w in obj.chunks})
+    raw = g.valid_scores(1)[0].double().cpu().numpy()
+    want = ndcg_np(raw, yt, counts_t, ks)
+    got = [res["holdout"][f"ndcg@{k}"][-1] for k in ks]
+    gap = max(abs(a - b) for a, b in zip(got, want))
+    assert gap <= NDCG_TOL, (got, want)
+    print(f"mslr lambdarank ({smi}): {MSLR_ROWS} x {MSLR_FEATURES} rows in "
+          f"{MSLR_QUERIES} queries (longest {int(counts_q.max())}) + the "
+          f"{len(yt)}-row {MSLR_HOLDOUT_QUERIES}-query holdout as "
+          f"passengers, {OBJ_ITERS} iterations of "
+          f"{OBJ_PARAMS['num_leaves']} leaves: "
+          f"{1e3 * train_s / OBJ_ITERS:.1f} ms an iteration; the gradient "
+          f"step {grad_ms:.1f} ms (CUDA events) in {len(obj.chunks)} chunks "
+          f"of queries, widths {widths[0]}-{widths[-1]}, under "
+          f"{LAMBDARANK_CHUNK_BYTES / 2 ** 30:g} GiB of pair tensors a "
+          f"chunk; holdout NDCG@"
+          + ",".join(map(str, ks)) + " "
+          + ", ".join(f"{v:.5f}" for v in got)
+          + f", within {gap:.2g} of the host's float64 NDCG")
+    out["mslr"] = {"ms_per_iteration": 1e3 * train_s / OBJ_ITERS,
+                   "grad_ms": grad_ms, "chunks": len(obj.chunks),
+                   "ndcg": dict(zip(ks, got)), "ndcg_gap": gap}
+    del X, y, Xt, yt, ds, dv, bst, g, obj
+    walls["c"] = time.perf_counter() - t0
+
+    # (d) card against CPU at small sizes
+    t0 = time.perf_counter()
+    Xc, yc = make_covertype_like(OBJ_CPU_ROWS, seed=71)
+    Xy, yy = make_year_like(OBJ_CPU_ROWS, seed=72)
+    Xr, yr, cr = make_mslr_like(OBJ_CPU_QUERIES, int(
+        MSLR_ROWS * OBJ_CPU_QUERIES / MSLR_QUERIES), seed=73)
+    small = {"num_leaves": OBJ_CPU_LEAVES, "max_bin": 255, "verbose": -1}
+    cases = [
+        ("multiclass", Xc, yc, {"num_class": K}, {}),
+        ("multiclassova", Xc, yc, {"num_class": K}, {}),
+        ("regression", Xy, yy, {"boost_from_average": False}, {}),
+        ("regression_l1", Xy, yy, {}, {}),
+        ("huber", Xy, yy, {"alpha": 5.0}, {}),
+        ("poisson", Xy, yy - 1900.0, {}, {}),
+        ("lambdarank", Xr, yr, {}, {"group": cr}),
+        ("fobj", Xy, yy, {"boost_from_average": False}, {})]
+    texts = {}
+    out["card_vs_cpu"] = {}
+    for name, Xs, ys, extra, ds_kw in cases:
+        objective = "regression" if name == "fobj" else name
+        params = {**small, "objective": objective, **extra}
+        runs = card_and_cpu(params, Xs, ys, OBJ_CPU_ITERS,
+                            fobj=_l2_fobj if name == "fobj" else None,
+                            **ds_kw)
+        metric = next(iter(runs["cuda"][1]))
+        _, where = judge_trees(runs, metric=metric, tol=OBJ_METRIC_TOL)
+        texts[name] = runs["cuda"][0].model_to_string()
+        print(f"{name} card vs CPU, {Xs.shape[0]} x {Xs.shape[1]} rows x "
+              f"{OBJ_CPU_ITERS} iterations of {OBJ_CPU_LEAVES} leaves: "
+              f"{where}; train {metric} {runs['cuda'][1][metric]:.6g} vs "
+              f"{runs['cpu'][1][metric]:.6g}; {runs['cuda'][2]:.1f} s on "
+              f"the card, {runs['cpu'][2]:.1f} s on the CPU")
+        out["card_vs_cpu"][name] = where
+    assert texts["fobj"] == texts["regression"], \
+        "the fobj model text differs from the regression model's"
+    print("fobj with L2's gradients: model text equal to the regression "
+          "model's of this run")
+    walls["d"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print("phase 22 walls: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in walls.items())
+          + f"; in all {total:.1f} s (budget {PHASE22_BUDGET_S:.0f} s)")
+    assert total <= PHASE22_BUDGET_S, f"phase 22 took {total:.1f} s"
+    out["walls"] = walls
     return out
 
 
@@ -3133,6 +3613,8 @@ def main() -> None:
     k1_ms = next(e["ms"] for e in train
                  if e["name"] == "fused_partition_histogram")
     cat, airline = cat_phases(dev, k1_ms, power_limit_w)
+    # 22: every objective family, card against CPU
+    objectives = objective_phases(dev, smi)
 
     # kernels line
     forest = {
@@ -3146,8 +3628,10 @@ def main() -> None:
             "bound_ms_jax_layout", "visits", "lanes_busy", "compact_bytes",
             "host_us", "plan", "alternatives")
     forest.update({k: higgs[k] for k in keys})
-    for key, r in (("lrb", lrb), ("airline", airline)):
+    for key, r in (("lrb", lrb), ("airline", airline),
+                   ("covertype", objectives["covertype"]["k4"])):
         forest[key] = {k: r[k] for k in keys}
+    forest["covertype"]["launches"] = objectives["covertype"]["k4_launches"]
     forest["lrb_loop"] = {
         "launches": loop["counts"]["K4"],
         "launches_per_window": loop["k4_per_window"],
@@ -3162,6 +3646,17 @@ def main() -> None:
             "launches": loop["counts"][kid if kid == "K3" else f"{kid}/f32"],
             "launches_per_window": loop["per_window"][kid]}
         # phase 21: the same kernels with a valid set's passenger rows
+        # phase 22: the multiclass, regression and ranking runs
+        e["objectives"] = (
+            {"covertype_launches_per_iteration":
+             objectives["covertype"]["launches_per_iteration"][kid]}
+            if kid != "K3" else
+            {"covertype_launches_per_iteration":
+             objectives["covertype"]["launches_per_iteration"]["K3"],
+             "class_row_3": {k: objectives["covertype"]["k3_row3"][k]
+                             for k in ("shape", "ms", "plain_ms",
+                                       "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err")}})
         e["valid_sets"] = (valid[kid] if kid != "K3" else
                            {"higgs_launches_per_tree":
                             valid["higgs"]["k3_per_tree"],

@@ -1,8 +1,9 @@
 """Dataset and Booster (the JAX package's ``basic.py``, reference
-python-package basic.py:626-2415): training on a Dataset with valid sets
-and their evaluation, rollback, and scoring a trained or loaded model.
-Custom objectives (``fobj``), continued training, refit and query groups
-are not ported."""
+python-package basic.py:626-2415): training on a Dataset (with query
+groups for ranking) with valid sets and their evaluation, on the
+objective's gradients or a custom objective's (``Booster.update(fobj=)``),
+rollback, and scoring a trained or loaded model. Continued training and
+refit are not ported."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -92,7 +93,8 @@ class Dataset:
     the device."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
-                 weight=None, init_score=None, feature_name="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto",
                  categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
@@ -100,6 +102,7 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -148,13 +151,23 @@ class Dataset:
                   else np.asarray(self.weight, np.float32).reshape(-1))
         init = (None if self.init_score is None
                 else np.asarray(self.init_score, np.float64).reshape(-1))
+        group = (None if self.group is None
+                 else np.asarray(self.group, np.int64).reshape(-1))
         if sub is not None:
             label = None if label is None else label[sub]
             weight = None if weight is None else weight[sub]
             if init is not None:
                 n = self._parent_rows()
                 init = init.reshape(-1, n)[:, sub].reshape(-1)
-        return Metadata(label=label, weight=weight, init_score=init)
+            if group is not None:
+                # each query's rows among the subset (metadata.cpp:97-115);
+                # group-aware folds keep queries whole
+                qb = np.concatenate([[0], np.cumsum(group)])
+                qidx = np.searchsorted(qb, sub, side="right") - 1
+                counts = np.bincount(qidx, minlength=len(group))
+                group = counts[counts > 0]
+        return Metadata(label=label, weight=weight, init_score=init,
+                        group=group)
 
     def _parent_rows(self) -> int:
         """Rows of the data a subset's indices point into."""
@@ -176,6 +189,13 @@ class Dataset:
         if self._inner is not None and weight is not None:
             self._inner.metadata.weights = np.asarray(
                 weight, np.float32).reshape(-1)
+        return self
+
+    def set_group(self, group) -> "Dataset":
+        """Each query's row count, in row order."""
+        self.group = group
+        if self._inner is not None and group is not None:
+            self._inner.metadata.set_group(group)
         return self
 
     def set_init_score(self, init_score) -> "Dataset":
@@ -201,10 +221,12 @@ class Dataset:
         return self.init_score
 
     def get_group(self):
-        """Query groups are not ported: always None."""
-        return None
+        if self._inner is not None:
+            qb = self._inner.metadata.query_boundaries
+            return None if qb is None else np.diff(qb)
+        return self.group
 
-    _FIELDS = ("label", "weight", "init_score")
+    _FIELDS = ("label", "weight", "init_score", "group")
 
     def get_field(self, field_name: str):
         if field_name not in self._FIELDS:
@@ -240,12 +262,12 @@ class Dataset:
 
     # -- derived datasets ---------------------------------------------------
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         """A validation set binned with this Dataset's mappers
         (basic.py:866-900)."""
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params,
+                       group=group, init_score=init_score, params=params,
                        free_raw_data=self.free_raw_data)
 
     def subset(self, used_indices: Sequence[int],
@@ -257,7 +279,7 @@ class Dataset:
             raise LightGBMError("Cannot subset a Dataset whose raw data "
                                 "was freed")
         ret = Dataset(None if self._inner is not None else self.data,
-                      label=self.label, weight=self.weight,
+                      label=self.label, weight=self.weight, group=self.group,
                       init_score=self.init_score,
                       feature_name=self.feature_name,
                       categorical_feature=self.categorical_feature,
@@ -368,17 +390,34 @@ class Booster:
     def update(self, train_set: Optional[Dataset] = None,
                fobj=None) -> bool:
         """One boosting iteration; True when no further split was
-        possible (basic.py:1693-1746). A booster whose datasets were
-        freed (``free_dataset``) trains on, as in the JAX package."""
+        possible (basic.py:1693-1746). ``fobj(raw scores, train set)``
+        gives custom (grad, hess), float64 raw scores flattened
+        class-major as the reference gives them. A booster whose
+        datasets were freed (``free_dataset``) trains on, as in the JAX
+        package."""
         if getattr(self._gbdt, "train_data", None) is None:
             raise LightGBMError("update needs a Booster with training data")
         if train_set is not None and train_set is not self.train_set:
             raise LightGBMError("Replacing the train set mid-training is "
                                 "not supported; create a new Booster")
-        if fobj is not None:
-            raise NotImplementedError("custom objectives (fobj) are not "
-                                      "ported yet")
-        return self._gbdt.train_one_iter()
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = fobj(self.__inner_predict(0), self.train_set)
+        return self.__boost(grad, hess)
+
+    def __boost(self, grad, hess) -> bool:
+        """One iteration on custom gradients: K * N values each,
+        class-major (basic.py:1748-1780)."""
+        grad = np.asarray(grad, np.float32)
+        hess = np.asarray(hess, np.float32)
+        k = self._gbdt.num_tree_per_iteration
+        n = self._gbdt._n
+        if grad.size != k * n or hess.size != k * n:
+            raise ValueError(
+                f"Lengths of gradient({grad.size}) and hessian({hess.size}) "
+                f"don't equal to num_data*num_class({k * n})")
+        return self._gbdt.train_one_iter(grad.reshape(k, n),
+                                         hess.reshape(k, n))
 
     def rollback_one_iter(self) -> "Booster":
         self._gbdt.rollback_one_iter()

@@ -1,9 +1,9 @@
 """``train`` and ``cv`` (the JAX package's ``engine.py``, reference
 python-package engine.py:19-498): training with valid sets, callbacks,
-custom evaluation functions and early stopping, and k-fold
-cross-validation. Custom objectives (``fobj``), continued training
-(``init_model``), run reports, checkpoints and profiles are not ported
-and raise."""
+custom objectives (``fobj``) and evaluation functions and early
+stopping, and k-fold cross-validation (query-aware for ranking).
+Continued training (``init_model``), run reports, checkpoints and
+profiles are not ported and raise."""
 from __future__ import annotations
 
 import collections
@@ -47,10 +47,7 @@ def _pop_rounds(params: Dict, num_boost_round: int,
     return num_boost_round, early_stopping_rounds
 
 
-def _refuse_unported(params: Dict, fobj, init_model) -> None:
-    if fobj is not None:
-        raise NotImplementedError("custom objectives (fobj) are not ported "
-                                  "yet")
+def _refuse_unported(params: Dict, init_model) -> None:
     if init_model is not None:
         raise NotImplementedError("continued training (init_model) is not "
                                   "ported yet")
@@ -95,7 +92,7 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     params = copy.deepcopy(params) if params else {}
     num_boost_round, early_stopping_rounds = _pop_rounds(
         params, num_boost_round, early_stopping_rounds)
-    _refuse_unported(params, fobj, init_model)
+    _refuse_unported(params, init_model)
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     train_set.params.update(params)
@@ -146,7 +143,7 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         booster.add_valid(valid_set, name)
     booster.best_iteration = 0
     results = _train_loop(booster, params, num_boost_round, before, after,
-                          feval, valid_sets is not None,
+                          fobj, feval, valid_sets is not None,
                           is_valid_contain_train)
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for dataset_name, eval_name, score, _ in results:
@@ -157,7 +154,7 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
 
 
 def _train_loop(booster: Booster, params: Dict, num_boost_round: int,
-                before: list, after: list, feval, has_valid: bool,
+                before: list, after: list, fobj, feval, has_valid: bool,
                 is_valid_contain_train: bool) -> list:
     """The boosting loop (the JAX package's engine.py:197-293, its
     synchronous route): each iteration is evaluated, with one readback
@@ -170,7 +167,7 @@ def _train_loop(booster: Booster, params: Dict, num_boost_round: int,
                 model=booster, params=params, iteration=i,
                 begin_iteration=0, end_iteration=num_boost_round,
                 evaluation_result_list=None))
-        if booster.update():
+        if booster.update(fobj=fobj):
             break
         results = []
         if has_valid or feval is not None:
@@ -212,9 +209,11 @@ def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
                   shuffle: bool = True, device=None) -> CVBooster:
     """The folds' boosters (engine.py:271-324): ``full_data`` is binned
     once on ``device``, and each fold's train and valid rows are subsets
-    of its bins. Stratified folds need scikit-learn."""
+    of its bins. Stratified folds, and a ranking set's folds (each query
+    whole in one), need scikit-learn."""
     full_data.construct(device)
     num_data = full_data.num_data()
+    group = full_data.get_group()
     if folds is not None:
         if not hasattr(folds, "__iter__"):
             folds = folds.split(X=np.zeros(num_data),
@@ -233,6 +232,17 @@ def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict,
                     te = np.asarray(list(fd), np.int64)
                     norm.append((np.setdiff1d(all_idx, te), te))
             folds = norm
+    elif group is not None:
+        # ranking: each query stays whole in one fold (GroupKFold)
+        group = np.asarray(group, np.int64)
+        flatted_group = np.repeat(np.arange(len(group)), group)
+        try:
+            from sklearn.model_selection import GroupKFold
+        except ImportError:
+            raise LightGBMError(
+                "scikit-learn is required for group-aware cv")
+        folds = GroupKFold(n_splits=nfold).split(
+            X=np.zeros(num_data), groups=flatted_group)
     elif stratified:
         try:
             from sklearn.model_selection import StratifiedKFold
@@ -299,7 +309,7 @@ def cv(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     params = copy.deepcopy(params) if params else {}
     num_boost_round, early_stopping_rounds = _pop_rounds(
         params, num_boost_round, early_stopping_rounds)
-    _refuse_unported(params, fobj, init_model)
+    _refuse_unported(params, init_model)
     if metrics is not None:
         params["metric"] = metrics
     if train_set.get_label() is None:
@@ -308,7 +318,8 @@ def cv(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     train_set.set_feature_name(feature_name)
     train_set.set_categorical_feature(categorical_feature)
     if stratified and params.get("objective") not in (
-            "binary", "multiclass", "multiclassova", None):
+            "binary", "multiclass", "multiclassova", None) \
+            and train_set.get_group() is None:
         stratified = False
 
     results = collections.defaultdict(list)
@@ -331,7 +342,7 @@ def cv(params: Dict, train_set: Dataset, num_boost_round: int = 100,
                 model=cvfolds, params=params, iteration=i,
                 begin_iteration=0, end_iteration=num_boost_round,
                 evaluation_result_list=None))
-        cvfolds.update()
+        cvfolds.update(fobj=fobj)
         res = _agg_cv_result(cvfolds.eval_valid(feval))
         for _, key, mean, _, std in res:
             results[key + "-mean"].append(mean)

@@ -70,12 +70,12 @@ class QueueFull(RuntimeError):
 class _Slot:
     __slots__ = ("tenant", "X", "rows", "future", "t_enqueue")
 
-    def __init__(self, tenant: str, X: np.ndarray):
+    def __init__(self, tenant: str, X: np.ndarray, t_enqueue: float):
         self.tenant = tenant
         self.X = X
         self.rows = int(X.shape[0])
         self.future: "Future" = Future()
-        self.t_enqueue = time.perf_counter()
+        self.t_enqueue = t_enqueue
 
 
 def _default_predict(handle, X: np.ndarray) -> np.ndarray:
@@ -93,8 +93,12 @@ class Coalescer:
                  max_wait_us: int = 2000, max_batch: int = 4096,
                  max_queue: int = 1024,
                  predict_fn: Optional[Callable] = None,
-                 latency_observer: Optional[Callable] = None):
+                 latency_observer: Optional[Callable] = None,
+                 clock: Callable[[], float] = time.perf_counter):
         self._tenants = tenants
+        # seconds, read at enqueue, dispatch and completion: a request's
+        # latency is completion minus enqueue (a test may drive it)
+        self._clock = clock
         self._wait_s = max(int(max_wait_us), 0) / 1e6
         self._max_batch = max(int(max_batch), 1)
         self._max_queue = max(int(max_queue), 1)
@@ -135,7 +139,7 @@ class Coalescer:
         X = np.asarray(X, dtype=np.float64)
         if X.ndim == 1:
             X = X.reshape(1, -1)
-        slot = _Slot(str(tenant), X)
+        slot = _Slot(str(tenant), X, self._clock())
         with self._cond:
             if self._stop:
                 raise RuntimeError("coalescer is stopped")
@@ -167,12 +171,12 @@ class Coalescer:
                 # the same device batch (skip straight to drain once
                 # a full batch is queued)
                 if self._wait_s > 0:
-                    deadline = time.perf_counter() + self._wait_s
+                    deadline = self._clock() + self._wait_s
                     while not self._stop:
                         if (sum(s.rows for s in self._q)
                                 >= self._max_batch):
                             break
-                        left = deadline - time.perf_counter()
+                        left = deadline - self._clock()
                         if left <= 0:
                             break
                         self._cond.wait(left)
@@ -216,7 +220,7 @@ class Coalescer:
         X = (slots[0].X if len(slots) == 1
              else np.concatenate([s.X for s in slots], axis=0))
         rid = reqlog.next_request_id()
-        t0 = time.perf_counter()
+        t0 = self._clock()
         try:
             if faults.active():
                 # fleet.predict / fleet.predict.<tenant>: the latency/
@@ -232,7 +236,7 @@ class Coalescer:
                     continue
                 s.future.set_exception(e)
             return
-        done = time.perf_counter()
+        done = self._clock()
         off = 0
         for s in slots:
             part = preds[off:off + s.rows]

@@ -58,7 +58,7 @@ import json
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 from ..analysis import lockorder
 from ..obs import registry as obs
@@ -81,12 +81,14 @@ class ScoringDaemon:
                  slo_min_events: int = 100,
                  shed_probe_every: int = 16,
                  retry_after_s: float = 0.5,
-                 predict_timeout_s: float = 60.0, device=None):
+                 predict_timeout_s: float = 60.0, device=None,
+                 clock: Callable[[], float] = time.perf_counter):
         self._port = int(port)
         self.tenants = TenantRegistry(warm_rows=warm_rows, device=device)
         self.coalescer = Coalescer(
             self.tenants, max_wait_us=coalesce_us, max_batch=max_batch,
-            max_queue=max_queue, latency_observer=self._observe_latency)
+            max_queue=max_queue, latency_observer=self._observe_latency,
+            clock=clock)
         self._slo_p99_ms = max(float(slo_p99_ms), 0.0)
         self._shed_budget = min(max(float(shed_budget), 0.0), 1.0)
         self._slo_eval_gap_s = max(float(slo_eval_gap_s), 0.0)

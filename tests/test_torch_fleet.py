@@ -394,14 +394,62 @@ def _shed_drill(d, fault_mod, shed_cls, model):
             "neighbor_shed": b in rep["shedding"]}
 
 
-def test_shed_drill_matches_jax(make_daemon, binary_model):
+class _DrillClock:
+    """The coalescers' clock in the shed drill, driven by the test, not
+    by the host: it moves 0.5 ms at each read, so a healthy request
+    (read at enqueue, dispatch and completion) takes 1 ms, and 80 ms
+    more each time the drill's latency fault fires. The classification
+    of every request is then the same on a loaded host as on an idle
+    one."""
+
+    def __init__(self):
+        self._now = 0.0
+        self._lock = threading.Lock()
+
+    def __call__(self) -> float:
+        with self._lock:
+            self._now += 0.0005
+            return self._now
+
+    def advance(self, seconds: float) -> None:
+        with self._lock:
+            self._now += seconds
+
+    def __getattr__(self, name):
+        # stands in for the JAX coalescer's ``time`` module, which it
+        # reads as time.perf_counter()
+        return self if name == "perf_counter" else getattr(time, name)
+
+
+def _drive_fault(monkeypatch, fault_mod, clock, point, seconds):
+    """Each check of ``point`` (armed with a sleep fault) moves ``clock``
+    by ``seconds`` after the fault's own sleep."""
+    check = fault_mod.check
+
+    def driven(p, context=None):
+        check(p, context=context)
+        if p == point:
+            clock.advance(seconds)
+    monkeypatch.setattr(fault_mod, "check", driven)
+
+
+def test_shed_drill_matches_jax(make_daemon, binary_model, monkeypatch):
     """Admission sheds the slow tenant with budget still left, keeps its
     neighbor serving, and does so where the JAX daemon does under the
-    same fault and request sequence."""
+    same fault and request sequence. The latencies both daemons classify
+    come from clocks the test drives (``_DrillClock``): 1 ms a healthy
+    request, 80 ms more a faulted one."""
+    from lightgbm_tpu.serve import coalescer as jcoalescer
+    point = "fleet.predict.drill_a"
+    tclock, jclock = _DrillClock(), _DrillClock()
+    _drive_fault(monkeypatch, faults, tclock, point, 0.080)
+    _drive_fault(monkeypatch, jfaults, jclock, point, 0.080)
+    monkeypatch.setattr(jcoalescer, "time", jclock)
     kw = dict(coalesce_us=0, slo_p99_ms=50.0, shed_budget=0.5,
               slo_eval_gap_s=0.0, slo_min_events=100, shed_probe_every=16)
     shed0 = obs.counter("fleet/shed_total").value
-    got = _shed_drill(make_daemon(**kw), faults, ShedError, binary_model)
+    got = _shed_drill(make_daemon(clock=tclock, **kw), faults, ShedError,
+                      binary_model)
     faults.clear()
     want = _shed_drill(make_daemon(jax=True, **kw), jfaults, JShedError,
                        binary_model)

@@ -191,7 +191,7 @@ def test_capi_fields_and_defaults():
         tcapi.LGBM_DatasetSetField(ds, "label", y)
     with pytest.raises(lgt.LightGBMError):
         tcapi.LGBM_DatasetSetField(
-            tcapi.LGBM_DatasetCreateFromMat(X, device="cpu"), "group", y)
+            tcapi.LGBM_DatasetCreateFromMat(X, device="cpu"), "position", y)
 
 
 @pytest.mark.parametrize("weighted", [False, True])

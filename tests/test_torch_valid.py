@@ -623,9 +623,8 @@ def test_unported_options_raise():
     X, y, Xv, yv = _lrb_sets(400, 100)
     params = _lrb_params()
     ds = lgt.Dataset(X, label=y)
-    for kw in ({"fobj": lambda p, d: (p, p)}, {"init_model": "m.txt"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            lgt.train(params, ds, 2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        lgt.train(params, ds, 2, device="cpu", init_model="m.txt")
     for key in ("tpu_run_report", "tpu_checkpoint_dir", "tpu_profile_dir"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             lgt.train({**params, key: "x"}, ds, 2, device="cpu")
