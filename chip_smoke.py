@@ -198,9 +198,45 @@ the entry points a user calls:
    20,000 rows, 31 leaves, 5 iterations for multiclass, multiclassova,
    regression, regression_l1, huber, poisson, lambdarank (200 queries)
    and a custom ``fobj`` with L2's gradients, whose model text equals
-   the regression model's. Each part's wall is printed.
+   the regression model's. Each part's wall is printed;
+23. the boosting variants, forced splits and continued training, after
+   phase 22, in at most 150 s: (a) GOSS (top_rate 0.2, other_rate 0.1)
+   on phase 7's 11,000,000 x 28 rows, 15 iterations of 255 leaves at
+   learning_rate 0.1 (10 of warm-up, 5 sampled), on the exact tier and
+   on the int8 count-proxy tier: each sampled iteration's kept mask and
+   amplified g and h bit-equal to the plain sampler run on the CPU on
+   the same gradients, the kept rows within 0.5% of n of 0.3 n, on the
+   exact tier the warm-up trees equal to phase 7's trees and the holdout
+   AUC in [-0.002, +0.05] of phase 7's (the same first 10 trees, then 5
+   trees on 30% of the rows: more trees may raise it, a broken sampler
+   would lower it), on the count-proxy tier within 0.01 of the exact
+   tier's (that tier's cost, as in phase 10);
+   (b) DART (drop_rate 0.1, skip_drop 0.5, max_drop 50, drop_seed 4) on
+   phase 6's rows with ``TRAIN_PARAMS``, 50 iterations through the C
+   API: K3 one launch a tree and two a dropped tree, the next 65,536
+   rows through ``PredictForMat`` bit-equal to the plain forest
+   (``check_forest``) and within 1e-5 of the float64 host walk on the
+   rescaled trees; (c) RF at Covertype's shape (phase 22's generator, 7
+   classes, bagging 0.632 every iteration, 255 leaves, 10 iterations):
+   K4's [116,203, 7] holdout outputs bit-equal to plain with
+   ``average_output``, each row's probabilities summing to 1 within
+   1e-6; (d) forced splits on phase 6's rows (the root on feature 50,
+   log2 size, at its median, its children on features 0 and 51, and a
+   node on the constant feature 52 that is skipped), 10 iterations:
+   every tree's first three splits the forced ones, K2 one root and
+   three forced launches a tree; (e) 25 iterations, saved, 25 more with
+   ``train(init_model=path)`` (the first scores equal to the loaded
+   model's predictions in f32), ``LGBM_BoosterMerge`` (predictions
+   within 1e-5 of the sum of both models'), ``LGBM_BoosterResetTraining
+   Data`` on the next window (50 trees replayed into its scores, K3 a
+   tree) and 10 more iterations, the train loss falling; (f) card
+   against CPU at
+   20,000 rows, 31 leaves, 5 iterations: GOSS at learning_rate 0.5,
+   DART in its four modes, RF binary and multiclass, forced splits,
+   continued training. Each part prints its ms an iteration, the card's
+   busy share and its launches.
 
-Phases 6-7, 10-12, 15-16 and 19-22 check that the main path launched
+Phases 6-7, 10-12, 15-16 and 19-23 check that the main path launched
 each kernel (and each histogram variant) of its tier. Prints a JSON line
 of the kernels, then the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero without that
@@ -337,6 +373,22 @@ OBJ_CPU_QUERIES = 200
 OBJ_METRIC_TOL = 1e-3           # card vs CPU train metric, relative
 NDCG_TOL = 1e-9
 PHASE22_BUDGET_S = 150.0
+PHASE23_BUDGET_S = 150.0
+GOSS_ITERS = 15                 # 10 of warm-up (learning_rate 0.1), 5 sampled
+GOSS_RATES = {"top_rate": 0.2, "other_rate": 0.1}
+GOSS_KEPT_TOL = 0.005           # kept rows within 0.5% of n of 0.3 n
+GOSS_AUC_BAND = (-0.002, 0.05)  # exact tier: holdout AUC minus phase 7's
+DART_PARAMS = {**TRAIN_PARAMS, "boosting": "dart", "drop_rate": "0.1",
+               "skip_drop": "0.5", "max_drop": "50", "drop_seed": "4"}
+RF_PARAMS = {**OBJ_PARAMS, "objective": "multiclass",
+             "num_class": COVERTYPE_CLASSES, "boosting": "rf",
+             "bagging_fraction": 0.632, "bagging_freq": 1}
+RF_ITERS = 10
+FORCED_ITERS = 10
+CONTIN_ITERS = 25               # a first model, then as many continued
+RESET_ITERS = 10                # after ResetTrainingData on the next window
+VAR_CPU_ROWS = 20_000           # (f): card against CPU
+VAR_CPU_ITERS = 5
 
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 7):
@@ -1192,17 +1244,24 @@ def explain_difference(runs: dict, t: int, i: int,
 
 
 def card_and_cpu(params: dict, X, y, iters: int, fobj=None,
-                 **ds_kw) -> dict:
+                 init_model: str = None, **ds_kw) -> dict:
     """``iters`` ``Booster.update(fobj=fobj)`` calls from the same rows on
     the card and with ``device="cpu"``: {"cuda" | "cpu": (booster, train
     metrics, seconds, each tree's grower inputs on the CPU)}; the inputs
-    let ``explain_difference`` attribute a first difference."""
+    let ``explain_difference`` attribute a first difference. With
+    ``init_model`` (model text) training continues from that model, its
+    raw scores predicted on each run's device."""
     import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.basic import _InnerPredictor
     runs = {}
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        b = lgt.Booster(params, lgt.Dataset(X, label=y, **ds_kw),
-                        device=None if where == "cuda" else "cpu")
+        device = None if where == "cuda" else "cpu"
+        ds = lgt.Dataset(X, label=y, **ds_kw)
+        if init_model is not None:
+            ds._set_predictor(_InnerPredictor(model_str=init_model,
+                                              device=device))
+        b = lgt.Booster(params, ds, device=device)
         grower = b._gbdt._grower
         inputs = []
 
@@ -3434,6 +3493,440 @@ def objective_phases(dev, smi: str) -> dict:
     return out
 
 
+def tree_blocks(text: str) -> list:
+    """The ``Tree=i`` blocks of a model text, each without its header
+    line."""
+    body = text.split("end of trees")[0]
+    return [b.split("\n", 1)[1].strip() for b in body.split("\nTree=")[1:]]
+
+
+class _GossSpy:
+    """Wraps ``models/boosting.goss_sample``: each sampled iteration's
+    inputs and outputs copied to the host, the copies' seconds kept
+    apart from the training's."""
+
+    def __init__(self, fn):
+        self.fn, self.calls, self.copy_s = fn, [], 0.0
+
+    def __call__(self, g, h, mask, key, top_rate, other_rate):
+        import torch
+        out = self.fn(g, h, mask, key, top_rate, other_rate)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.calls.append((key, g.cpu(), h.cpu(), mask.cpu(),
+                           [o.cpu() for o in out]))
+        self.copy_s += time.perf_counter() - t0
+        return out
+
+
+def _goss_tier(name, params, ds, Xt, yt, higgs, smi, exact_auc=None) -> dict:
+    """Phase 23(a) on one tier: GOSS_ITERS iterations through ``train``;
+    each sampled iteration's kept mask and amplified g and h against the
+    plain sampler run on the CPU on the same gradients, bit for bit. The
+    exact tier's holdout AUC is held to phase 7's, the count-proxy
+    tier's (``exact_auc`` given) to the exact tier's GOSS run."""
+    import torch
+    from lightgbm_tpu_torch.models import boosting as bm
+    spy = _GossSpy(bm.goss_sample)
+    bm.goss_sample = spy
+    try:
+        bst, train_s, counts = _train_timed(params, ds, GOSS_ITERS)
+    finally:
+        bm.goss_sample = spy.fn
+    g = bst._gbdt
+    n = g._n
+    warm = int(1.0 / float(params["learning_rate"]))
+    assert len(spy.calls) == GOSS_ITERS - warm, len(spy.calls)
+    kept = []
+    for key, gg, hh, mm, out in spy.calls:
+        plain = bm.goss_sample(gg, hh, mm, key, params["top_rate"],
+                               params["other_rate"])
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b), f"goss {name}: card != plain sampler"
+        kept.append(int(out[2][:n].sum()))
+    want = (GOSS_RATES["top_rate"] + GOSS_RATES["other_rate"]) * n
+    worst = max(abs(k - want) for k in kept)
+    assert worst <= GOSS_KEPT_TOL * n, (kept, want)
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    forest_ops.launches.reset()
+    prob = bst.predict(Xt)
+    torch.cuda.synchronize()
+    k4_launches = forest_ops.launches.value
+    assert k4_launches > 0
+    assert prob.shape == yt.shape and np.isfinite(prob).all()
+    auc = auc_np(yt, prob)
+    text = bst.model_to_string()
+    blocks = tree_blocks(text)
+    if g._grower_cfg.precision == "f32":
+        # warm-up is gbdt: the first trees are phase 7's, bit for bit
+        assert blocks[:warm] == tree_blocks(higgs["text"])[:warm], \
+            "goss warm-up trees differ from phase 7's"
+        lo, hi = GOSS_AUC_BAND
+        assert lo <= auc - higgs["auc"] <= hi, (auc, higgs["auc"])
+    else:
+        assert abs(auc - exact_auc) <= PROXY_AUC_TOL, (auc, exact_auc)
+    ms = 1e3 * (train_s - spy.copy_s) / GOSS_ITERS
+    wall, busy = device_busy(bst.update, 1)
+    cfg = g._grower_cfg
+    print(f"goss {name} ({smi}): {n} x 28 rows, {GOSS_ITERS} iterations "
+          f"({warm} of warm-up) of {cfg.num_leaves} leaves, {cfg.precision}"
+          f"{' count-proxy' if cfg.count_proxy else ''}, W={cfg.wave_size}: "
+          f"{ms:.1f} ms an iteration (the host copies of the check, "
+          f"{spy.copy_s:.2f} s, taken out); profile of 1 sampled "
+          f"iteration: wall {wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); per iteration K1 "
+          f"{counts['K1'] / GOSS_ITERS:.1f}, K2 "
+          f"{counts['K2'] / GOSS_ITERS:.1f}, K3 "
+          f"{counts['K3'] / GOSS_ITERS:.1f}; kept rows of the sampled "
+          f"iterations {kept} (0.3 n = {want:.0f}), each mask and its "
+          f"amplified g and h bit-equal to the plain sampler on the CPU; "
+          f"holdout auc {auc:.5f} against "
+          + (f"phase 7's {higgs['auc']:.5f}; the warm-up trees equal phase "
+             f"7's" if exact_auc is None else
+             f"{exact_auc:.5f} on the exact tier"))
+    return {"ms_per_iteration": ms, "busy": busy / wall, "auc": auc,
+            "kept": kept, "k4_launches": k4_launches,
+            "launches_per_iteration": {
+                k: counts[k] / GOSS_ITERS for k in ("K1", "K2", "K3")}}
+
+
+def variant_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
+    """Phase 23 of the module docstring: GOSS, DART, RF, forced splits
+    and continued training on the card, and card against CPU at small
+    sizes. Returns the readings the kernels line keeps."""
+    import types
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import stacked_predict as sp
+    t_phase = time.perf_counter()
+    out, walls = {}, {}
+
+    # (a) GOSS at the HIGGS shape, exact and count-proxy
+    t0 = time.perf_counter()
+    params = {**HIGGS_PARAMS, "boosting": "goss", **GOSS_RATES}
+    ds = lgt.Dataset(higgs["X"], label=higgs["y"], params=params).construct()
+    exact = _goss_tier("exact", params, ds, higgs["Xt"], higgs["yt"], higgs,
+                       smi)
+    out["goss"] = {"exact": exact, "count-proxy": _goss_tier(
+        "count-proxy", {**params, "tpu_quantized_hist": "true"}, ds,
+        higgs["Xt"], higgs["yt"], higgs, smi, exact_auc=exact["auc"])}
+    del ds
+    walls["a"] = time.perf_counter() - t0
+
+    # (b) DART at the LRB window through the C API
+    t0 = time.perf_counter()
+    X = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    y = lrb_labels(X, seed=22)
+    Xn = make_lrb_rows(LRB_NEXT_ROWS, seed=23)
+    reset_counts()
+    h = capi.LGBM_DatasetCreateFromMat(X, parameters=DART_PARAMS)
+    capi.LGBM_DatasetSetField(h, "label", y)
+    bst = capi.LGBM_BoosterCreate(h, DART_PARAMS)
+    # K3 launches of the drops and of their normalisation, counted where
+    # they are made: around the two DART steps of each iteration
+    k3 = _counters()["K3"]
+    drop_k3 = [0]
+
+    def counted(step):
+        def run():
+            before = k3.value
+            step()
+            drop_k3[0] += k3.value - before
+        return run
+    dart = bst.gbdt
+    dart._dropping_trees = counted(dart._dropping_trees)
+    dart._normalize = counted(dart._normalize)
+    iters, drops = [], 0
+    for _ in range(int(DART_PARAMS["num_iterations"])):
+        t1 = time.perf_counter()
+        assert not capi.LGBM_BoosterUpdateOneIter(bst)
+        torch.cuda.synchronize()
+        iters.append(time.perf_counter() - t1)
+        drops += len(bst.gbdt._drop_index)
+    counts = read_counts()
+    del dart._dropping_trees, dart._normalize
+    n_it = len(iters)
+    drop_k3 = drop_k3[0]
+    # one K3 launch a tree, and two a dropped tree: its subtraction and
+    # its rescaled return
+    assert drop_k3 == 2 * drops and drops > 0, (drop_k3, drops)
+    assert counts["K3"] == n_it + drop_k3, (counts, drop_k3)
+    forest_ops.launches.reset()
+    sp.fallbacks.reset()
+    pred = np.asarray(capi.LGBM_BoosterPredictForMat(bst, Xn))
+    torch.cuda.synchronize()
+    dart_k4 = forest_ops.launches.value
+    assert dart_k4 > 0 and sp.fallbacks.value == 0
+    host = host_raw(bst.gbdt, Xn)[0]
+    err_host = float(np.abs(pred - 1.0 / (1.0 + np.exp(-host))).max())
+    assert err_host <= 1e-5, f"dart: {err_host} from the host walk"
+    k4 = check_forest("dart", types.SimpleNamespace(_gbdt=bst.gbdt), Xn,
+                      pred, dev, alternatives=False)
+    ms = 1e3 * float(np.median(iters))
+    wall, busy = device_busy(lambda: capi.LGBM_BoosterUpdateOneIter(bst), 1)
+    print(f"lrb dart ({smi}): {LRB_TRAIN_ROWS} x {LRB_FEATURES}, {n_it} "
+          f"iterations through the C API: median {ms:.1f} ms an iteration "
+          f"(max {1e3 * max(iters):.1f}); {drops} trees dropped in all, "
+          f"K3 {counts['K3']} launches, {drop_k3} of them counted in "
+          f"the drops and their normalisation; per iteration "
+          f"K1 {counts['K1'] / n_it:.1f}, K2 {counts['K2'] / n_it:.1f}; "
+          f"profile of 1 iteration: wall {wall:.1f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}%); the next "
+          f"{LRB_NEXT_ROWS} rows through PredictForMat ({dart_k4} K4 "
+          f"launches) bit-equal to the plain forest and within "
+          f"{err_host:.2g} of the float64 host walk on the rescaled trees")
+    out["dart"] = {"ms_per_iteration": ms, "busy": busy / wall,
+                   "drops": drops, "k3_launches": counts["K3"],
+                   "k3_drop_launches": drop_k3, "k4_launches": dart_k4,
+                   "k4": k4, "host_err": err_host}
+    capi.LGBM_BoosterFree(bst)
+    walls["b"] = time.perf_counter() - t0
+
+    # (d) forced splits at the LRB window (phase 6's rows)
+    t0 = time.perf_counter()
+    med = {f: float(np.median(X[:, f])) for f in (0, HISTFEATURES,
+                                                   HISTFEATURES + 1)}
+    spec = {"feature": HISTFEATURES, "threshold": med[HISTFEATURES],
+            "left": {"feature": 0, "threshold": med[0],
+                     # the cost column is constant: skipped, as unused
+                     "left": {"feature": HISTFEATURES + 2,
+                              "threshold": 1.0}},
+            "right": {"feature": HISTFEATURES + 1,
+                      "threshold": med[HISTFEATURES + 1]}}
+    path = os.path.join(tmp, "forced.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    params = {**TRAIN_PARAMS, "num_iterations": str(FORCED_ITERS),
+              "forcedsplits_filename": path}
+    ds = lgt.Dataset(X, label=y, params=params).construct()
+    bst, train_s, counts = _train_timed(params, ds, FORCED_ITERS)
+    g = bst._gbdt
+    bst.model_to_string()
+    want = [HISTFEATURES, 0, HISTFEATURES + 1]
+    assert len(g._grower_cfg.forced) == 3, g._grower_cfg.forced
+    for t in g.models:
+        assert t.split_feature[:3] == want, t.split_feature[:3]
+    wall, busy = device_busy(bst.update, 1)
+    ms = 1e3 * train_s / FORCED_ITERS
+    # the forced prefix's K2 launches: this run's less those of the same
+    # rows and parameters without forced splits (the root passes)
+    free = {k: v for k, v in params.items() if k != "forcedsplits_filename"}
+    _, free_s, free_counts = _train_timed(free, ds, FORCED_ITERS)
+    forced_k2 = counts["K2"] - free_counts["K2"]
+    assert free_counts["K2"] == FORCED_ITERS, free_counts
+    assert forced_k2 == 3 * FORCED_ITERS, (counts, free_counts)
+    print(f"lrb forced splits ({smi}): {FORCED_ITERS} iterations, every "
+          f"tree's first three splits the forced ones (features {want} at "
+          f"their medians; the node on the constant column skipped): "
+          f"{ms:.1f} ms an iteration ({1e3 * free_s / FORCED_ITERS:.1f} "
+          f"without them); K2 {counts['K2']} launches, "
+          f"{free_counts['K2']} without forced splits, so {forced_k2} "
+          f"forced; K1 "
+          f"{counts['K1'] / FORCED_ITERS:.1f} an iteration; profile of 1 "
+          f"iteration: wall {wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%)")
+    out["forced"] = {"ms_per_iteration": ms, "busy": busy / wall,
+                     "k2_launches": counts["K2"],
+                     "k2_forced_launches": forced_k2,
+                     "ms_per_iteration_unforced": 1e3 * free_s / FORCED_ITERS}
+    del ds, bst, g
+    walls["d"] = time.perf_counter() - t0
+
+    # (e) continued training at the LRB window
+    t0 = time.perf_counter()
+    params = {**TRAIN_PARAMS, "num_iterations": str(CONTIN_ITERS)}
+    first = lgt.train(params, lgt.Dataset(X, label=y), verbose_eval=False)
+    path = os.path.join(tmp, "first.txt")
+    first.save_model(path)
+    first_text = first.model_to_string()
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    bst, train_s, counts = _train_timed(params, lgt.Dataset(X, label=y),
+                                        CONTIN_ITERS, init_model=path,
+                                        callbacks=[stamp])
+    g = bst._gbdt
+    loaded = lgt.Booster(model_file=path)
+    raw = np.asarray(loaded.predict(X, raw_score=True))
+    start = g._initial_scores(g.train_data)[0].cpu()
+    assert torch.equal(start, torch.from_numpy(raw.astype(np.float32))), \
+        "continued: first scores != the loaded model's, folded into f32"
+    cont_text = bst.model_to_string()
+    assert bst.num_trees() == CONTIN_ITERS == len(stamps)
+    # an iteration: between two callbacks; train()'s wall also bins the
+    # rows and folds the init model's scores (a predict of every row)
+    ms = 1e3 * float(np.median(np.diff(stamps)))
+    wall, busy = device_busy(bst.update, 1)
+    h1 = capi.LGBM_BoosterLoadModelFromString(first_text)
+    h2 = capi.LGBM_BoosterLoadModelFromString(cont_text)
+    raw_of = {k: np.asarray(capi.LGBM_BoosterPredictForMat(
+        hh, Xn, predict_type=capi.C_API_PREDICT_RAW_SCORE))
+        for k, hh in (("first", h1), ("continued", h2))}
+    capi.LGBM_BoosterMerge(h1, h2)
+    merged = np.asarray(capi.LGBM_BoosterPredictForMat(
+        h1, Xn, predict_type=capi.C_API_PREDICT_RAW_SCORE))
+    merge_err = float(np.abs(merged - raw_of["first"]
+                             - raw_of["continued"]).max())
+    assert merge_err <= 1e-5, f"merged predictions: {merge_err}"
+    # ResetTrainingData on the next window: the merged trees replayed
+    # into its scores, then training goes on
+    Xw = make_lrb_rows(LRB_TRAIN_ROWS, seed=25)
+    yw = lrb_labels(Xw, seed=26)
+    hw_ = capi.LGBM_DatasetCreateFromMat(Xw, parameters=TRAIN_PARAMS)
+    capi.LGBM_DatasetSetField(hw_, "label", yw)
+    capi.LGBM_BoosterResetParameter(h1, TRAIN_PARAMS)
+    reset_counts()
+    t1 = time.perf_counter()
+    capi.LGBM_BoosterResetTrainingData(h1, hw_)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t1
+    # the trees' thresholds map to the new window's own bins, so its
+    # replayed scores are the model's up to the rows between a threshold
+    # and its new bin's bound (as in the JAX package; the CPU tests hold
+    # the replay to it): the loss must fall as training goes on
+    replay = capi.LGBM_BoosterGetPredict(h1, 0)
+    assert replay.shape == (LRB_TRAIN_ROWS,) and np.isfinite(replay).all()
+    loss0 = dict(capi.LGBM_BoosterGetEval(h1, 0))["binary_logloss"]
+    t1 = time.perf_counter()
+    for _ in range(RESET_ITERS):
+        capi.LGBM_BoosterUpdateOneIter(h1)
+    torch.cuda.synchronize()
+    reset_ms = 1e3 * (time.perf_counter() - t1) / RESET_ITERS
+    rcounts = read_counts()
+    loss1 = dict(capi.LGBM_BoosterGetEval(h1, 0))["binary_logloss"]
+    assert loss1 < loss0, (loss0, loss1)
+    total = 2 * CONTIN_ITERS + RESET_ITERS
+    assert capi.LGBM_BoosterGetCurrentIteration(h1) == total
+    assert capi.LGBM_BoosterNumberOfTotalModel(h1) == total
+    assert rcounts["K3"] == 2 * CONTIN_ITERS + RESET_ITERS, rcounts
+    print(f"lrb continued ({smi}): {CONTIN_ITERS} iterations, saved, then "
+          f"{CONTIN_ITERS} more with train(init_model=path) in "
+          f"{train_s:.2f} s (binning and the init model's scores "
+          f"included), {ms:.1f} ms an iteration (median between "
+          f"callbacks); profile of 1 iteration: wall "
+          f"{wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); K1 {counts['K1'] / CONTIN_ITERS:.1f}"
+          f", K2 {counts['K2'] / CONTIN_ITERS:.1f}, K3 "
+          f"{counts['K3'] / CONTIN_ITERS:.1f} an iteration; the first "
+          f"scores equal the loaded model's predictions folded into f32; "
+          f"LGBM_BoosterMerge's predictions within {merge_err:.2g} of the "
+          f"sum of both; ResetTrainingData on the next window replayed "
+          f"{2 * CONTIN_ITERS} trees in {reset_s:.2f} s "
+          f"({2 * CONTIN_ITERS} K3 launches), then {RESET_ITERS} "
+          f"iterations at {reset_ms:.1f} ms, train binary_logloss "
+          f"{loss0:.5f} -> {loss1:.5f}")
+    out["continued"] = {"ms_per_iteration": ms, "train_s": train_s,
+                        "busy": busy / wall,
+                        "merge_err": merge_err, "reset_s": reset_s,
+                        "reset_logloss": [loss0, loss1],
+                        "reset_ms_per_iteration": reset_ms}
+    capi.LGBM_BoosterFree(h1)
+    capi.LGBM_BoosterFree(h2)
+    del X, y, Xn, Xw, yw, bst, g, first, loaded
+    walls["e"] = time.perf_counter() - t0
+
+    # (c) RF at Covertype's shape
+    t0 = time.perf_counter()
+    X, y = make_covertype_like(COVERTYPE_ROWS, seed=61)
+    Xt, yt = X[COVERTYPE_TRAIN:], y[COVERTYPE_TRAIN:]
+    X, y = X[:COVERTYPE_TRAIN], y[:COVERTYPE_TRAIN]
+    K = COVERTYPE_CLASSES
+    ds = lgt.Dataset(X, label=y, params=RF_PARAMS).construct()
+    bst, train_s, counts = _train_timed(RF_PARAMS, ds, RF_ITERS)
+    g = bst._gbdt
+    assert len(g.models) == K * RF_ITERS and g.average_output
+    assert "\naverage_output\n" in bst.model_to_string()
+    forest_ops.launches.reset()
+    sp.fallbacks.reset()
+    prob = bst.predict(Xt)
+    torch.cuda.synchronize()
+    rf_k4 = forest_ops.launches.value
+    assert rf_k4 > 0 and sp.fallbacks.value == 0
+    assert prob.shape == (len(yt), K) and np.isfinite(prob).all()
+    row_sum = float(np.abs(prob.sum(axis=1) - 1.0).max())
+    assert row_sum <= 1e-6, f"rf: class probabilities sum {row_sum}"
+
+    def averaged_softmax(raw):
+        avg = np.ascontiguousarray((raw / RF_ITERS).T)
+        return g.objective.convert_output(torch.from_numpy(avg)).numpy().T
+    k4 = check_forest("covertype rf", bst, Xt, prob, dev,
+                      convert=averaged_softmax, alternatives=False)
+    acc = float((prob.argmax(axis=1) == yt).mean())
+    ms = 1e3 * train_s / RF_ITERS
+    wall, busy = device_busy(bst.update, 1)
+    print(f"covertype rf ({smi}): {COVERTYPE_TRAIN} x 54 rows, {K} classes,"
+          f" {RF_ITERS} iterations of {K} trees, bagging 0.632 every "
+          f"iteration: {ms:.1f} ms an iteration; profile of 1 iteration: "
+          f"wall {wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); per iteration K1 "
+          f"{counts['K1'] / RF_ITERS:.1f}, K2 {counts['K2'] / RF_ITERS:.1f},"
+          f" K3 {counts['K3'] / RF_ITERS:.1f}; holdout [{len(yt)}, {K}] "
+          f"through K4 ({rf_k4} launches) with average_output, bit-equal "
+          f"to plain, rows summing to 1 within {row_sum:.2g}, accuracy "
+          f"{acc:.4f}")
+    out["rf"] = {"ms_per_iteration": ms, "busy": busy / wall,
+                 "k4_launches": rf_k4, "k4": k4, "accuracy": acc,
+                 "launches_per_iteration": {
+                     k: counts[k] / RF_ITERS for k in ("K1", "K2", "K3")}}
+    del X, y, Xt, yt, ds, bst, g
+    walls["c"] = time.perf_counter() - t0
+
+    # (f) card against CPU at small sizes
+    t0 = time.perf_counter()
+    Xs = make_lrb_rows(VAR_CPU_ROWS, seed=81)
+    ys = lrb_labels(Xs, seed=82)
+    Xc, yc = make_covertype_like(VAR_CPU_ROWS, seed=83)
+    small = {**TRAIN_PARAMS, "num_leaves": "31", "bagging_freq": "0",
+             "feature_fraction": "1.0"}
+    del small["num_iterations"]
+    init_text = lgt.train(small, lgt.Dataset(Xs, label=ys), VAR_CPU_ITERS,
+                          verbose_eval=False, device="cpu").model_to_string()
+    path = os.path.join(tmp, "forced_small.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    dart = {**small, "boosting": "dart", "drop_rate": "0.5",
+            "skip_drop": "0.0"}
+    cases = [
+        ("goss", Xs, ys, {**small, "boosting": "goss",
+                          "learning_rate": "0.5"}, None),
+        ("dart", Xs, ys, dart, None),
+        ("dart uniform", Xs, ys, {**dart, "uniform_drop": "true"}, None),
+        ("dart xgboost", Xs, ys, {**dart, "xgboost_dart_mode": "true"},
+         None),
+        ("dart uniform xgboost", Xs, ys, {**dart, "uniform_drop": "true",
+                                          "xgboost_dart_mode": "true"},
+         None),
+        ("rf binary", Xs, ys, {**small, "boosting": "rf",
+                               "bagging_freq": "1",
+                               "bagging_fraction": "0.632"}, None),
+        ("rf multiclass", Xc, yc, {**RF_PARAMS, "num_leaves": 31}, None),
+        ("forced", Xs, ys, {**small, "forcedsplits_filename": path}, None),
+        ("continued", Xs, ys, small, init_text)]
+    out["card_vs_cpu"] = {}
+    for name, Xa, ya, params, init in cases:
+        runs = card_and_cpu(params, Xa, ya, VAR_CPU_ITERS, init_model=init)
+        metric = next(iter(runs["cuda"][1]))
+        _, where = judge_trees(runs, metric=metric, tol=OBJ_METRIC_TOL)
+        print(f"{name} card vs CPU, {Xa.shape[0]} x {Xa.shape[1]} rows x "
+              f"{VAR_CPU_ITERS} iterations of 31 leaves: {where}; train "
+              f"{metric} {runs['cuda'][1][metric]:.6g} vs "
+              f"{runs['cpu'][1][metric]:.6g}; {runs['cuda'][2]:.1f} s on "
+              f"the card, {runs['cpu'][2]:.1f} s on the CPU")
+        out["card_vs_cpu"][name] = where
+    walls["f"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print("phase 23 walls: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in sorted(walls.items()))
+          + f"; in all {total:.1f} s (budget {PHASE23_BUDGET_S:.0f} s)")
+    assert total <= PHASE23_BUDGET_S, f"phase 23 took {total:.1f} s"
+    out["walls"] = walls
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3608,13 +4101,16 @@ def main() -> None:
     valid = valid_phases(dev, smi, higgs_data, {
         kid_of[e["name"]]: e["lrb"] for e in train if e["name"] in (
             "wave_histogram", "fused_partition_histogram")})
-    del higgs_data
     # 15-18: categorical features
     k1_ms = next(e["ms"] for e in train
                  if e["name"] == "fused_partition_histogram")
     cat, airline = cat_phases(dev, k1_ms, power_limit_w)
     # 22: every objective family, card against CPU
     objectives = objective_phases(dev, smi)
+    # 23: GOSS (on phase 7's rows), DART, RF, forced splits, continued
+    with tempfile.TemporaryDirectory() as tmp:
+        variants = variant_phases(dev, smi, higgs_data, tmp)
+    del higgs_data
 
     # kernels line
     forest = {
@@ -3640,6 +4136,15 @@ def main() -> None:
                                       "plain_ms", "bound_ms", "bound_by",
                                       "max_abs_err")}}
     forest["fleet"] = fleet
+    # phase 23: the boosting variants' models
+    forest["variants"] = {
+        "dart_launches": variants["dart"]["k4_launches"],
+        "rf_launches": variants["rf"]["k4_launches"],
+        "goss_launches": {t: r["k4_launches"]
+                          for t, r in variants["goss"].items()},
+        **{name: {k: variants[name]["k4"][k] for k in (
+            "rows", "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err")} for name in ("dart", "rf")}}
     for e in train:
         kid = kid_of[e["name"]]
         e["lrb_loop"] = {
@@ -3657,6 +4162,19 @@ def main() -> None:
                              for k in ("shape", "ms", "plain_ms",
                                        "library_ms", "bound_ms",
                                        "bound_by", "max_abs_err")}})
+        goss = {t: r["launches_per_iteration"][kid]
+                for t, r in variants["goss"].items()}
+        e["variants"] = (
+            {"goss_launches_per_iteration": goss,
+             "rf_launches_per_iteration":
+             variants["rf"]["launches_per_iteration"][kid],
+             **({"forced_launches": variants["forced"]["k2_forced_launches"]}
+                if kid == "K2" else {})}
+            if kid != "K3" else
+            {"goss_launches_per_iteration": goss,
+             "dart_drop_normalise_launches":
+             variants["dart"]["k3_drop_launches"],
+             "dart_launches": variants["dart"]["k3_launches"]})
         e["valid_sets"] = (valid[kid] if kid != "K3" else
                            {"higgs_launches_per_tree":
                             valid["higgs"]["k3_per_tree"],

@@ -2,8 +2,10 @@
 python-package basic.py:626-2415): training on a Dataset (with query
 groups for ranking) with valid sets and their evaluation, on the
 objective's gradients or a custom objective's (``Booster.update(fobj=)``),
-rollback, and scoring a trained or loaded model. Continued training and
-refit are not ported."""
+with every boosting type (gbdt, goss, dart, rf), rollback, continued
+training (an init model's raw scores folded into the Dataset's init
+scores, ``_InnerPredictor``), and scoring a trained or loaded model.
+Refit is not ported."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -13,6 +15,7 @@ import numpy as np
 from .config import Config
 from .io.dataset import BinnedDataset, Metadata
 from .metrics import create_metrics, metric_names
+from .models.boosting import create_boosting
 from .models.gbdt import GBDT
 from .objectives import create_objective
 from .utils.log import LightGBMError
@@ -111,18 +114,24 @@ class Dataset:
         self.used_indices: Optional[np.ndarray] = None
         self._subset_of: Optional["Dataset"] = None
         self._inner: Optional[BinnedDataset] = None
+        self._predictor: Optional["_InnerPredictor"] = None
+        # the init scores the set was given, in the metadata's form,
+        # before an init model's are added to them
+        self._base_init_score: Optional[np.ndarray] = None
 
     def construct(self, device=None) -> "Dataset":
         """Bin the rows on ``device`` (None: cuda:0), once; a valid set
         bins on its reference's device, a subset of a binned set on its
-        parent's. The raw rows are dropped then unless
-        ``free_raw_data`` is False."""
+        parent's. An init model's raw scores (``_set_predictor``) are
+        folded into the init scores then. The raw rows are dropped then
+        unless ``free_raw_data`` is False."""
         if self._inner is not None:
             return self
         parent = self._subset_of
         if parent is not None and parent._inner is not None:
-            self._inner = parent._inner.subset(self.used_indices,
-                                               self._build_metadata())
+            meta = self._build_metadata()
+            self._base_init_score = meta.init_score
+            self._inner = parent._inner.subset(self.used_indices, meta)
             return self
         if self.data is None:
             raise LightGBMError("the Dataset's raw data was freed")
@@ -131,6 +140,7 @@ class Dataset:
         if self.used_indices is not None:
             X = X[self.used_indices]
         meta = self._build_metadata()
+        self._base_init_score = meta.init_score
         ref = self.reference
         if ref is not None:
             ref.construct(device)
@@ -140,9 +150,40 @@ class Dataset:
             cfg.set(self.params)
             self._inner = BinnedDataset(cfg, device).construct_from_matrix(
                 X, meta, feature_names=names, categorical=cat_idx)
+        if self._predictor is not None:
+            self._apply_init_score_from_predictor(X)
         if self.free_raw_data:
             self.data = None
         return self
+
+    def _apply_init_score_from_predictor(self, raw_X: np.ndarray) -> None:
+        """Continued training: the init model's raw scores of these rows,
+        class-major, added to the init scores the set was given (the JAX
+        package's basic.py:218). The given ones are kept apart, so that
+        another predictor replaces the first one's scores rather than
+        adding to them."""
+        raw = self._predictor.init_score_for(raw_X)
+        base = self._base_init_score
+        self._inner.metadata.init_score = (
+            raw if base is None else np.asarray(base, np.float64) + raw)
+
+    def _set_predictor(self, predictor) -> None:
+        """The init model whose raw scores start this set's scores
+        (basic.py:230-251); a set binned already folds them at once from
+        its raw rows, which it must have kept."""
+        if predictor is self._predictor:
+            return
+        self._predictor = predictor
+        if self._inner is not None and predictor is not None:
+            if self.data is None:
+                raise LightGBMError(
+                    "Cannot set init model on a constructed Dataset whose "
+                    "raw data was freed; use free_raw_data=False")
+            raw_X = _data_to_2d(self.data, self.feature_name,
+                                self.categorical_feature)[0]
+            if self.used_indices is not None:
+                raw_X = raw_X[self.used_indices]
+            self._apply_init_score_from_predictor(raw_X)
 
     def _build_metadata(self) -> Metadata:
         sub = self.used_indices
@@ -201,8 +242,9 @@ class Dataset:
     def set_init_score(self, init_score) -> "Dataset":
         self.init_score = init_score
         if self._inner is not None and init_score is not None:
-            self._inner.metadata.init_score = np.asarray(
+            self._base_init_score = np.asarray(
                 init_score, np.float64).reshape(-1)
+            self._inner.metadata.init_score = self._base_init_score
         return self
 
     def get_label(self):
@@ -278,15 +320,17 @@ class Dataset:
         if self._inner is None and self.data is None:
             raise LightGBMError("Cannot subset a Dataset whose raw data "
                                 "was freed")
+        # a binned set's init scores carry an init model's, folded
         ret = Dataset(None if self._inner is not None else self.data,
                       label=self.label, weight=self.weight, group=self.group,
-                      init_score=self.init_score,
+                      init_score=self.get_init_score(),
                       feature_name=self.feature_name,
                       categorical_feature=self.categorical_feature,
                       params=params or self.params,
                       free_raw_data=self.free_raw_data)
         ret.used_indices = np.sort(np.asarray(used_indices, np.int64))
         ret._subset_of = self
+        ret._predictor = self._predictor
         return ret
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
@@ -368,7 +412,8 @@ class Booster:
         metrics = create_metrics(self._metric_names, cfg, inner.metadata,
                                  inner.num_data)
         self.config = cfg
-        self._gbdt = GBDT(inner.device).init(cfg, inner, objective, metrics)
+        self._gbdt = create_boosting(cfg.boosting_type(), inner.device).init(
+            cfg, inner, objective, metrics)
 
     # -- training -----------------------------------------------------------
 
@@ -379,6 +424,8 @@ class Booster:
             raise LightGBMError("Add valid data requires a Booster with "
                                 "training data")
         data.set_reference(self.train_set)
+        # a valid set's scores start from the init model's too
+        data._set_predictor(self.train_set._predictor)
         inner = data.construct(self._gbdt.device)._inner
         metrics = create_metrics(self._metric_names, self.config,
                                  inner.metadata, inner.num_data)
@@ -523,6 +570,9 @@ class Booster:
         self.valid_sets = []
         return self
 
+    def _to_predictor(self) -> "_InnerPredictor":
+        return _InnerPredictor(booster=self)
+
     # -- serialization ------------------------------------------------------
 
     def save_model(self, filename: str, num_iteration: int = -1,
@@ -538,3 +588,37 @@ class Booster:
         if num_iteration < 0 and self.best_iteration > 0:
             num_iteration = self.best_iteration
         return self._gbdt.model_to_string(start_iteration, num_iteration)
+
+
+class _InnerPredictor:
+    """An init model for continued training (basic.py:356-624
+    _InnerPredictor; the JAX package's basic.py:820-855): its raw
+    scores, folded into a Dataset's init scores. A model file or text is
+    loaded on ``device`` (None: cuda:0); a Booster's model predicts on
+    its own device."""
+
+    def __init__(self, model_file: Optional[str] = None,
+                 booster: Optional[Booster] = None,
+                 model_str: Optional[str] = None, device=None):
+        if booster is not None:
+            self._gbdt = booster._gbdt
+        elif model_file is not None:
+            with open(model_file) as fh:
+                self._gbdt = GBDT(device).load_model_from_string(
+                    fh.read(), source=model_file)
+        elif model_str is not None:
+            self._gbdt = GBDT(device).load_model_from_string(model_str)
+        else:
+            raise TypeError("Need model_file, model_str or booster")
+
+    @property
+    def num_total_iteration(self) -> int:
+        return self._gbdt.current_iteration
+
+    def init_score_for(self, X) -> np.ndarray:
+        """Raw scores of the rows of ``X``, float64, flattened
+        class-major (the init score layout, metadata.cpp)."""
+        raw = self._gbdt.predict_raw(np.asarray(X, np.float64))
+        if raw.ndim == 2:
+            return raw.T.reshape(-1).astype(np.float64)
+        return raw.astype(np.float64)

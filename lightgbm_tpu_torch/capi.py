@@ -2,9 +2,10 @@
 the fork's LRB loop makes; reference src/c_api.cpp,
 include/LightGBM/c_api.h): a dataset from a matrix and its fields
 (query groups among them), a validation set binned with a training
-set's mappers, a booster trained one iteration at a time, on its
-objective's gradients or the caller's, with valid sets, their metrics
-and scores, rollback, feature importance, its model text, and scoring.
+set's mappers, a booster of any boosting type trained one iteration at
+a time, on its objective's gradients or the caller's, with valid sets,
+their metrics and scores, rollback, feature importance, its model text,
+merging two models, continuing on new training data, and scoring.
 
 Handles are opaque objects, out-parameters become return values, and
 the dtype and predict tags match c_api.h, so C callers transliterate line
@@ -20,6 +21,7 @@ import numpy as np
 from .config import Config
 from .io.dataset import BinnedDataset, Metadata
 from .metrics import create_metric, create_metrics, metric_names
+from .models.boosting import create_boosting
 from .models.gbdt import GBDT
 from .objectives import create_objective
 from .utils.log import LightGBMError
@@ -181,8 +183,9 @@ def LGBM_BoosterCreate(train_data: _DatasetHandle,
     if cfg.is_provide_training_metric:
         metrics = create_metrics(metric_names(cfg), cfg, inner.metadata,
                                  inner.num_data)
-    return _BoosterHandle(GBDT(inner.device).init(cfg, inner, objective,
-                                                  metrics), cfg, train_data)
+    gbdt = create_boosting(cfg.boosting_type(), inner.device)
+    return _BoosterHandle(gbdt.init(cfg, inner, objective, metrics), cfg,
+                          train_data)
 
 
 def LGBM_BoosterAddValidData(handle: _BoosterHandle,
@@ -219,6 +222,42 @@ def LGBM_BoosterUpdateOneIterCustom(handle: _BoosterHandle, grad,
                             f"{hess.size} values; the booster needs "
                             f"num_data * num_class = {size}")
     return 1 if g.train_one_iter(grad, hess) else 0
+
+
+def LGBM_BoosterMerge(handle: _BoosterHandle, other: _BoosterHandle):
+    """c_api.cpp:570: ``other``'s trees appended to the booster's."""
+    g, o = handle.gbdt, other.gbdt
+    o._ensure_host_trees()
+    g._ensure_host_trees()
+    g.records.extend(o.records)
+    g.models.extend(o.models)
+    g._tree_shrinkage.extend(o._tree_shrinkage)
+    g._invalidate_stacked()
+    return 0
+
+
+def LGBM_BoosterResetTrainingData(handle: _BoosterHandle,
+                                  train_data: _DatasetHandle):
+    """c_api.cpp:580, GBDT::ResetTrainingData: the booster goes on
+    training on ``train_data`` (binned on its device), its trees mapped
+    to the new mappers' bins and replayed into the new scores
+    (``GBDT.init_from_loaded``)."""
+    g = handle.gbdt
+    inner = train_data.construct()
+    objective = g.objective
+    if objective is not None:
+        objective.init(inner.metadata, inner.num_data)
+    cfg = handle.cfg
+    metrics = []
+    if cfg.is_provide_training_metric:
+        metrics = create_metrics(metric_names(cfg), cfg, inner.metadata,
+                                 inner.num_data)
+    if g.models:
+        g.init_from_loaded(cfg, inner, objective, metrics)
+    else:
+        g.init(cfg, inner, objective, metrics)
+    handle.train = train_data
+    return 0
 
 
 def LGBM_BoosterRollbackOneIter(handle: _BoosterHandle):

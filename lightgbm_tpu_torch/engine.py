@@ -1,9 +1,10 @@
 """``train`` and ``cv`` (the JAX package's ``engine.py``, reference
 python-package engine.py:19-498): training with valid sets, callbacks,
 custom objectives (``fobj``) and evaluation functions and early
-stopping, and k-fold cross-validation (query-aware for ranking).
-Continued training (``init_model``), run reports, checkpoints and
-profiles are not ported and raise."""
+stopping, continued training from an init model (``init_model``, a
+model file or a Booster: its raw scores start the scores), and k-fold
+cross-validation (query-aware for ranking). Run reports, checkpoints
+and profiles are not ported and raise."""
 from __future__ import annotations
 
 import collections
@@ -14,7 +15,7 @@ from typing import Dict, List
 import numpy as np
 
 from . import callback
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, _InnerPredictor
 from .utils.log import LightGBMError
 
 __all__ = ["train", "cv", "CVBooster"]
@@ -47,10 +48,17 @@ def _pop_rounds(params: Dict, num_boost_round: int,
     return num_boost_round, early_stopping_rounds
 
 
-def _refuse_unported(params: Dict, init_model) -> None:
-    if init_model is not None:
-        raise NotImplementedError("continued training (init_model) is not "
-                                  "ported yet")
+def _predictor(init_model, device):
+    """The init model of continued training: a model file, loaded on
+    ``device``, or a Booster (engine.py:50-56)."""
+    if isinstance(init_model, str):
+        return _InnerPredictor(model_file=init_model, device=device)
+    if isinstance(init_model, Booster):
+        return init_model._to_predictor()
+    return None
+
+
+def _refuse_unported(params: Dict) -> None:
     for key in _UNPORTED_PARAMS:
         if params.get(key):
             raise NotImplementedError(f"{key} is not ported yet")
@@ -85,17 +93,23 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     """Train ``num_boost_round`` iterations on ``device`` (None: cuda:0),
     evaluating ``valid_sets`` (the JAX package's engine.py:19-194).
     Aliases in ``params`` override the round count and the early-stopping
-    rounds, as in the reference. Training stops at the first iteration
+    rounds, as in the reference. With ``init_model`` the init model's raw
+    scores start the train and valid scores, the callbacks count
+    iterations on from its iterations, and the returned model holds only
+    the new trees. Training stops at the first iteration
     that could not split (``Booster.update`` returns True), or when the
     early-stopping callback ends it: then ``best_iteration`` is set, and
     the model text and predictions use it."""
     params = copy.deepcopy(params) if params else {}
     num_boost_round, early_stopping_rounds = _pop_rounds(
         params, num_boost_round, early_stopping_rounds)
-    _refuse_unported(params, init_model)
+    _refuse_unported(params)
+    predictor = _predictor(init_model, device)
+    init_iteration = predictor.num_total_iteration if predictor else 0
     if not isinstance(train_set, Dataset):
         raise TypeError("Training only accepts Dataset object")
     train_set.params.update(params)
+    train_set._set_predictor(predictor)
     train_set.set_feature_name(feature_name)
     train_set.set_categorical_feature(categorical_feature)
 
@@ -142,8 +156,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     for valid_set, name in zip(reduced_valid_sets, name_valid_sets):
         booster.add_valid(valid_set, name)
     booster.best_iteration = 0
-    results = _train_loop(booster, params, num_boost_round, before, after,
-                          fobj, feval, valid_sets is not None,
+    results = _train_loop(booster, params, init_iteration, num_boost_round,
+                          before, after, fobj, feval, valid_sets is not None,
                           is_valid_contain_train)
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for dataset_name, eval_name, score, _ in results:
@@ -153,19 +167,21 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     return booster
 
 
-def _train_loop(booster: Booster, params: Dict, num_boost_round: int,
-                before: list, after: list, fobj, feval, has_valid: bool,
-                is_valid_contain_train: bool) -> list:
+def _train_loop(booster: Booster, params: Dict, init_iteration: int,
+                num_boost_round: int, before: list, after: list, fobj, feval,
+                has_valid: bool, is_valid_contain_train: bool) -> list:
     """The boosting loop (the JAX package's engine.py:197-293, its
     synchronous route): each iteration is evaluated, with one readback
-    a set, before the next starts. Returns the last evaluation result
-    list, or the best one on an early stop."""
+    a set, before the next starts; the callbacks see iterations from
+    ``init_iteration`` on. Returns the last evaluation result list, or
+    the best one on an early stop."""
     results = []
-    for i in range(num_boost_round):
+    end_iteration = init_iteration + num_boost_round
+    for i in range(init_iteration, end_iteration):
         for cb in before:
             cb(callback.CallbackEnv(
                 model=booster, params=params, iteration=i,
-                begin_iteration=0, end_iteration=num_boost_round,
+                begin_iteration=init_iteration, end_iteration=end_iteration,
                 evaluation_result_list=None))
         if booster.update(fobj=fobj):
             break
@@ -178,7 +194,8 @@ def _train_loop(booster: Booster, params: Dict, num_boost_round: int,
             for cb in after:
                 cb(callback.CallbackEnv(
                     model=booster, params=params, iteration=i,
-                    begin_iteration=0, end_iteration=num_boost_round,
+                    begin_iteration=init_iteration,
+                    end_iteration=end_iteration,
                     evaluation_result_list=results))
         except callback.EarlyStopException as early_stop:
             booster.best_iteration = early_stop.best_iteration + 1
@@ -309,12 +326,13 @@ def cv(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     params = copy.deepcopy(params) if params else {}
     num_boost_round, early_stopping_rounds = _pop_rounds(
         params, num_boost_round, early_stopping_rounds)
-    _refuse_unported(params, init_model)
+    _refuse_unported(params)
     if metrics is not None:
         params["metric"] = metrics
     if train_set.get_label() is None:
         raise LightGBMError("Labels should not be None")
     train_set.params.update(params)
+    train_set._set_predictor(_predictor(init_model, device))
     train_set.set_feature_name(feature_name)
     train_set.set_categorical_feature(categorical_feature)
     if stratified and params.get("objective") not in (

@@ -9,10 +9,14 @@ numerical and categorical features:
 ``train_one_iter`` runs one boosting iteration there
 (the step body of the JAX package's ``ops/step_cache.py:324-406``:
 gradients of every objective, or custom ones, for all K classes at once;
-then per class its tree, the L1 family's leaf renewal
-(ops/renew.py), the shrinkage fold, the score update of its row through
-the leaf-gather kernel, the boost-from-average bias on the stored
-record).
+the subclasses' sample hook (GOSS, models/boosting.py); then per class
+its tree, the L1 family's leaf renewal (ops/renew.py), the shrinkage
+fold, the score update of its row through the leaf-gather kernel, the
+boost-from-average bias on the stored record). GOSS, DART and RF
+(models/boosting.py, ``create_boosting``) build on this class; forced
+splits (``forcedsplits_filename``) are a prefix of every tree's growth
+(ops/wave_grower.py), and ``init_from_loaded`` continues training a
+loaded model on a new train set.
 Valid sets (``add_valid_data``) ride the grower's bin matrix as weight-0
 passenger columns after the training rows, as in the JAX package
 (gbdt.py:977-1013, :1165-1220): every split moves them, nothing counts
@@ -34,7 +38,7 @@ import torch
 
 from ..config import Config
 from ..io.binning import BinType
-from .tree import Tree, tree_from_record
+from .tree import Tree, record_arrays_from_tree, tree_from_record
 from ..analysis import lockorder
 from ..ops.grower import TreeRecord
 from ..objectives import ObjectiveFunction, parse_objective_from_model_string
@@ -112,9 +116,6 @@ class GBDT:
              training_metrics: Sequence = ()) -> "GBDT":
         """Set up training on ``train_data`` (io/dataset.py
         BinnedDataset) on its device (gbdt.cpp:47-117)."""
-        if config.boosting_type() != "gbdt":
-            raise NotImplementedError(
-                f"boosting={config.boosting_type()} is not ported yet")
         self.config = config
         self.train_data = train_data
         self.device = train_data.device
@@ -142,6 +143,8 @@ class GBDT:
         self._n = n = self._n_total = train_data.num_data
         self._host_meta = train_data.feature_meta()
         self._grower_cfg = None
+        # the forced splits in this train set's bins, read once a file
+        self._forced_file, self._forced_splits = None, ()
         self._setup_grower()
         dev = self.device
         self._scores = self._initial_scores(train_data)
@@ -212,6 +215,10 @@ class GBDT:
                         for m in td.mappers))
         quant = cfg.tpu_quantized_hist
         forced = bool(cfg.forcedsplits_filename)
+        if cfg.forcedsplits_filename != self._forced_file:
+            self._forced_file = cfg.forcedsplits_filename
+            self._forced_splits = (self._parse_forced_splits() if forced
+                                   else ())
         # count-proxy: int8 only, no forced splits and no categorical
         # features, whose search takes a side's count as num_data minus
         # the other's, which would turn the proxy's lower bounds into
@@ -281,7 +288,7 @@ class GBDT:
         grower_cfg = WaveGrowerConfig(
             num_leaves=max(cfg.num_leaves, 2), num_bins=B, wave_size=W,
             max_depth=cfg.max_depth, hp=hp, precision=precision,
-            count_proxy=proxy, packed4=packed4)
+            count_proxy=proxy, packed4=packed4, forced=self._forced_splits)
         if self._grower_cfg == grower_cfg:
             return                      # reset_config changed no field
         self._grower_cfg = grower_cfg
@@ -291,6 +298,57 @@ class GBDT:
                      nbytes / 1e6, 2 * nbytes / 1e6)
         self._grower = WaveGrower(self._grower_cfg, td.feature_meta(),
                                   self.device)
+
+    def _parse_forced_splits(self) -> tuple:
+        """The ``forcedsplits_filename`` JSON as ((parent leaf, inner
+        feature, bin), ...) in BFS order, the reference's ForceSplits
+        leaf numbering (serial_tree_learner.cpp:546-701; the JAX
+        package's gbdt.py:910): the left child keeps its parent's leaf,
+        the right child takes the next id in the order of application.
+        A node on an unused or a categorical feature is skipped with its
+        subtree, with a warning; at most num_leaves - 1 splits."""
+        import collections
+        import json
+        cfg = self.config
+        try:
+            with open(cfg.forcedsplits_filename) as fh:
+                spec = json.load(fh)
+        except (OSError, ValueError) as e:
+            log.fatal(f"Cannot read forced splits file "
+                      f"{cfg.forcedsplits_filename!r}: {e}")
+        td = self.train_data
+        out = []
+        q = collections.deque([(spec, 0)])
+        next_leaf = 1
+        cap = max(cfg.num_leaves, 2) - 1
+        while q and len(out) < cap:
+            node, leaf = q.popleft()
+            if not isinstance(node, dict) or "feature" not in node:
+                continue
+            if "threshold" not in node:
+                log.fatal(f"Forced split node missing 'threshold': "
+                          f"{node!r}")
+            inner = td.real_to_inner.get(int(node["feature"]))
+            if inner is None:
+                log.warning("Forced split on unused feature %s skipped",
+                            node["feature"])
+                continue
+            if td.mappers[inner].bin_type == BinType.CATEGORICAL:
+                log.warning("Forced split on categorical feature %s is "
+                            "not supported; skipped", node["feature"])
+                continue
+            tbin = int(td.mappers[inner].value_to_bin(
+                np.asarray([float(node["threshold"])]))[0])
+            out.append((leaf, int(inner), tbin))
+            right_leaf = next_leaf
+            next_leaf += 1
+            if node.get("left"):
+                q.append((node["left"], leaf))
+            if node.get("right"):
+                q.append((node["right"], right_leaf))
+        if out:
+            log.info("Applying %d forced splits per tree", len(out))
+        return tuple(out)
 
     def _initial_scores(self, data) -> torch.Tensor:
         """[K, N] f32 scores of ``data`` before any tree: its init scores
@@ -307,6 +365,51 @@ class GBDT:
         grown tree, its splits read from one host copy of the record."""
         return replay_partition(TreeRecord(**rec.to_numpy()), bins_t,
                                 self._host_meta)
+
+    def _replay_into(self, scores: torch.Tensor, bins_t: torch.Tensor,
+                     records: Sequence) -> None:
+        """Add the trees of ``records`` to ``scores`` [K, N] of the rows
+        of ``bins_t`` [F, N] (unpacked), each at shrink 1.0, as a valid
+        set added late or a continued model's train set starts."""
+        k = self.num_tree_per_iteration
+        for t_idx, rec in enumerate(records):
+            add_leaf_outputs(scores[t_idx % k], self._replay(rec, bins_t),
+                             rec.leaf_output, 1.0)
+
+    def init_from_loaded(self, config: Config, train_data, objective,
+                         training_metrics: Sequence = ()) -> "GBDT":
+        """Continue training a loaded model on ``train_data`` (the JAX
+        package's gbdt.py:1015-1054; reference GBDT::ResetTrainingData):
+        each loaded tree gets a record in the new mappers' bin space
+        (``record_arrays_from_tree``) and is replayed into the train
+        scores; training goes on at iteration ``trees / K``, so the
+        bagging and sampling schedules go on too. The loaded host Trees
+        stay as they were loaded, so their thresholds in the model text
+        are the ones read."""
+        self._ensure_host_trees()
+        loaded = list(self.models)
+        k_loaded = max(self.num_tree_per_iteration, 1)
+        self.init(config, train_data, objective, training_metrics)
+        K = self.num_tree_per_iteration
+        if K != k_loaded:
+            log.fatal("num_class of input_model doesn't match config")
+        L = self._grower_cfg.num_leaves
+        self.models = loaded
+        self.records = []
+        self._tree_shrinkage = [m.shrinkage if m.shrinkage else 1.0
+                                for m in loaded]
+        for tree in loaded:
+            arrs = record_arrays_from_tree(
+                tree, train_data.real_to_inner, train_data.mappers, L)
+            self.records.append(TreeRecord(**{
+                k: int(v) if k == "num_leaves"
+                else torch.from_numpy(v).to(self.device)
+                for k, v in arrs.items()}))
+        self.iter_ = len(loaded) // K
+        self._replay_into(self._scores, train_data.bins_t, self.records)
+        self._invalidate_stacked()
+        log.info("Continuing training from iteration %d", self.iter_)
+        return self
 
     def add_valid_data(self, valid_data, metrics: Sequence = (),
                        name: str = "") -> None:
@@ -325,11 +428,7 @@ class GBDT:
         scores = self._initial_scores(valid_data)
         self._valid_scores.append(scores)
         if self.records:
-            bins = valid_data.bins_t
-            k = self.num_tree_per_iteration
-            for t_idx, rec in enumerate(self.records):
-                add_leaf_outputs(scores[t_idx % k], self._replay(rec, bins),
-                                 rec.leaf_output, 1.0)
+            self._replay_into(scores, valid_data.bins_t, self.records)
         self._rebuild_grower_bins()
 
     def _rebuild_grower_bins(self) -> None:
@@ -419,6 +518,13 @@ class GBDT:
             log.info("Start training from score %g", init)
         return init
 
+    def _sample(self, g_all: torch.Tensor, h_all: torch.Tensor,
+                mask: torch.Tensor) -> tuple:
+        """The sample hook between the gradients [K, N] and the trees
+        (GOSS overrides it; the JAX package's ``sample_hook``,
+        ops/step_cache.py:340-348): (g, h, mask [N + passengers])."""
+        return g_all, h_all, mask
+
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration (gbdt.cpp:333-412; the step body of the
         JAX package's ops/step_cache.py:324-406); True when training
@@ -470,6 +576,7 @@ class GBDT:
                 self._scores if K > 1 else self._scores[0])
             if K == 1:
                 g_all, h_all = g_all[None], h_all[None]
+        g_all, h_all, mask = self._sample(g_all, h_all, mask)
         renew = None if custom else self._renew
         grown = []
         for k in range(K):

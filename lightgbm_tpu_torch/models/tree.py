@@ -2,8 +2,9 @@
 
 The JAX package's ``models/tree.py``: the reference Tree
 (include/LightGBM/tree.h:1-518, src/io/tree.cpp:209-355) as parallel
-numpy-friendly lists, its v2 model text, its float64 host traversal, and
-``tree_from_record``, which builds a Tree from a grown TreeRecord.
+numpy-friendly lists, its v2 model text, its float64 host traversal,
+``tree_from_record``, which builds a Tree from a grown TreeRecord, and
+``record_arrays_from_tree``, its inverse for continued training.
 
 - node i is created by split i; leaves are encoded as ``~leaf_index`` in
   child pointers (tree.h left_child_/right_child_ convention)
@@ -19,6 +20,7 @@ from typing import List
 import numpy as np
 
 from ..io.binning import MissingType
+from ..utils import log
 
 K_CATEGORICAL_MASK = 1
 K_DEFAULT_LEFT_MASK = 2
@@ -302,6 +304,74 @@ def _fmt_double(x) -> str:
     if not np.isfinite(x):
         return str(x)
     return repr(float(x))
+
+
+def record_arrays_from_tree(tree: Tree, real_to_inner: dict, mappers,
+                            max_leaves: int) -> dict:
+    """The inverse of ``tree_from_record`` (the JAX package's
+    tree.py:492-562): a host Tree as TreeRecord-shaped numpy arrays in
+    the bin space of ``mappers``, for continued training
+    (GBDT::LoadModelFromString, gbdt_model_text.cpp:339-450, rebuilds
+    its model the same way). Node i is split i; the leaf it split is
+    found by descending left children to a leaf, since a re-split leaf
+    keeps its index in its left child. Thresholds are bin upper bounds,
+    so ``value_to_bin`` maps them back exactly on the same mappers; a
+    categorical node's category bitset becomes its bins' bitset."""
+    L = max_leaves
+    nl = tree.num_leaves
+    if nl > L:
+        log.fatal(f"Loaded tree has {nl} leaves > num_leaves cap {L}; "
+                  "raise num_leaves to continue training this model")
+    s = max(L - 1, 1)
+    out = {
+        "num_leaves": np.int32(nl),
+        "split_leaf": np.full(s, -1, np.int32),
+        "split_feature": np.zeros(s, np.int32),
+        "split_bin": np.zeros(s, np.int32),
+        "split_gain": np.zeros(s, np.float32),
+        "split_default_left": np.zeros(s, bool),
+        "leaf_output": np.zeros(L, np.float32),
+        "leaf_count": np.zeros(L, np.float32),
+        "leaf_sum_g": np.zeros(L, np.float32),
+        "leaf_sum_h": np.zeros(L, np.float32),
+        "internal_value": np.zeros(s, np.float32),
+        "internal_count": np.zeros(s, np.float32),
+        "split_is_cat": np.zeros(s, bool),
+        "split_cat_words": np.zeros((s, 8), np.int32),
+    }
+    for i in range(nl - 1):
+        c = tree.left_child[i]
+        while c >= 0:
+            c = tree.left_child[c]
+        out["split_leaf"][i] = ~c
+        inner = real_to_inner.get(tree.split_feature[i])
+        if inner is None:
+            log.fatal(f"Loaded model splits on feature "
+                      f"{tree.split_feature[i]} which is trivial/unused in "
+                      "the new training data")
+        out["split_feature"][i] = inner
+        if tree.decision_type[i] & K_CATEGORICAL_MASK:
+            ci = tree.threshold_in_bin[i]
+            lo, hi = tree.cat_boundaries[ci], tree.cat_boundaries[ci + 1]
+            words = np.zeros(8, np.uint32)
+            for cat, b in mappers[inner].categorical_2_bin.items():
+                w = cat // 32
+                if lo + w < hi and b < 256 and cat >= 0 \
+                        and (tree.cat_threshold[lo + w] >> (cat % 32)) & 1:
+                    words[b // 32] |= np.uint32(1 << (b % 32))
+            out["split_is_cat"][i] = True
+            out["split_cat_words"][i] = words.astype(np.int32)
+        else:
+            out["split_bin"][i] = int(mappers[inner].value_to_bin(
+                np.asarray([tree.threshold[i]]))[0])
+            out["split_default_left"][i] = bool(
+                tree.decision_type[i] & K_DEFAULT_LEFT_MASK)
+        out["split_gain"][i] = tree.split_gain[i]
+        out["internal_value"][i] = tree.internal_value[i]
+        out["internal_count"][i] = tree.internal_count[i]
+    out["leaf_output"][:nl] = tree.leaf_value[:nl]
+    out["leaf_count"][:nl] = tree.leaf_count[:nl]
+    return out
 
 
 def tree_from_record(rec: dict, mappers, real_features, max_leaves: int

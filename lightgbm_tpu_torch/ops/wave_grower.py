@@ -19,6 +19,14 @@ K1 returns each slot's exact in-bag moved-right count, and the leaf
 counts the trees record stay exact (:820-835). With ``packed4`` the bins
 are [ceil(F/2), N], two 4-bit bins per byte, read by K1 and K2 only.
 
+Forced splits (``WaveGrowerConfig.forced``, from the JAX package's
+:926-1010) are a prefix of every tree: each is a wave of one slot with
+its (feature, bin) chosen instead of elected: the partition, one K2 pass
+over the left child (which keeps the parent's leaf), the right child by
+subtraction from the parent, the children's sums over feature 0's bins,
+and their best splits, after which growth by gain goes on. They exclude
+the count-proxy and packed4 tiers (the JAX package's :281-292).
+
 With categorical features (``SplitParams.has_cat``) each leaf also
 carries its best split's categorical flag and left-set bitset (the JAX
 package's ``t_is_cat``, ``t_cat_words``, :152-153); they ride into K1's
@@ -41,11 +49,13 @@ import numpy as np
 import torch
 
 from .grower import TreeRecord
-from .f32math import fma
+from .f32math import fma, xla_sum
 from .hist_wave import dequantize, fused_partition_histogram, wave_histogram
 from .quantize import INV127, quantize
+from .partition import apply_split
 from .split import (KMIN_SCORE, NCAT_WORDS, FeatureMeta, SplitParams,
-                    _f32, calculate_leaf_output, find_best_split)
+                    _f32, calculate_leaf_output, find_best_split,
+                    threshold_l1)
 
 
 class WaveGrowerConfig(NamedTuple):
@@ -57,6 +67,7 @@ class WaveGrowerConfig(NamedTuple):
     precision: str = "f32"   # "f32" or "int8" (tpu_quantized_hist)
     count_proxy: bool = False
     packed4: bool = False
+    forced: tuple = ()       # ((parent leaf, inner feature, bin), ...) BFS
 
 
 def bound_counts(hist: torch.Tensor, sg, sh) -> torch.Tensor:
@@ -103,10 +114,26 @@ def _stable_sum(v: torch.Tensor) -> torch.Tensor:
     return torch.tensor(total, dtype=torch.float32, device=v.device)
 
 
+def _forced_gain(sum_g, sum_h, l1: float, l2: float, mds: float,
+                 child: bool) -> torch.Tensor:
+    """GetLeafSplitGain of a forced split's child or parent, rounded as
+    XLA's CPU code rounds the JAX package's jitted grower: a child's
+    ``2 g out + (h + l2) out out`` unfused, the parent's contracted into
+    one fused multiply-add around ``2 g * out``."""
+    out = calculate_leaf_output(sum_g, sum_h, l1, l2, mds)
+    twice_g = 2.0 * threshold_l1(sum_g, l1)
+    if child:
+        return -(twice_g * out + (sum_h + l2) * out * out)
+    return -fma(twice_g, out, (sum_h + l2) * out * out)
+
+
 class WaveGrower:
     """Grows one tree per ``grow`` call from bins [F, N] on one device."""
 
     def __init__(self, cfg: WaveGrowerConfig, meta: FeatureMeta, device):
+        if cfg.forced and (cfg.count_proxy or cfg.packed4):
+            raise ValueError("forced splits do not compose with the "
+                             "count-proxy or packed4 tiers")
         self.cfg = cfg
         self.L = cfg.num_leaves
         self.W = min(cfg.wave_size, max(self.L - 1, 1))
@@ -222,6 +249,71 @@ class WaveGrower:
             split_cat_words=torch.zeros((L - 1, NCAT_WORDS), dtype=i32,
                                         device=dev))
         num_leaves = 1
+
+        # the forced prefix: a wave of one slot per forced split (the JAX
+        # package's :926-1010, step for step)
+        tiny, tiny2 = _f32(1e-15), _f32(2e-15)
+        for fs_leaf, fs_feat, fs_bin in cfg.forced:
+            wl = torch.tensor([fs_leaf], dtype=i64, device=dev)
+            new_id = torch.tensor([num_leaves], dtype=i64, device=dev)
+            leaf_ids = apply_split(
+                leaf_ids, bins_t[fs_feat].to(i32), fs_leaf, num_leaves,
+                fs_bin, False, meta.missing_type[fs_feat],
+                meta.default_bin[fs_feat], meta.num_bin[fs_feat])
+            ids = torch.where(in_bag, leaf_ids, -1)
+            if scale is None:
+                hist_left = wave_histogram(bins_t, hg, hh, ids, wl.to(i32),
+                                           B, **tier)
+                hist_right = pool[wl] - hist_left
+            else:
+                # int8: the right child's subtraction fuses the
+                # dequantization, as in the waves below
+                raw = wave_histogram(bins_t, hg, hh, ids, wl.to(i32), B,
+                                     **tier)
+                hist_left = dequantize(raw, scale)
+                hist_right = fma(raw.to(f32), -qscale, pool[wl])
+            pool[wl] = hist_left
+            pool[new_id] = hist_right
+            # each row lies in one bin of any feature: the child sums
+            # over feature 0's bins, in XLA's order
+            lg, lh, lcnt = (xla_sum(hist_left[:, 0, :, c]) for c in range(3))
+            pg, ph, pc = leaf_sum_g[wl], leaf_sum_h[wl], leaf_count[wl]
+            rg, rh, rcnt = pg - lg, ph - lh, pc - lcnt
+            gain = (_forced_gain(lg, lh + tiny, l1, l2, mds, True)
+                    + _forced_gain(rg, rh + tiny, l1, l2, mds, True)
+                    - _forced_gain(pg, ph + tiny2, l1, l2, mds, False))
+            pos = num_leaves - 1
+            rec["split_leaf"][pos] = fs_leaf
+            rec["split_feature"][pos] = fs_feat
+            rec["split_bin"][pos] = fs_bin
+            rec["split_gain"][pos] = gain[0]
+            rec["internal_value"][pos] = calculate_leaf_output(
+                pg, ph, l1, l2, mds)[0]
+            rec["internal_count"][pos] = pc[0]
+            # an empty child gets output 0, not -0/0
+            lo = torch.where(lcnt > 0, calculate_leaf_output(
+                lg, lh + tiny, l1, l2, mds), 0.0)
+            ro = torch.where(rcnt > 0, calculate_leaf_output(
+                rg, rh + tiny, l1, l2, mds), 0.0)
+            child_depth = leaf_depth[wl] + 1
+            for arr, lv, rv in ((leaf_output, lo, ro),
+                                (leaf_count, lcnt, rcnt),
+                                (leaf_sum_g, lg, rg), (leaf_sum_h, lh, rh),
+                                (leaf_depth, child_depth, child_depth)):
+                arr[wl] = lv
+                arr[new_id] = rv
+            can = self._depth_ok(child_depth)
+            res = find_best_split(
+                torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
+                torch.cat([lh, rh]), torch.cat([lcnt, rcnt]), feature_mask,
+                meta, hp, torch.cat([can, can]))
+            idx2 = torch.cat([wl, new_id])
+            for name in t:
+                v = getattr(res, name)
+                if name == "gain":
+                    v = torch.where(torch.isfinite(v), v, KMIN_SCORE)
+                t[name][idx2] = v.to(t[name].dtype)
+            num_leaves += 1
 
         while num_leaves < L:
             # 1. elect the wave: the top-W leaves by gain (ties to the

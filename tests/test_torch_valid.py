@@ -623,7 +623,9 @@ def test_unported_options_raise():
     X, y, Xv, yv = _lrb_sets(400, 100)
     params = _lrb_params()
     ds = lgt.Dataset(X, label=y)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # init_model is ported (tests/test_torch_boosting.py): a missing
+    # model file raises as the JAX package's does
+    with pytest.raises(FileNotFoundError):
         lgt.train(params, ds, 2, device="cpu", init_model="m.txt")
     for key in ("tpu_run_report", "tpu_checkpoint_dir", "tpu_profile_dir"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
