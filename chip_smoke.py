@@ -7,7 +7,8 @@ all at once), then drives the port's scoring and training paths through
 the entry points a user calls:
 
 1. device: needs CUDA; prints the card's name and power limit;
-2. build: nvcc's time and register report for each source;
+2. build: nvcc's time and register report for each kernel source, and
+   g++'s time for the text parser (csrc/fast_parser.cpp);
 3. golden: every case of tests/data/golden2 through
    ``Booster(model_file=...).predict`` against the reference LightGBM's
    predictions (host binning, float64 X), and the same X as float32
@@ -234,9 +235,36 @@ the entry points a user calls:
    20,000 rows, 31 leaves, 5 iterations: GOSS at learning_rate 0.5,
    DART in its four modes, RF binary and multiclass, forced splits,
    continued training. Each part prints its ms an iteration, the card's
-   busy share and its launches.
+   busy share and its launches;
+24. the file entry point, after phase 23, in at most 120 s (the files'
+   writing untimed, at most 30 s): phase 6's window written as an
+   integer TSV, the label first (``write_int_tsv``), and its next 65,536
+   rows likewise. (a) ``lightgbm_tpu_torch.application.main(
+   ["config=train.conf"])`` with ``TRAIN_PARAMS`` (the text parser built
+   from csrc/fast_parser.cpp, the loader, the CLI training driver): the
+   model text before its parameters equal to phase 6's, K1, K2 and K3
+   launched; parse and binning seconds and ms an iteration printed from
+   the driver's phase timers; (b) ``task=predict`` and
+   ``LGBM_BoosterPredictForFile`` on the next rows: both result files
+   equal line for line to ``f"{v:g}"`` of phase 6's answers, K4
+   launched; (c) refit on the next rows through ``task=refit``,
+   ``LGBM_BoosterRefit`` after ``LGBM_BoosterResetTrainingData`` (K3 50
+   launches, one a tree) and ``Booster.refit``: the three models equal,
+   a second run the same bits, the trees' structure (a)'s, each tree's
+   outputs within the f32 bound (``refit_bound``) of the plain sums on the
+   CPU on the card's leaf ids, g and h, and ``refit_decay_rate=1.0``
+   giving (a)'s leaf values; (d) ``predict(pred_contrib=True)`` on 256
+   rows equal to ``C_API_PREDICT_CONTRIB``, rows summing to the float64
+   host walk within 1e-9 and to K4's raw scores within 1e-5; (e)
+   ``Dataset(path).save_binary``, then the CLI trained from the ``.bin``:
+   the model text (a)'s, the load seconds; (f) ``SetLeafValue`` (tree 7,
+   leaf 3), then ``ShuffleModels``, each followed by ``PredictForMat`` on
+   the next rows: K4 bit-equal to plain on the current tables
+   (``check_forest``), within 1e-5 of the float64 host walk of the edited
+   trees, ``GetLeafValue`` reading the value back, ``DumpModel`` parsing
+   as JSON with 50 trees.
 
-Phases 6-7, 10-12, 15-16 and 19-23 check that the main path launched
+Phases 6-7, 10-12, 15-16 and 19-24 check that the main path launched
 each kernel (and each histogram variant) of its tier. Prints a JSON line
 of the kernels, then the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero without that
@@ -374,6 +402,10 @@ OBJ_METRIC_TOL = 1e-3           # card vs CPU train metric, relative
 NDCG_TOL = 1e-9
 PHASE22_BUDGET_S = 150.0
 PHASE23_BUDGET_S = 150.0
+PHASE24_BUDGET_S = 120.0
+SHAP_ROWS = 256                 # (d): rows explained by TreeSHAP on the host
+LEAF_EDIT = (7, 3)              # (f): tree and leaf given a new value
+WRITE_LIMIT_S = 30.0            # the window's text file, written untimed
 GOSS_ITERS = 15                 # 10 of warm-up (learning_rate 0.1), 5 sampled
 GOSS_RATES = {"top_rate": 0.2, "other_rate": 0.1}
 GOSS_KEPT_TOL = 0.005           # kept rows within 0.5% of n of 0.3 n
@@ -1587,7 +1619,8 @@ def train_phases(dev) -> tuple:
           f"{host_ops(lambda: capi.LGBM_BoosterUpdateOneIter(bst), 3)}")
     capi.LGBM_BoosterFree(bst)
     del X, ds, bst
-    lrb_run = {"text": text, "ms": lrb_ms, "counts": lrb_counts}
+    lrb_run = {"text": text, "ms": lrb_ms, "counts": lrb_counts,
+               "pred": pred}
 
     # 7. HIGGS-shape training through train(), capturing kernel inputs
     X, y = make_higgs_like(HIGGS_TRAIN_ROWS)
@@ -3927,6 +3960,310 @@ def variant_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
     return out
 
 
+def write_int_tsv(path: str, y: np.ndarray, X: np.ndarray,
+                  chunk: int = 200_000) -> None:
+    """Rows of non-negative integers, the label first, tab-separated, the
+    digits made by numpy in bulk (``np.savetxt`` formats each value in
+    Python): per value a field of the widest value's digits and a tab or
+    newline, the leading zeros dropped by one mask."""
+    M = np.column_stack([y, X])
+    assert (M >= 0).all() and np.array_equal(M, np.round(M)), "integers"
+    width = len(str(int(M.max())))
+    pos = np.arange(width + 1)
+    with open(path, "wb") as fh:
+        for r0 in range(0, M.shape[0], chunk):
+            v = M[r0:r0 + chunk].astype(np.int64)
+            n, c = v.shape
+            buf = np.empty((n, c, width + 1), np.uint8)
+            ndig = np.ones((n, c), np.int64)
+            for k in range(1, width):
+                ndig += v >= 10 ** k
+            rest = v.copy()
+            for k in range(width - 1, -1, -1):
+                buf[:, :, k] = 48 + rest % 10
+                rest //= 10
+            buf[:, :, width] = ord("\t")
+            buf[:, -1, width] = ord("\n")
+            keep = pos[None, None, :] >= (width - ndig)[:, :, None]
+            fh.write(buf[keep].tobytes())
+
+
+def refit_bound(leaf, g, h, plain_out, l1: float, l2: float, shrink: float,
+                decay: float) -> np.ndarray:
+    """Per leaf, a bound on |card - plain| of a refit tree's outputs on the
+    same leaf ids, g and h: the two f32 sums of each leaf differ by at most
+    ``ops/refit.py sum_bound`` (two orders of addition), which moves
+    ``-sum_g / (sum_h + l2)`` by at most (dg + |q| dh) / (den - dh) (l1's
+    threshold moves sum_g by no more); times shrink and (1 - decay), plus
+    4 ulps of the output for the roundings after the sums."""
+    from lightgbm_tpu_torch.ops.refit import sum_bound
+    L = plain_out.shape[0]
+    n = np.bincount(leaf, minlength=L)[:L]
+    ag = np.bincount(leaf, np.abs(g.astype(np.float64)), minlength=L)[:L]
+    sh = np.bincount(leaf, h.astype(np.float64), minlength=L)[:L]
+    sg = np.bincount(leaf, g.astype(np.float64), minlength=L)[:L]
+    dg, dh = sum_bound(n, ag), sum_bound(n, sh)
+    den = sh + l2
+    q = np.abs(np.sign(sg) * np.maximum(np.abs(sg) - l1, 0.0)) / np.maximum(
+        den, 1e-300)
+    dq = (dg + q * dh) / np.maximum(den - dh, 1e-300)
+    return ((1.0 - decay) * shrink * dq
+            + 4.0 * np.abs(plain_out.astype(np.float64)) * 2.0 ** -23)
+
+
+def _tree_lines(text: str, keys) -> list:
+    """Per tree, its lines starting with ``keys``."""
+    return [[ln for ln in b.splitlines() if ln.split("=")[0] in keys]
+            for b in tree_blocks(text)]
+
+
+def file_phases(dev, smi: str, lrb: dict, tmp: str) -> dict:
+    """Phase 24 of the module docstring: the file entry point on phase 6's
+    window. Returns the kernels' launches of each part."""
+    import types
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import application, capi
+    from lightgbm_tpu_torch.obs import registry
+    from lightgbm_tpu_torch.ops import refit as refit_ops
+    from lightgbm_tpu_torch.utils import timing
+    out, walls = {}, {}
+    t_phase = time.perf_counter()
+    X = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    y = lrb_labels(X, seed=22)
+    Xn = make_lrb_rows(LRB_NEXT_ROWS, seed=23)
+    yn = lrb_labels(Xn, seed=24)
+    train_path = os.path.join(tmp, "lrb_window.tsv")
+    next_path = os.path.join(tmp, "lrb_next.tsv")
+    t0 = time.perf_counter()
+    write_int_tsv(train_path, y, X)
+    write_int_tsv(next_path, yn, Xn)
+    write_s = time.perf_counter() - t0
+    assert write_s <= WRITE_LIMIT_S, f"writing the files took {write_s:.1f} s"
+    conf = os.path.join(tmp, "train.conf")
+    with open(conf, "w") as fh:
+        fh.write("task = train\ndata = lrb_window.tsv\n"
+                 + "".join(f"{k} = {v}\n" for k, v in TRAIN_PARAMS.items()))
+    model_a = os.path.join(tmp, "model_a.txt")
+    phases = {}
+    log_report = timing.log_report
+
+    def keep_phases(header="phase timings"):
+        phases.update({n: (tot, cnt) for n, tot, cnt, _ in
+                       registry.default_registry().timer_items()})
+        log_report(header)
+
+    timing.log_report = keep_phases
+    try:
+        # (a) train from the text file
+        t0 = time.perf_counter()
+        timing.reset()
+        reset_counts()
+        application.main([f"config={conf}", f"output_model={model_a}"])
+        out["a"] = read_counts()
+        walls["a"] = time.perf_counter() - t0
+        text_a = open(model_a).read()
+        assert _body(text_a) == _body(lrb["text"]), \
+            "file training: model text differs from phase 6's"
+        for k in ("K1", "K2", "K3"):
+            assert out["a"][k] > 0, out["a"]
+        it_s, n_it = phases["train/iteration"]
+        print(f"file train: {LRB_TRAIN_ROWS} x {LRB_FEATURES} integer TSV "
+              f"({os.path.getsize(train_path) / 1e6:.1f} MB, written untimed "
+              f"in {write_s:.1f} s) through `python -m lightgbm_tpu_torch "
+              f"config=...`: parse {phases['io/parse'][0]:.2f} s, binning "
+              f"{phases['binning/find_bins'][0]:.2f} + "
+              f"{phases['binning/bin_matrix'][0]:.2f} s, "
+              f"{1e3 * it_s / n_it:.1f} ms an iteration ({n_it}), eval "
+              f"{1e3 * phases['train/eval'][0] / n_it:.1f} ms an iteration; "
+              f"model text equal to phase 6's; launches {out['a']}; "
+              f"{walls['a']:.1f} s; {smi}")
+
+        # (b) predict from the text file: the task and the C API
+        t0 = time.perf_counter()
+        res_task = os.path.join(tmp, "pred_task.txt")
+        res_capi = os.path.join(tmp, "pred_capi.txt")
+        reset_counts()
+        application.main(["task=predict", f"data={next_path}",
+                          f"input_model={model_a}",
+                          f"output_result={res_task}", "verbose=-1"])
+        h = capi.LGBM_BoosterCreateFromModelfile(model_a)
+        capi.LGBM_BoosterPredictForFile(h, next_path,
+                                        result_filename=res_capi)
+        out["b"] = read_counts()
+        walls["b"] = time.perf_counter() - t0
+        want = [f"{v:g}" for v in lrb["pred"]]
+        for path in (res_task, res_capi):
+            assert open(path).read().splitlines() == want, \
+                f"{os.path.basename(path)}: lines differ from phase 6's"
+        assert out["b"]["K4"] >= 2, out["b"]
+        print(f"file predict: {LRB_NEXT_ROWS} rows, task=predict and "
+              f"LGBM_BoosterPredictForFile: both result files equal line "
+              f"for line to phase 6's PredictForMat answers; launches "
+              f"{out['b']}; {walls['b']:.1f} s")
+
+        # (c) refit on the next window's file, three routes
+        t0 = time.perf_counter()
+        refit_task = os.path.join(tmp, "refit_task.txt")
+        reset_counts()
+        application.main([f"config={conf}", "task=refit",
+                          f"data={next_path}", f"input_model={model_a}",
+                          f"output_model={refit_task}"])
+        out["c_task"] = read_counts()
+        ds = capi.LGBM_DatasetCreateFromFile(next_path, TRAIN_PARAMS)
+        hr = capi.LGBM_BoosterCreateFromModelfile(model_a)
+        capi.LGBM_BoosterResetTrainingData(hr, ds)
+        reset_counts()
+        t1 = time.perf_counter()
+        capi.LGBM_BoosterRefit(hr)
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t1
+        out["c"] = read_counts()
+        assert out["c"]["K3"] == len(hr.gbdt.models) == 50, out["c"]
+        text_capi = capi.LGBM_BoosterSaveModelToString(hr)
+        bst_a = lgt.Booster(params=TRAIN_PARAMS, model_file=model_a)
+        seen = []
+        refit_fn = refit_ops.refit_leaf_outputs
+
+        def spy(*args):
+            o = refit_fn(*args)
+            seen.append(([t.cpu() for t in args[:4]], args[4:], o.cpu()))
+            return o
+
+        refit_ops.refit_leaf_outputs = spy
+        try:
+            r1 = bst_a.refit(Xn, yn).model_to_string()
+        finally:
+            refit_ops.refit_leaf_outputs = refit_fn
+        r2 = bst_a.refit(Xn, yn).model_to_string()
+        text_task = open(refit_task).read()
+        assert _body(text_task) == _body(text_capi) == _body(r1), \
+            "refit: task, C API and Booster.refit differ"
+        assert r1 == r2, "refit: a second run on the card differs"
+        shape = ("split_feature", "left_child", "right_child")
+        assert _tree_lines(r1, shape) == _tree_lines(text_a, shape), \
+            "refit changed a tree's structure"
+        vals = ("leaf_value",)
+        assert _tree_lines(r1, vals) != _tree_lines(text_a, vals)
+        same = bst_a.refit(Xn, yn, decay_rate=1.0).model_to_string()
+        assert _tree_lines(same, vals) == _tree_lines(text_a, vals), \
+            "refit_decay_rate=1.0 changed a leaf value"
+        worst, slack = 0.0, np.inf
+        for (ids, g, hs, old), args, card in seen:
+            plain = refit_fn(ids, g, hs, old, *args)
+            l1, l2, _, shrink, decay = args
+            b = refit_bound(ids.numpy(), g.numpy(), hs.numpy(),
+                            plain.numpy(), l1, l2, shrink, decay)
+            d = np.abs(card.numpy().astype(np.float64)
+                       - plain.numpy().astype(np.float64))
+            assert (d <= b).all(), f"refit: card beyond its bound {d.max()}"
+            worst = max(worst, float(d.max()))
+            slack = min(slack, float((b - d).min()))
+        walls["c"] = time.perf_counter() - t0
+        print(f"refit: task=refit, LGBM_BoosterRefit after "
+              f"ResetTrainingData and Booster.refit on {LRB_NEXT_ROWS} rows "
+              f"give equal models, the same bits on a second run, the trees' "
+              f"structure of (a), decay 1.0 (a)'s leaf values; each tree's "
+              f"outputs on the card within the f32 bound of the plain sums "
+              f"on the CPU on its leaf ids, g and h (worst {worst:.3g}, "
+              f"least slack {slack:.3g}); LGBM_BoosterRefit "
+              f"{1e3 * refit_s:.1f} ms, launches {out['c']} (task=refit "
+              f"{out['c_task']}, its replay of 50 trees included); "
+              f"{walls['c']:.1f} s")
+
+        # (d) SHAP contributions
+        t0 = time.perf_counter()
+        Xs = Xn[:SHAP_ROWS]
+        bst = lgt.Booster(model_file=model_a)
+        contrib = bst.predict(Xs, pred_contrib=True)
+        c_api = capi.LGBM_BoosterPredictForMat(
+            h, Xs, predict_type=capi.C_API_PREDICT_CONTRIB)
+        assert contrib.shape == (SHAP_ROWS, LRB_FEATURES + 1)
+        assert np.array_equal(contrib, c_api), "SHAP: predict != C API"
+        host = host_raw(bst._gbdt, Xs)[0]
+        reset_counts()
+        raw = bst.predict(Xs, raw_score=True)
+        out["d"] = read_counts()
+        e_host = float(np.abs(contrib.sum(1) - host).max())
+        e_k4 = float(np.abs(contrib.sum(1) - raw).max())
+        assert e_host <= 1e-9 and e_k4 <= 1e-5, (e_host, e_k4)
+        walls["d"] = time.perf_counter() - t0
+        print(f"shap: {SHAP_ROWS} rows x {LRB_FEATURES + 1}, "
+              f"predict(pred_contrib=True) == C_API_PREDICT_CONTRIB; rows "
+              f"sum to the float64 host walk within {e_host:.3g}, to K4's "
+              f"raw scores within {e_k4:.3g}; {walls['d']:.1f} s")
+
+        # (e) the binary dataset
+        t0 = time.perf_counter()
+        bin_path = os.path.join(tmp, "lrb_window.bin")
+        lgt.Dataset(train_path, params=TRAIN_PARAMS).save_binary(bin_path)
+        save_s = time.perf_counter() - t0
+        model_e = os.path.join(tmp, "model_e.txt")
+        phases.clear()
+        reset_counts()
+        application.main([f"config={conf}", f"data={bin_path}",
+                          f"output_model={model_e}"])
+        out["e"] = read_counts()
+        walls["e"] = time.perf_counter() - t0
+        assert _body(open(model_e).read()) == _body(text_a), \
+            "training from the .bin: model text differs from (a)'s"
+        print(f"binary dataset: Dataset(path).save_binary "
+              f"{os.path.getsize(bin_path) / 1e6:.1f} MB in {save_s:.2f} s "
+              f"(parse and binning again); loaded in "
+              f"{phases['io/load_binary'][0]:.3f} s; the model text equal "
+              f"to (a)'s; launches {out['e']}; {walls['e']:.1f} s")
+    finally:
+        timing.log_report = log_report
+
+    # (f) leaf edits and shuffles, K4 on the current tables (the
+    # launches of the checks against plain are not counted)
+    t0 = time.perf_counter()
+    tree, leaf = LEAF_EDIT
+    before = capi.LGBM_BoosterGetLeafValue(h, tree, leaf)
+    value = before + 0.25
+    capi.LGBM_BoosterSetLeafValue(h, tree, leaf, value)
+    assert capi.LGBM_BoosterGetLeafValue(h, tree, leaf) == value
+    handle = types.SimpleNamespace(_gbdt=h.gbdt)
+    reset_counts()
+    p_edit = np.asarray(capi.LGBM_BoosterPredictForMat(h, Xn))
+    k4 = read_counts()["K4"]
+    assert not np.array_equal(p_edit, lrb["pred"]), "edit not served"
+    k4_edit = check_forest("leaf edit", handle, Xn, p_edit, dev,
+                           alternatives=False)
+    raw_edit = host_raw(h.gbdt, Xn)[0]
+    capi.LGBM_BoosterShuffleModels(h, 0, -1)
+    reset_counts()
+    p_shuf = np.asarray(capi.LGBM_BoosterPredictForMat(h, Xn))
+    k4 += read_counts()["K4"]
+    out["f"] = {"K4": k4}
+    assert k4 >= 2, k4
+    check_forest("shuffled", handle, Xn, p_shuf, dev, alternatives=False)
+    errs = [float(np.abs(p - 1.0 / (1.0 + np.exp(-raw))).max())
+            for p, raw in ((p_edit, raw_edit),
+                           (p_shuf, host_raw(h.gbdt, Xn)[0]))]
+    assert max(errs) <= 1e-5, errs
+    dump = json.loads(json.dumps(capi.LGBM_BoosterDumpModel(h)))
+    assert len(dump["tree_info"]) == 50, len(dump["tree_info"])
+    walls["f"] = time.perf_counter() - t0
+    print(f"leaf edits: SetLeafValue(tree {tree}, leaf {leaf}) "
+          f"{before:.6g} -> {value:.6g}, read back; then ShuffleModels: "
+          f"K4 bit-equal to plain on all {LRB_NEXT_ROWS} rows each time, "
+          f"within {max(errs):.3g} of the float64 host walk of the edited "
+          f"trees; DumpModel parses as JSON with 50 trees; launches "
+          f"{out['f']}; {walls['f']:.1f} s")
+    total = time.perf_counter() - t_phase - write_s
+    print("phase 24 walls: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in sorted(walls.items()))
+          + f"; in all {total:.1f} s without the untimed writes (budget "
+          f"{PHASE24_BUDGET_S:.0f} s); {smi}")
+    assert total <= PHASE24_BUDGET_S, f"phase 24 took {total:.1f} s"
+    out["k4_edit"] = {k: k4_edit[k] for k in ("rows", "ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "max_abs_err")}
+    out["walls"] = walls
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3954,12 +4291,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
 
-    # 2. build: every csrc/*.cu, one nvcc each, all at once
+    # 2. build: every csrc/*.cu (nvcc) and the text parser (g++), one
+    # compiler each, all at once
     t0 = time.perf_counter()
     built = cuda_build.build_all()
     print(f"build: {len(built)} sources in {time.perf_counter() - t0:.2f} s")
     for name, b in built.items():
-        print(f"  {name}: nvcc {b.seconds:.2f} s -> "
+        cc = "g++" if name in cuda_build.HOST_SOURCES else "nvcc"
+        print(f"  {name}: {cc} {b.seconds:.2f} s -> "
               f"{os.path.relpath(b.path, ROOT)}")
         for line in b.report.splitlines():
             if "registers" in line or "spill" in line:
@@ -4110,6 +4449,9 @@ def main() -> None:
     # 23: GOSS (on phase 7's rows), DART, RF, forced splits, continued
     with tempfile.TemporaryDirectory() as tmp:
         variants = variant_phases(dev, smi, higgs_data, tmp)
+    # 24: the file entry point on phase 6's window
+    with tempfile.TemporaryDirectory() as tmp:
+        files = file_phases(dev, smi, higgs_data["lrb"], tmp)
     del higgs_data
 
     # kernels line
@@ -4136,6 +4478,12 @@ def main() -> None:
                                       "plain_ms", "bound_ms", "bound_by",
                                       "max_abs_err")}}
     forest["fleet"] = fleet
+    # phase 24: predict task and PredictForFile, SHAP's raw check, leaf
+    # edits and shuffles
+    forest["file_entry"] = {"predict_from_file_launches": files["b"]["K4"],
+                            "shap_raw_launches": files["d"]["K4"],
+                            "leaf_edit_launches": files["f"]["K4"],
+                            "leaf_edit": files["k4_edit"]}
     # phase 23: the boosting variants' models
     forest["variants"] = {
         "dart_launches": variants["dart"]["k4_launches"],
@@ -4175,6 +4523,12 @@ def main() -> None:
              "dart_drop_normalise_launches":
              variants["dart"]["k3_drop_launches"],
              "dart_launches": variants["dart"]["k3_launches"]})
+        # phase 24: CLI training from the text file and from its .bin;
+        # K3 also in LGBM_BoosterRefit's score updates
+        e["file_entry"] = {"train_from_text_launches": files["a"][kid],
+                           "train_from_binary_launches": files["e"][kid],
+                           **({"refit_launches": files["c"]["K3"]}
+                              if kid == "K3" else {})}
         e["valid_sets"] = (valid[kid] if kid != "K3" else
                            {"higgs_launches_per_tree":
                             valid["higgs"]["k3_per_tree"],

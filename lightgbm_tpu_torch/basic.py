@@ -1,11 +1,13 @@
 """Dataset and Booster (the JAX package's ``basic.py``, reference
-python-package basic.py:626-2415): training on a Dataset (with query
-groups for ranking) with valid sets and their evaluation, on the
-objective's gradients or a custom objective's (``Booster.update(fobj=)``),
-with every boosting type (gbdt, goss, dart, rf), rollback, continued
-training (an init model's raw scores folded into the Dataset's init
-scores, ``_InnerPredictor``), and scoring a trained or loaded model.
-Refit is not ported."""
+python-package basic.py:626-2415): training on a Dataset (a matrix, or a
+text or binary file through io/loader.py; with query groups for ranking)
+with valid sets and their evaluation, on the objective's gradients or a
+custom objective's (``Booster.update(fobj=)``), with every boosting type
+(gbdt, goss, dart, rf), rollback, continued training (an init model's raw
+scores folded into the Dataset's init scores, ``_InnerPredictor``),
+``Dataset.save_binary``, refit on new data (``Booster.refit``), scoring a
+trained or loaded model (SHAP contributions with ``pred_contrib``), its
+JSON dump, and pickling (a pickled Booster unpickles onto the card)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -14,6 +16,7 @@ import numpy as np
 
 from .config import Config
 from .io.dataset import BinnedDataset, Metadata
+from .io.loader import DatasetLoader
 from .metrics import create_metrics, metric_names
 from .models.boosting import create_boosting
 from .models.gbdt import GBDT
@@ -135,6 +138,8 @@ class Dataset:
             return self
         if self.data is None:
             raise LightGBMError("the Dataset's raw data was freed")
+        if isinstance(self.data, str):
+            return self._construct_from_file(device)
         X, names, cat_idx = _data_to_2d(self.data, self.feature_name,
                                         self.categorical_feature)
         if self.used_indices is not None:
@@ -154,6 +159,35 @@ class Dataset:
             self._apply_init_score_from_predictor(X)
         if self.free_raw_data:
             self.data = None
+        return self
+
+    def _construct_from_file(self, device) -> "Dataset":
+        """A text or binary file through the loader (the JAX package's
+        basic.py:161-170): a valid set with its reference's mappers on
+        its device; a label given here replaces the file's."""
+        ref = self.reference
+        cfg = Config()
+        cfg.set(self.params)
+        self._inner = DatasetLoader(cfg, device).load_from_file(
+            self.data, reference=(ref.construct(device)._inner
+                                  if ref is not None else None))
+        if self.label is not None:
+            self._inner.metadata.label = _label_to_1d(self.label)
+        self._base_init_score = self._inner.metadata.init_score
+        if self._predictor is not None:
+            self._apply_init_score_from_predictor(self._file_rows())
+        return self
+
+    def _file_rows(self) -> np.ndarray:
+        """The raw rows of a file Dataset, parsed again."""
+        return DatasetLoader(self._inner.config).load_predict_matrix(
+            self.data, self._inner.num_total_features)[0]
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """The binned set as a binary file (binned first, on cuda:0
+        unless it is already); it loads in either package."""
+        self.construct()
+        self._inner.save_binary(filename)
         return self
 
     def _apply_init_score_from_predictor(self, raw_X: np.ndarray) -> None:
@@ -179,10 +213,13 @@ class Dataset:
                 raise LightGBMError(
                     "Cannot set init model on a constructed Dataset whose "
                     "raw data was freed; use free_raw_data=False")
-            raw_X = _data_to_2d(self.data, self.feature_name,
-                                self.categorical_feature)[0]
-            if self.used_indices is not None:
-                raw_X = raw_X[self.used_indices]
+            if isinstance(self.data, str):
+                raw_X = self._file_rows()
+            else:
+                raw_X = _data_to_2d(self.data, self.feature_name,
+                                    self.categorical_feature)[0]
+                if self.used_indices is not None:
+                    raw_X = raw_X[self.used_indices]
             self._apply_init_score_from_predictor(raw_X)
 
     def _build_metadata(self) -> Metadata:
@@ -288,6 +325,8 @@ class Dataset:
             return self._inner.num_data
         if self.used_indices is not None:
             return len(self.used_indices)
+        if isinstance(self.data, str):
+            raise LightGBMError("construct a file Dataset first")
         return _data_to_2d(self.data)[0].shape[0]
 
     def num_feature(self) -> int:
@@ -295,6 +334,8 @@ class Dataset:
             return self._inner.num_total_features
         if self._subset_of is not None:
             return self._subset_of.num_feature()
+        if isinstance(self.data, str):
+            raise LightGBMError("construct a file Dataset first")
         return _data_to_2d(self.data)[0].shape[1]
 
     def get_feature_name(self) -> List[str]:
@@ -396,9 +437,14 @@ class Booster:
         elif model_str is None:
             raise TypeError("Need a training dataset or model file or model "
                             "string to create a Booster")
+        self._init_from_string(model_str, device, model_file or "")
+
+    def _init_from_string(self, model_str: str, device=None,
+                          source: str = "") -> None:
         self.config = None
-        self._gbdt = GBDT(device).load_model_from_string(
-            model_str, source=model_file or "")
+        self._gbdt = GBDT(device).load_model_from_string(model_str,
+                                                         source=source)
+        self._metric_names = []
 
     def _init_from_train_set(self, train_set: Dataset, device) -> None:
         cfg = Config()
@@ -531,20 +577,65 @@ class Booster:
 
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, data_has_header: bool = False,
                 **kwargs) -> np.ndarray:
         """Predictions [N] or [N, K]; raw scores with ``raw_score``, leaf
-        indices [N, T] with ``pred_leaf``. ``pred_early_stop*`` keywords
-        go to the host walk as in the reference."""
-        X = np.asarray(_data_to_2d(data)[0], np.float64)
+        indices [N, T] with ``pred_leaf``, SHAP contributions [N, K *
+        (F + 1)] with ``pred_contrib`` (float64 on the host). ``data`` may
+        be a text file's path (``data_has_header``). ``pred_early_stop*``
+        keywords go to the host walk as in the reference."""
+        if isinstance(data, str):
+            cfg = Config()
+            cfg.header = data_has_header
+            X, _ = DatasetLoader(cfg).load_predict_matrix(
+                data, self._gbdt.max_feature_idx + 1)
+        else:
+            X = np.asarray(_data_to_2d(data)[0], np.float64)
         if num_iteration < 0 and self.best_iteration > 0:
             num_iteration = self.best_iteration
         pred_kw = {k: v for k, v in kwargs.items()
                    if k.startswith("pred_early_stop")}
         if pred_leaf:
             return self._gbdt.predict_leaf_index(X, num_iteration)
+        if pred_contrib:
+            return self._gbdt.predict_contrib(X, num_iteration)
         if raw_score:
             return self._gbdt.predict_raw(X, num_iteration, **pred_kw)
         return self._gbdt.predict(X, num_iteration, **pred_kw)
+
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """A new Booster: this model's trees with their leaf values
+        re-learned on ``data`` and ``label`` (basic.py Booster.refit ->
+        GBDT::RefitTree), binned and refit on this model's device. The
+        categorical columns are read from the model's feature_infos
+        (categories joined by ':', a numerical range in brackets)."""
+        X = _data_to_2d(data)[0]
+        y = _label_to_1d(label)
+        cfg = Config()
+        params = dict(self.params)
+        params.pop("refit_decay_rate", None)
+        cfg.set(params)
+        cfg.refit_decay_rate = decay_rate
+        if not params.get("objective") and self._gbdt.objective is not None:
+            cfg.objective = self._gbdt.objective.name
+        model_str = self.model_to_string()
+        new = create_boosting(cfg.boosting_type(), self._gbdt.device)
+        new.load_model_from_string(model_str)
+        cats = [i for i, info in enumerate(new.feature_infos)
+                if info and info != "none" and not info.startswith("[")]
+        inner = BinnedDataset(cfg, self._gbdt.device).construct_from_matrix(
+            X, Metadata(label=y), categorical=cats)
+        objective = create_objective(cfg.objective, cfg)
+        if objective is not None:
+            objective.init(inner.metadata, inner.num_data)
+        new.init_from_loaded(cfg, inner, objective, [])
+        new.refit_existing(decay_rate)
+        out = Booster(model_str=model_str, device=self._gbdt.device)
+        out._gbdt = new
+        out.params = params
+        out.config = cfg
+        return out
 
     # -- introspection ------------------------------------------------------
 
@@ -588,6 +679,39 @@ class Booster:
         if num_iteration < 0 and self.best_iteration > 0:
             num_iteration = self.best_iteration
         return self._gbdt.model_to_string(start_iteration, num_iteration)
+
+    def dump_model(self, num_iteration: int = -1,
+                   start_iteration: int = 0) -> dict:
+        if num_iteration < 0 and self.best_iteration > 0:
+            num_iteration = self.best_iteration
+        return self._gbdt.dump_model(start_iteration, num_iteration)
+
+    def model_from_string(self, model_str: str,
+                          verbose: bool = True) -> "Booster":
+        """Replace this booster's model with one parsed from a string
+        (basic.py:2049-2068), on the same device."""
+        self._init_from_string(model_str, self._gbdt.device)
+        return self
+
+    # -- pickling (the reference pickles the model string, basic.py:1476) ---
+
+    def __getstate__(self):
+        return {"params": self.params,
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score,
+                "model_str": self.model_to_string()}
+
+    def __setstate__(self, state):
+        """Onto cuda:0, as every entry point (the device is not part of
+        the state)."""
+        self.params = state["params"]
+        self.best_iteration = state["best_iteration"]
+        self.best_score = state["best_score"]
+        self.train_set = None
+        self.valid_sets = []
+        self.name_valid_sets = []
+        self._train_data_name = "training"
+        self._init_from_string(state["model_str"])
 
 
 class _InnerPredictor:

@@ -1,11 +1,15 @@
 """C-API-shaped entry points (the JAX package's ``capi.py``, the calls
 the fork's LRB loop makes; reference src/c_api.cpp,
-include/LightGBM/c_api.h): a dataset from a matrix and its fields
-(query groups among them), a validation set binned with a training
-set's mappers, a booster of any boosting type trained one iteration at
-a time, on its objective's gradients or the caller's, with valid sets,
-their metrics and scores, rollback, feature importance, its model text,
-merging two models, continuing on new training data, and scoring.
+include/LightGBM/c_api.h): a dataset from a matrix (or several), a text
+or binary file, a sample of its columns filled by pushed rows, a subset
+or a reference's mappers, with its fields (query groups among them),
+feature names and binary file; a booster of any boosting type trained one
+iteration at a time, on its objective's gradients or the caller's, with
+valid sets, their metrics and scores, rollback, feature importance, its
+model text and file and JSON dump, leaf values read and set, iterations
+shuffled, refit on new data, merging two models, continuing on new
+training data, and scoring a matrix or a file (SHAP contributions
+among the predict types); the last error's text.
 
 Handles are opaque objects, out-parameters become return values, and
 the dtype and predict tags match c_api.h, so C callers transliterate line
@@ -18,8 +22,10 @@ from typing import Dict, List
 
 import numpy as np
 
+from .application import write_result
 from .config import Config
-from .io.dataset import BinnedDataset, Metadata
+from .io.dataset import BinnedDataset, Metadata, find_column_mappers
+from .io.loader import DatasetLoader
 from .metrics import create_metric, create_metrics, metric_names
 from .models.boosting import create_boosting
 from .models.gbdt import GBDT
@@ -73,6 +79,9 @@ class _DatasetHandle:
         self.device = device
         self.reference = reference
         self.fields: Dict[str, np.ndarray] = {}
+        self.feature_names: List[str] = []
+        # mappers found on a sample of the columns (CreateFromSampledColumn)
+        self.premade_mappers = None
         self._inner = None
 
     def construct(self) -> BinnedDataset:
@@ -87,7 +96,10 @@ class _DatasetHandle:
             else:
                 self._inner = BinnedDataset(self.cfg, self.device) \
                     .construct_from_matrix(
-                        self.X, meta, categorical=_parse_cat_spec(self.cfg))
+                        self.X, meta, categorical=_parse_cat_spec(self.cfg),
+                        mappers=self.premade_mappers)
+            if self.feature_names:
+                self._inner.feature_names = list(self.feature_names)
         return self._inner
 
 
@@ -114,6 +126,135 @@ def LGBM_DatasetCreateFromMat(data, data_type=C_API_DTYPE_FLOAT64,
         X = _mat_to_2d(X, nrow, ncol, is_row_major)
     return _DatasetHandle(X, _params_to_config(parameters), device,
                           reference)
+
+
+def LGBM_DatasetCreateFromMats(nmat, mats, data_type=C_API_DTYPE_FLOAT64,
+                               nrows=None, ncol=None, is_row_major=1,
+                               parameters="", reference=None,
+                               device=None) -> _DatasetHandle:
+    """c_api.cpp:330: several row blocks, stacked."""
+    blocks = [_mat_to_2d(m, nr, ncol, is_row_major)
+              for m, nr in zip(mats, nrows)]
+    return _DatasetHandle(np.vstack(blocks), _params_to_config(parameters),
+                          device, reference)
+
+
+def LGBM_DatasetCreateFromFile(filename: str, parameters="",
+                               reference=None, device=None
+                               ) -> _DatasetHandle:
+    """c_api.cpp:215: a text or binary file through the loader
+    (io/loader.py), binned at once on ``device`` (a valid set on its
+    reference's mappers and device). Its fields come from the file and
+    its sidecar files."""
+    cfg = _params_to_config(parameters)
+    ref = reference.construct() if reference is not None else None
+    h = _DatasetHandle(None, cfg, ref.device if ref is not None else device,
+                       reference)
+    h._inner = DatasetLoader(cfg, h.device).load_from_file(filename,
+                                                           reference=ref)
+    return h
+
+
+def LGBM_DatasetCreateFromSampledColumn(sample_data, sample_indices, ncol,
+                                        num_per_col, num_sample_row,
+                                        num_total_row, parameters="",
+                                        device=None) -> _DatasetHandle:
+    """c_api.cpp:150: a dataset of ``num_total_row`` rows whose mappers
+    come from per-column samples (the values of column j at rows
+    ``sample_indices[j]``, zeros elsewhere: the implied background of
+    ConstructFromSampleData); its rows arrive by LGBM_DatasetPushRows."""
+    cfg = _params_to_config(parameters)
+    ncol = int(ncol)
+    h = _DatasetHandle(np.zeros((int(num_total_row), ncol), np.float64),
+                       cfg, device)
+    sm = np.zeros((int(num_sample_row), ncol), np.float64)
+    for j in range(ncol):
+        vals = np.asarray(sample_data[j][:num_per_col[j]], np.float64)
+        idx = np.asarray(sample_indices[j][:num_per_col[j]], np.int64)
+        sm[idx, j] = vals
+    h.premade_mappers = find_column_mappers(
+        sm, cfg, _parse_cat_spec(cfg), total_rows=int(num_total_row),
+        presampled=True)
+    return h
+
+
+def LGBM_DatasetCreateByReference(reference: _DatasetHandle,
+                                  num_total_row) -> _DatasetHandle:
+    """c_api.cpp:215: an empty dataset of ``num_total_row`` rows, binned
+    with ``reference``'s mappers on its device once its rows are pushed."""
+    ncol = LGBM_DatasetGetNumFeature(reference)
+    return _DatasetHandle(np.zeros((int(num_total_row), ncol), np.float64),
+                          reference.cfg, reference.device, reference)
+
+
+def LGBM_DatasetPushRows(handle: _DatasetHandle, data,
+                         data_type=C_API_DTYPE_FLOAT64, nrow=None,
+                         ncol=None, start_row=0):
+    """c_api.cpp:230: a row block into a dataset made by
+    CreateFromSampledColumn or CreateByReference, before it is binned."""
+    if handle._inner is not None:
+        raise LightGBMError("push rows before the first booster uses the "
+                            "dataset")
+    X = _mat_to_2d(data, nrow, ncol, 1)
+    handle.X[int(start_row):int(start_row) + X.shape[0]] = X
+    return 0
+
+
+def LGBM_DatasetGetSubset(handle: _DatasetHandle, used_row_indices,
+                          parameters="") -> _DatasetHandle:
+    """c_api.cpp:430 (Dataset::CopySubset): the rows ``used_row_indices``
+    of a matrix dataset and their fields, binned anew (with the handle's
+    reference's mappers where it has one). Ranking data must keep whole
+    queries."""
+    if handle.X is None:
+        raise LightGBMError("DatasetGetSubset needs a dataset made from a "
+                            "matrix")
+    idx = np.asarray(used_row_indices, np.int64)
+    sub = _DatasetHandle(handle.X[idx],
+                         _params_to_config(parameters) if parameters
+                         else handle.cfg, handle.device, handle.reference)
+    n_rows = handle.X.shape[0]
+    for k, v in handle.fields.items():
+        if v is None or k == "group":
+            continue
+        v = np.asarray(v)
+        if k == "init_score" and v.size != n_rows:
+            # multiclass init scores are flattened class-major [K * N]
+            sub.fields[k] = v.reshape(-1, n_rows)[:, idx].reshape(-1)
+        else:
+            sub.fields[k] = v[idx]
+    grp = handle.fields.get("group")
+    if grp is not None:
+        qb = np.concatenate([[0], np.cumsum(np.asarray(grp, np.int64))])
+        qid = np.searchsorted(qb, idx, side="right") - 1
+        take, counts = np.unique(qid, return_counts=True)
+        full = qb[take + 1] - qb[take]
+        if not np.array_equal(counts, full):
+            raise LightGBMError("DatasetGetSubset on ranking data must "
+                                "select whole queries")
+        sub.fields["group"] = full
+    return sub
+
+
+def LGBM_DatasetSetFeatureNames(handle: _DatasetHandle, names):
+    handle.feature_names = [str(x) for x in names]
+    if handle._inner is not None:
+        handle._inner.feature_names = list(handle.feature_names)
+    return 0
+
+
+def LGBM_DatasetGetFeatureNames(handle: _DatasetHandle) -> List[str]:
+    if handle._inner is not None:
+        return list(handle._inner.feature_names)
+    return list(handle.feature_names) or [
+        f"Column_{i}" for i in range(handle.X.shape[1])]
+
+
+def LGBM_DatasetSaveBinary(handle: _DatasetHandle, filename: str):
+    """c_api.cpp:476: the binned set (binned now if it is not yet) as a
+    binary file, which loads in either package."""
+    handle.construct().save_binary(filename)
+    return 0
 
 
 _FIELDS = ("label", "weight", "init_score", "group")
@@ -383,7 +524,7 @@ def _predict(gbdt, X, predict_type, num_iteration):
     if predict_type == C_API_PREDICT_LEAF_INDEX:
         return gbdt.predict_leaf_index(X, num_iteration)
     if predict_type == C_API_PREDICT_CONTRIB:
-        raise LightGBMError("C_API_PREDICT_CONTRIB is not ported yet")
+        return gbdt.predict_contrib(X, num_iteration)
     return gbdt.predict(X, num_iteration)
 
 
@@ -417,3 +558,78 @@ def LGBM_BoosterSaveModelToString(handle: _BoosterHandle,
                                   num_iteration=-1,
                                   start_iteration=0) -> str:
     return handle.gbdt.model_to_string(start_iteration, num_iteration)
+
+
+def LGBM_BoosterPredictForFile(handle: _BoosterHandle, data_filename: str,
+                               data_has_header=0,
+                               predict_type=C_API_PREDICT_NORMAL,
+                               num_iteration=-1, parameter="",
+                               result_filename="LightGBM_predict_result.txt"):
+    """c_api.cpp:836: a text file's rows scored, the result file written
+    as the predict task writes it (``f"{v:g}"``, tab-separated rows)."""
+    cfg = _params_to_config(parameter)
+    cfg.header = bool(data_has_header)
+    X, _ = DatasetLoader(cfg).load_predict_matrix(
+        data_filename, handle.gbdt.max_feature_idx + 1)
+    write_result(result_filename,
+                 _predict(handle.gbdt, X, predict_type, num_iteration))
+    return 0
+
+
+def LGBM_BoosterSaveModel(handle: _BoosterHandle, num_iteration=-1,
+                          filename="LightGBM_model.txt", start_iteration=0):
+    """c_api.cpp:870."""
+    handle.gbdt.save_model_to_file(filename, start_iteration, num_iteration)
+    return 0
+
+
+def LGBM_BoosterDumpModel(handle: _BoosterHandle, num_iteration=-1,
+                          start_iteration=0) -> dict:
+    """c_api.cpp:890: the model as JSON (a dict; out-param -> return)."""
+    return handle.gbdt.dump_model(start_iteration, num_iteration)
+
+
+def LGBM_BoosterGetLeafValue(handle: _BoosterHandle, tree_idx: int,
+                             leaf_idx: int) -> float:
+    g = handle.gbdt
+    g._ensure_host_trees()
+    return float(g.models[int(tree_idx)].leaf_value[int(leaf_idx)])
+
+
+def LGBM_BoosterSetLeafValue(handle: _BoosterHandle, tree_idx: int,
+                             leaf_idx: int, val: float):
+    """c_api.cpp:900, Tree::SetLeafOutput: the host tree and its record
+    change, and the forest kernel's tables are built again."""
+    handle.gbdt.set_leaf_value(tree_idx, leaf_idx, val)
+    return 0
+
+
+def LGBM_BoosterShuffleModels(handle: _BoosterHandle, start_iter: int = 0,
+                              end_iter: int = -1):
+    """c_api.cpp:590: a random permutation of the iterations in
+    [start_iter, end_iter), whole iteration groups; the forest kernel's
+    tables are built again."""
+    handle.gbdt.shuffle_models(start_iter, end_iter)
+    return 0
+
+
+def LGBM_BoosterRefit(handle: _BoosterHandle, leaf_preds=None):
+    """c_api.cpp:600, GBDT::RefitTree on the booster's training data
+    (LGBM_BoosterResetTrainingData gives a loaded model some): the leaf
+    of each row comes from each tree's replay on the card, so the
+    ``leaf_preds`` matrix of the C signature is accepted and ignored."""
+    handle.gbdt.refit_existing()
+    return 0
+
+
+# the last error's text (c_api.h LGBM_GetLastError, c_api.cpp:40-45)
+_last_error: List[str] = ["Everything is fine"]
+
+
+def LGBM_SetLastError(msg: str):
+    _last_error[0] = str(msg)
+    return 0
+
+
+def LGBM_GetLastError() -> str:
+    return _last_error[0]

@@ -416,3 +416,35 @@ class BinMapper:
         if self.bin_type == BinType.CATEGORICAL:
             return ":".join(str(c) for c in self.bin_2_categorical)
         return f"[{self.min_val:g}:{self.max_val:g}]"
+
+    def to_dict(self) -> dict:
+        """Plain Python types only, the JAX package's keys (a binary
+        dataset file loads in both packages)."""
+        return {
+            "num_bin": self.num_bin,
+            "missing_type": self.missing_type,
+            "bin_type": self.bin_type,
+            "is_trivial": self.is_trivial,
+            "sparse_rate": self.sparse_rate,
+            "bin_upper_bound": self.bin_upper_bound.tolist(),
+            "bin_2_categorical": list(self.bin_2_categorical),
+            "min_val": self.min_val,
+            "max_val": self.max_val,
+            "default_bin": self.default_bin,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BinMapper":
+        m = cls()
+        m.num_bin = d["num_bin"]
+        m.missing_type = d["missing_type"]
+        m.bin_type = d["bin_type"]
+        m.is_trivial = d["is_trivial"]
+        m.sparse_rate = d["sparse_rate"]
+        m.bin_upper_bound = np.array(d["bin_upper_bound"], dtype=np.float64)
+        m.bin_2_categorical = list(d["bin_2_categorical"])
+        m.categorical_2_bin = {c: i for i, c in enumerate(m.bin_2_categorical)}
+        m.min_val = d["min_val"]
+        m.max_val = d["max_val"]
+        m.default_bin = d["default_bin"]
+        return m

@@ -24,7 +24,7 @@ import torch
 
 from ..ops.hist_wave import pack4, unpack4
 from ..ops.split import FeatureMeta
-from ..utils import log
+from ..utils import log, timing
 from ..utils.device import resolve_device
 from .binning import BinMapper, BinType, MissingType
 
@@ -69,13 +69,19 @@ class Metadata:
 
 
 def find_column_mappers(X: np.ndarray, config,
-                        categorical: Sequence[int] = ()) -> List[BinMapper]:
+                        categorical: Sequence[int] = (),
+                        total_rows: Optional[int] = None,
+                        presampled: bool = False) -> List[BinMapper]:
     """Sample rows and find a BinMapper per column, trivial ones
     included (DatasetLoader::ConstructBinMappersFromTextData,
     dataset_loader.cpp:196-235, 388-433); the columns in ``categorical``
-    get categorical mappers."""
+    get categorical mappers. ``presampled``: ``X`` already is the sample
+    of a ``total_rows``-row dataset (``LGBM_DatasetCreateFromSampledColumn``)
+    and is not sampled again; only the min_data filter scales by the
+    sample's share of ``total_rows``."""
     n, nf = X.shape
-    sample_cnt = min(config.bin_construct_sample_cnt, n)
+    total = n if total_rows is None else max(int(total_rows), 1)
+    sample_cnt = n if presampled else min(config.bin_construct_sample_cnt, n)
     if sample_cnt < n:
         rng = np.random.default_rng(config.data_random_seed)
         sample = X[np.sort(rng.choice(n, sample_cnt, replace=False))]
@@ -83,9 +89,9 @@ def find_column_mappers(X: np.ndarray, config,
         sample = X
     snum = sample.shape[0]
     filter_cnt = 0
-    if config.min_data_in_leaf > 0 and n > 0:
+    if config.min_data_in_leaf > 0 and total > 0:
         # the min_data filter scaled by the sample/total ratio
-        filter_cnt = max(int(config.min_data_in_leaf * snum / n), 1)
+        filter_cnt = max(int(config.min_data_in_leaf * snum / total), 1)
     cats = set(categorical)
     mappers = []
     for j in range(nf):
@@ -167,12 +173,14 @@ class BinnedDataset:
 
     def construct_from_matrix(self, X: np.ndarray, metadata: Metadata,
                               feature_names: Optional[List[str]] = None,
-                              categorical: Sequence[int] = ()
+                              categorical: Sequence[int] = (),
+                              mappers: Optional[List[BinMapper]] = None
                               ) -> "BinnedDataset":
         """Find the mappers on a host sample, then bin every row on the
         device (DatasetLoader::ConstructFromSampleData,
         dataset_loader.cpp:499); ``categorical`` lists the categorical
-        columns."""
+        columns. ``mappers`` (one per column, trivial ones included)
+        are used as given instead."""
         X = np.asarray(X)
         if X.dtype not in (np.float32, np.float64):
             X = X.astype(np.float64)
@@ -183,10 +191,14 @@ class BinnedDataset:
         metadata.check(n)
         self.feature_names = (list(feature_names) if feature_names
                               else [f"Column_{i}" for i in range(nf)])
-        self.set_mappers(find_column_mappers(X, self.config, categorical))
-        Xd = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
-        self.bins_t = bin_columns(Xd, self.mappers, self.used_feature_map,
-                                  self.bin_dtype())
+        with timing.phase("binning/find_bins"):
+            self.set_mappers(mappers if mappers is not None else
+                             find_column_mappers(X, self.config,
+                                                 categorical))
+        with timing.phase("binning/bin_matrix") as ph:
+            Xd = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
+            self.bins_t = ph.watch(bin_columns(
+                Xd, self.mappers, self.used_feature_map, self.bin_dtype()))
         return self
 
     def create_valid(self, X: np.ndarray,
@@ -324,3 +336,111 @@ class BinnedDataset:
         return ["none" if real not in self.real_to_inner
                 else self.mappers[self.real_to_inner[real]].feature_info()
                 for real in range(self.num_total_features)]
+
+    # -- the binary file (SaveBinaryFile, dataset.cpp:542) ------------------
+
+    # the JAX package's tokens (io/dataset.py:686-687): v2 nibble-packs
+    # the columns of at most 16 bins; v1 files hold plain array bins
+    BINARY_TOKEN = b"______LightGBM_TPU_Binary_File_Tokenv2____\n"
+    BINARY_TOKEN_V1 = b"______LightGBM_TPU_Binary_File_Token______\n"
+
+    def _pack_nibble_columns(self, bins: np.ndarray):
+        """Columns of at most 16 bins packed two rows a byte (the
+        reference's Dense4bitsBin, dense_nbits_bin.hpp:37-58), in the JAX
+        package's dict layout. Returns (bins or that dict, packed
+        columns)."""
+        if bins.dtype != np.uint8 or not self.mappers:
+            return bins, []
+        packed_cols = [i for i, m in enumerate(self.mappers)
+                       if m.num_bin <= 16]
+        if not packed_cols:
+            return bins, []
+        out = {"shape": bins.shape}
+        n = bins.shape[0]
+        half = (n + 1) // 2
+        for i in packed_cols:
+            col = bins[:, i]
+            lo = col[0::2]
+            hi = np.zeros(half, np.uint8)
+            hi[:n // 2] = col[1::2]
+            out[i] = (lo | (hi << 4)).astype(np.uint8)
+        packed_set = set(packed_cols)
+        keep = [i for i in range(bins.shape[1]) if i not in packed_set]
+        out["rest"] = bins[:, keep]
+        out["keep"] = keep
+        return out, packed_cols
+
+    @staticmethod
+    def _unpack_nibble_columns(bins, packed_cols) -> np.ndarray:
+        if not packed_cols:
+            return np.asarray(bins)
+        n, f = bins["shape"]
+        full = np.zeros((n, f), np.uint8)
+        full[:, bins["keep"]] = bins["rest"]
+        for i in packed_cols:
+            b = bins[i]
+            full[0::2, i] = b[: (n + 1) // 2] & 0x0F
+            full[1::2, i] = (b[: n // 2] >> 4) & 0x0F
+        return full
+
+    def save_binary(self, filename: str) -> None:
+        """The binary file: the token, then one pickled dict of numpy
+        arrays and plain Python types (row-major [N, F] bins)."""
+        import pickle
+        host = np.ascontiguousarray(self.bins_t.cpu().numpy().T)
+        md = self.metadata
+        bins_repr, packed_cols = self._pack_nibble_columns(host)
+        with open(filename, "wb") as fh:
+            fh.write(self.BINARY_TOKEN)
+            pickle.dump({
+                "num_data": self.num_data,
+                "num_total_features": self.num_total_features,
+                "mappers": [m.to_dict() for m in self.mappers],
+                "used_feature_map": np.asarray(self.used_feature_map,
+                                               np.int32),
+                "bins": bins_repr,
+                "packed_cols": packed_cols,
+                "label": md.label,
+                "weights": md.weights,
+                "query_boundaries": md.query_boundaries,
+                "init_score": md.init_score,
+                "feature_names": list(self.feature_names),
+            }, fh, protocol=4)
+        log.info("Saved binary dataset to %s", filename)
+
+    @classmethod
+    def is_binary_file(cls, filename: str) -> bool:
+        try:
+            with open(filename, "rb") as fh:
+                tok = fh.read(len(cls.BINARY_TOKEN))
+        except OSError:
+            return False
+        return tok in (cls.BINARY_TOKEN, cls.BINARY_TOKEN_V1)
+
+    @classmethod
+    def load_binary(cls, filename: str, config,
+                    device=None) -> "BinnedDataset":
+        """A binary file's set, its bins on ``device`` (None: cuda:0)."""
+        import pickle
+        with open(filename, "rb") as fh:
+            tok = fh.read(len(cls.BINARY_TOKEN))
+            if tok not in (cls.BINARY_TOKEN, cls.BINARY_TOKEN_V1):
+                log.fatal(f"{filename} is not a lightgbm_tpu binary file")
+            d = pickle.load(fh)
+        ds = cls(config, device)
+        ds.num_data = d["num_data"]
+        ds.num_total_features = d["num_total_features"]
+        ds.mappers = [BinMapper.from_dict(m) for m in d["mappers"]]
+        ds.used_feature_map = np.asarray(d["used_feature_map"], np.int32)
+        ds.real_to_inner = {int(r): i
+                            for i, r in enumerate(ds.used_feature_map)}
+        ds.max_bin_global = max((m.num_bin for m in ds.mappers), default=1)
+        host = cls._unpack_nibble_columns(d["bins"],
+                                          d.get("packed_cols", []))
+        ds.bins_t = torch.from_numpy(np.ascontiguousarray(
+            host.T.astype(np.uint8 if ds.max_bin_global <= 256
+                          else np.int32, copy=False))).to(ds.device)
+        ds.metadata = Metadata(d["label"], d["weights"], d["init_score"])
+        ds.metadata.query_boundaries = d["query_boundaries"]
+        ds.feature_names = list(d["feature_names"])
+        return ds

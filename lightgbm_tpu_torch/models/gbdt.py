@@ -855,6 +855,29 @@ class GBDT:
             out[:, t] = self.models[t].predict_leaf_index(X)
         return out
 
+    def predict_contrib(self, X: np.ndarray,
+                        num_iteration: int = -1) -> np.ndarray:
+        """SHAP feature contributions [N, F+1] (or [N, K*(F+1)] for
+        multiclass): per-feature Shapley values and the bias column
+        (gbdt.h PredictContrib / tree.h:118), by TreeSHAP on the host in
+        float64, as the JAX package computes them; no kernel runs."""
+        self._ensure_host_trees()
+        X = np.asarray(X, np.float64)
+        n = X.shape[0]
+        k = self.num_tree_per_iteration
+        f1 = self.max_feature_idx + 2
+        ntree = len(self.models)
+        if num_iteration >= 0:
+            ntree = min(ntree, num_iteration * k)
+        out = np.zeros((k, n, f1), np.float64)
+        for t_idx in range(ntree):
+            self.models[t_idx].predict_contrib(X, out[t_idx % k])
+        if self.average_output:
+            out /= max(ntree // k, 1)
+        if k == 1:
+            return out[0]
+        return out.transpose(1, 0, 2).reshape(n, k * f1)
+
     # -- model text (gbdt_model_text.cpp:240-450) ---------------------------
 
     def model_to_string(self, start_iteration: int = 0,
@@ -977,3 +1000,226 @@ class GBDT:
                       f"trees' terminator after {len(self.models)} "
                       f"tree(s) (file cut off mid-write?)")
         return self
+
+    def dump_model(self, start_iteration: int = 0,
+                   num_iteration: int = -1) -> dict:
+        """DumpModel JSON (gbdt_model_text.cpp:15-54)."""
+        self._ensure_host_trees()
+        num_used = len(self.models)
+        if num_iteration > 0:
+            num_used = min((start_iteration + num_iteration)
+                           * self.num_tree_per_iteration, num_used)
+        start_model = start_iteration * self.num_tree_per_iteration
+        return {
+            "name": "tree",
+            "version": K_MODEL_VERSION,
+            "num_class": self.num_class,
+            "num_tree_per_iteration": self.num_tree_per_iteration,
+            "label_index": self.label_idx,
+            "max_feature_idx": self.max_feature_idx,
+            "objective": (self.objective.to_string()
+                          if self.objective else "none"),
+            "average_output": self.average_output,
+            "feature_names": self.feature_names,
+            "tree_info": [t.to_json()
+                          for t in self.models[start_model:num_used]],
+        }
+
+    # -- edits of a model in place (c_api.cpp SetLeafValue, ShuffleModels) --
+
+    def set_leaf_value(self, tree_idx: int, leaf_idx: int,
+                       value: float) -> None:
+        """Tree::SetLeafOutput on the host tree and on its record, where
+        it has one; the stacked tables are dropped, so the forest kernel
+        serves the edited tree."""
+        self._ensure_host_trees()
+        t = int(tree_idx)
+        self.models[t].set_leaf_output(int(leaf_idx), float(value))
+        if t < len(self.records):
+            out = self.records[t].leaf_output.clone()
+            out[int(leaf_idx)] = float(np.float32(value))
+            self.records[t] = self.records[t]._replace(leaf_output=out)
+        self._invalidate_stacked()
+
+    def shuffle_models(self, start: int = 0, end: int = -1) -> None:
+        """A random permutation of the iterations in [start, end) (end
+        <= 0: all), whole iteration groups, drawn as the JAX package
+        draws it (numpy PCG64 from ``data_random_seed``); the stacked
+        tables are dropped."""
+        self._ensure_host_trees()
+        k = max(self.num_tree_per_iteration, 1)
+        n_groups = len(self.models) // k
+        end = n_groups if end <= 0 else min(int(end), n_groups)
+        start = max(int(start), 0)
+        rng = np.random.default_rng(getattr(self.config, "data_random_seed",
+                                            1))
+        gperm = np.arange(n_groups)
+        gperm[start:end] = rng.permutation(gperm[start:end])
+        # tree t serves class t % k: whole groups move
+        perm = (gperm[:, None] * k + np.arange(k)[None, :]).reshape(-1)
+        self.models = [self.models[i] for i in perm]
+        # a loaded model has neither records nor their shrinkage
+        if self.records:
+            self.records = [self.records[i] for i in perm]
+            self._tree_shrinkage = [self._tree_shrinkage[i] for i in perm]
+        self._invalidate_stacked()
+
+    # -- refit (gbdt.cpp:265-289 RefitTree) ---------------------------------
+
+    def refit_existing(self, decay_rate: Optional[float] = None) -> None:
+        """RefitTree against the current train set (the JAX package's
+        gbdt.py:2243): every tree keeps its structure and re-learns its
+        leaf outputs on the new data's gradients, blended with
+        ``refit_decay_rate`` (ops/refit.py). Sequential as the
+        reference: iteration i's gradients see the refit outputs of
+        iterations 0..i-1, from the train set's init scores. A tree's
+        leaf ids come from its replay (``_replay``), and its outputs reach
+        the scores through the leaf-gather kernel at shrink 1.0 (exactly
+        ``scores + out[leaf]``, as in the JAX package). Call after
+        ``init_from_loaded`` bound this booster to the new data."""
+        from ..ops.refit import refit_leaf_outputs
+        cfg = self.config
+        decay = cfg.refit_decay_rate if decay_rate is None else decay_rate
+        if self.objective is None:
+            log.fatal("Refit requires an objective")
+        K = self.num_tree_per_iteration
+        bins = self.train_data.bins_t
+        self._scores = self._initial_scores(self.train_data)
+        for it in range(len(self.records) // K):
+            g_all, h_all = self.objective.get_gradients(
+                self._scores if K > 1 else self._scores[0])
+            if K == 1:
+                g_all, h_all = g_all[None], h_all[None]
+            for k in range(K):
+                t = it * K + k
+                rec = self.records[t]
+                leaf = self._replay(rec, bins)
+                out = refit_leaf_outputs(
+                    leaf, g_all[k], h_all[k], rec.leaf_output,
+                    cfg.lambda_l1, cfg.lambda_l2, cfg.max_delta_step,
+                    self._tree_shrinkage[t], decay)
+                add_leaf_outputs(self._scores[k], leaf, out, 1.0)
+                self.records[t] = rec._replace(leaf_output=out)
+                self.models[t] = None
+        self._invalidate_stacked()
+        log.info("Refit %d trees with decay_rate=%g", len(self.records),
+                 decay)
+
+    # -- the CLI training driver (gbdt.cpp:245-263 GBDT::Train) -------------
+
+    def train(self, snapshot_freq: int = -1, output_model: str = "",
+              resume_from: str = "") -> None:
+        """The application's training loop: boosting iterations with the
+        metric lines of OutputMetric (gbdt.cpp:466-534), the reference's
+        early stopping (EvalAndCheckEarlyStopping, gbdt.cpp:432-448: the
+        last ``early_stopping_round`` iterations are dropped on a stop),
+        and a model snapshot every ``snapshot_freq`` iterations. One
+        synchronous loop: the JAX driver's pipelined evaluations change
+        when its work is dispatched, not the metric lines, the stop
+        iteration or the model it writes. A splitless iteration ends the
+        loop and is dropped by ``train_one_iter`` itself, so no trim is
+        left for the end. Checkpoints, run reports and the profiler
+        window are not ported yet (ROADMAP item 20)."""
+        import time
+        from ..utils import timing
+        cfg = self.config
+        for key, on in (("tpu_run_report", cfg.tpu_run_report),
+                        ("tpu_checkpoint_dir", cfg.tpu_checkpoint_dir),
+                        ("tpu_resume_from", resume_from),
+                        ("tpu_profile_dir", cfg.tpu_profile_dir)):
+            if on:
+                raise NotImplementedError(f"{key} is not ported yet")
+        self._best_score = [[-np.inf] * len(ms) for ms in self.valid_metrics]
+        self._best_iter = [[0] * len(ms) for ms in self.valid_metrics]
+        self._best_msg = [[""] * len(ms) for ms in self.valid_metrics]
+        start_time = time.monotonic()
+        for add in range(cfg.num_iterations):
+            with timing.phase("train/iteration"):
+                is_finished = self.train_one_iter()
+            if not is_finished:
+                with timing.phase("train/eval"):
+                    is_finished = self._eval_and_check_early_stopping(
+                        add + 1)
+            log.info("%f seconds elapsed, finished iteration %d",
+                     time.monotonic() - start_time, add + 1)
+            if snapshot_freq > 0 and (add + 1) % snapshot_freq == 0:
+                self._write_snapshot(output_model, add + 1)
+            if is_finished:
+                break
+        if output_model:
+            with timing.phase("io/save_model"):
+                self.save_model_to_file(output_model)
+            log.info("Finished training; model saved to %s", output_model)
+        timing.log_report("training phase timings "
+                          "(serial_tree_learner.cpp:14-41 analog)")
+
+    def _write_snapshot(self, output_model: str, it: int) -> None:
+        """A model snapshot (save_period): written atomically, the newest
+        ``tpu_snapshot_keep`` kept; a failed write warns and training
+        goes on."""
+        from ..utils.fileio import atomic_write, prune_numbered
+        path = f"{output_model}.snapshot_iter_{it}"
+        try:
+            with atomic_write(path) as fh:
+                fh.write(self.model_to_string())
+        except OSError as e:
+            log.warning("snapshot %s failed (%s); training continues",
+                        path, e)
+            return
+        prune_numbered(output_model, ".snapshot_iter_*",
+                       r"\.snapshot_iter_(\d+)$",
+                       self.config.tpu_snapshot_keep)
+
+    def _eval_and_check_early_stopping(self, it: int) -> bool:
+        """``it`` counts the rounds of this loop, as the reference's
+        iter_. True when early stopping fired (its iterations are
+        dropped)."""
+        best_msg = self._output_metric(it)
+        if not best_msg:
+            return False
+        es = self.config.early_stopping_round
+        log.info("Early stopping at iteration %d, the best iteration "
+                 "round is %d", it, it - es)
+        log.info("Output of best iteration round:\n%s", best_msg)
+        self._drop_last_iterations(es)
+        return True
+
+    def _output_metric(self, it: int) -> str:
+        """OutputMetric (gbdt.cpp:466-534): the metric lines every
+        ``metric_freq`` iterations and the early-stopping bookkeeping;
+        returns the best round's message when the stop condition is
+        met."""
+        cfg = self.config
+        need_output = cfg.metric_freq > 0 and (it % cfg.metric_freq) == 0
+        es_round = cfg.early_stopping_round
+        ret = ""
+        msg_lines: List[str] = []
+        if need_output:
+            for name, val, _ in self.get_eval_at(0):
+                line = f"Iteration:{it}, training {name} : {val:g}"
+                log.info("%s", line)
+                if es_round > 0:
+                    msg_lines.append(line)
+        met_best: List[tuple] = []
+        if need_output or es_round > 0:
+            for i in range(len(self.valid_sets)):
+                for j, (name, val, bigger) in enumerate(
+                        self.get_eval_at(i + 1)):
+                    line = (f"Iteration:{it}, valid_{i + 1} {name}"
+                            f" : {val:g}")
+                    if need_output:
+                        log.info("%s", line)
+                    if es_round > 0:
+                        msg_lines.append(line)
+                        cur = val if bigger else -val
+                        if cur > self._best_score[i][j]:
+                            self._best_score[i][j] = cur
+                            self._best_iter[i][j] = it
+                            met_best.append((i, j))
+                        elif not ret and \
+                                it - self._best_iter[i][j] >= es_round:
+                            ret = self._best_msg[i][j]
+        msg = "\n".join(msg_lines)
+        for i, j in met_best:
+            self._best_msg[i][j] = msg
+        return ret

@@ -3,6 +3,8 @@
 The JAX package's ``models/tree.py``: the reference Tree
 (include/LightGBM/tree.h:1-518, src/io/tree.cpp:209-355) as parallel
 numpy-friendly lists, its v2 model text, its float64 host traversal,
+its TreeSHAP contributions on the host in float64 (``predict_contrib``,
+as the JAX package computes them), its JSON dump (``to_json``),
 ``tree_from_record``, which builds a Tree from a grown TreeRecord, and
 ``record_arrays_from_tree``, its inverse for continued training.
 
@@ -227,6 +229,66 @@ class Tree:
 
     # -- serialization (src/io/tree.cpp:209-243) ----------------------------
 
+    def expected_value(self, node: int = 0) -> float:
+        """Cover-weighted mean output of the (sub)tree — the SHAP base
+        value (tree.h ExpectedValue)."""
+        if self.num_leaves == 1:
+            return self.leaf_value[0]
+        if node < 0:
+            return self.leaf_value[~node]
+        total = max(self.internal_count[node], 1)
+        lc, rc = self.left_child[node], self.right_child[node]
+        lw = (self.leaf_count[~lc] if lc < 0 else self.internal_count[lc])
+        rw = (self.leaf_count[~rc] if rc < 0 else self.internal_count[rc])
+        return (lw * self.expected_value(lc)
+                + rw * self.expected_value(rc)) / max(lw + rw, 1)
+
+    def predict_contrib(self, X: np.ndarray, out: np.ndarray) -> None:
+        """TreeSHAP (Lundberg & Lee): exact Shapley values for one tree,
+        accumulated into ``out`` [N, F+1]; last column is the bias.
+        Mirrors the reference's TreeSHAP port (tree.h PredictContrib /
+        tree.cpp TreeSHAP recursion)."""
+        X = np.asarray(X, np.float64)
+        base = self.expected_value()
+        out[:, -1] += base
+        if self.num_leaves == 1:
+            return
+        for i in range(X.shape[0]):
+            self._tree_shap(X[i], out[i], 0, [], 1.0, 1.0, -1)
+
+    def _node_cover(self, node: int) -> float:
+        return float(self.leaf_count[~node] if node < 0
+                     else self.internal_count[node])
+
+    def _tree_shap(self, x, phi, node, path, pzero, pone, pfeat):
+        # path: list of [feature, zero_frac, one_frac, pweight]
+        path = [p[:] for p in path]
+        _extend(path, pzero, pone, pfeat)
+        if node < 0:                       # leaf
+            leaf_v = self.leaf_value[~node]
+            for i in range(1, len(path)):
+                w = _unwound_sum(path, i)
+                phi[path[i][0]] += w * (path[i][2] - path[i][1]) * leaf_v
+            return
+        hot = self._decision(x[self.split_feature[node]], node)
+        cold = (self.right_child[node]
+                if hot == self.left_child[node] else self.left_child[node])
+        cover = self._node_cover(node)
+        hot_frac = self._node_cover(hot) / cover
+        cold_frac = self._node_cover(cold) / cover
+        incoming_zero, incoming_one = 1.0, 1.0
+        feat = self.split_feature[node]
+        path_idx = next((i for i in range(1, len(path))
+                         if path[i][0] == feat), -1)
+        if path_idx >= 0:
+            incoming_zero = path[path_idx][1]
+            incoming_one = path[path_idx][2]
+            _unwind(path, path_idx)
+        self._tree_shap(x, phi, hot, path,
+                        incoming_zero * hot_frac, incoming_one, feat)
+        self._tree_shap(x, phi, cold, path,
+                        incoming_zero * cold_frac, 0.0, feat)
+
     def to_string(self) -> str:
         nl = self.num_leaves
         buf = [f"num_leaves={nl}", f"num_cat={self.num_cat}"]
@@ -293,6 +355,96 @@ class Tree:
         t.shrinkage = float(kv.get("shrinkage", 1))
         return t
 
+    def to_json(self) -> dict:
+        """Tree::ToJSON (src/io/tree.cpp:245-300)."""
+        d = {
+            "num_leaves": self.num_leaves,
+            "num_cat": self.num_cat,
+            "shrinkage": self.shrinkage,
+        }
+        if self.num_leaves == 1:
+            d["tree_structure"] = {"leaf_value": self.leaf_value[0]}
+        else:
+            d["tree_structure"] = self._node_to_json(0)
+        return d
+
+    def _node_to_json(self, index: int) -> dict:
+        if index >= 0:
+            dt = self.decision_type[index]
+            node = {
+                "split_index": index,
+                "split_feature": self.split_feature[index],
+                "split_gain": self.split_gain[index],
+                "threshold": self.threshold[index],
+                "decision_type": ("==" if dt & K_CATEGORICAL_MASK else "<="),
+                "default_left": bool(dt & K_DEFAULT_LEFT_MASK),
+                "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+                "internal_value": self.internal_value[index],
+                "internal_count": self.internal_count[index],
+                "left_child": self._node_to_json(self.left_child[index]),
+                "right_child": self._node_to_json(self.right_child[index]),
+            }
+            return node
+        leaf = ~index
+        return {
+            "leaf_index": leaf,
+            "leaf_value": self.leaf_value[leaf],
+            "leaf_count": self.leaf_count[leaf],
+        }
+
+    # -- misc ---------------------------------------------------------------
+
+    def leaf_output(self, leaf: int) -> float:
+        return self.leaf_value[leaf]
+
+    def set_leaf_output(self, leaf: int, value: float) -> None:
+        self.leaf_value[leaf] = value
+
+
+def _extend(path, pzero, pone, pfeat):
+    """TreeSHAP ExtendPath: grow the feature path by one split."""
+    path.append([pfeat, pzero, pone, 1.0 if len(path) == 0 else 0.0])
+    n = len(path) - 1
+    for i in range(n - 1, -1, -1):
+        path[i + 1][3] += pone * path[i][3] * (i + 1) / (n + 1)
+        path[i][3] = pzero * path[i][3] * (n - i) / (n + 1)
+
+
+def _unwind(path, path_idx):
+    """TreeSHAP UnwindPath: remove the split at path_idx."""
+    n = len(path) - 1
+    pone = path[path_idx][2]
+    pzero = path[path_idx][1]
+    next_one = path[n][3]
+    for i in range(n - 1, -1, -1):
+        if pone != 0:
+            tmp = path[i][3]
+            path[i][3] = next_one * (n + 1) / ((i + 1) * pone)
+            next_one = tmp - path[i][3] * pzero * (n - i) / (n + 1)
+        else:
+            path[i][3] = path[i][3] * (n + 1) / (pzero * (n - i))
+    for i in range(path_idx, n):
+        path[i][0] = path[i + 1][0]
+        path[i][1] = path[i + 1][1]
+        path[i][2] = path[i + 1][2]
+    path.pop()
+
+
+def _unwound_sum(path, path_idx):
+    """TreeSHAP UnwoundPathSum: total weight had path_idx been skipped."""
+    n = len(path) - 1
+    pone = path[path_idx][2]
+    pzero = path[path_idx][1]
+    next_one = path[n][3]
+    total = 0.0
+    for i in range(n - 1, -1, -1):
+        if pone != 0:
+            tmp = next_one * (n + 1) / ((i + 1) * pone)
+            total += tmp
+            next_one = path[i][3] - tmp * pzero * ((n - i) / (n + 1))
+        elif pzero != 0:
+            total += (path[i][3] / pzero) * (n + 1) / (n - i)
+    return total
 
 
 def _fmt_float(x) -> str:

@@ -1,10 +1,12 @@
-"""Thread-safe metrics registry: counters, gauges, histograms.
+"""Thread-safe metrics registry: counters, gauges, histograms, timers.
 
 The JAX package's ``obs/registry.py``: the single accumulation point for
 the port's telemetry. The LRB loop (lrb.py) counts windows, degrades and
 model swaps here and keeps its window-wall and serving-latency
 quantiles in log-bucketed latency histograms; retries and injected
-faults are counted here (utils/retry.py, utils/faults.py).
+faults are counted here (utils/retry.py, utils/faults.py); the phase
+clocks of ``utils/timing.py`` (the file loader's parse and binning, the
+CLI driver's phase report) are its timers.
 
 Design constraints:
 
@@ -17,21 +19,20 @@ Design constraints:
 - **Plain monotonic time.** Durations are recorded by callers from
   ``time.monotonic()`` deltas; the registry itself never reads clocks.
 
-Left out until their users are ported (ROADMAP item 20): the timer
-domain of ``utils/timing.py``, and the bucket merging of the cluster
-view.
+Left out until its user is ported (ROADMAP item 19): the bucket merging
+of the cluster view.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from ..analysis import lockorder
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "default_registry", "counter", "gauge", "histogram",
+    "default_registry", "counter", "gauge", "histogram", "timer",
     "log_buckets", "latency_histogram", "LATENCY_BUCKETS_S",
     "quantile_label",
 ]
@@ -254,14 +255,40 @@ class Histogram:
         return {quantile_label(q): self.percentile(q) for q in qs}
 
 
+class Timer:
+    """Accumulated duration: total seconds, call count, max call (the
+    phase table of utils/timing.py)."""
+    __slots__ = ("_lock", "_total", "_count", "_max")
+
+    def __init__(self, lock: threading.RLock):
+        self._lock = lock
+        self._total = 0.0
+        self._count = 0
+        self._max = 0.0
+
+    def add(self, seconds: float) -> None:
+        seconds = float(seconds)
+        with self._lock:
+            self._total += seconds
+            self._count += 1
+            if seconds > self._max:
+                self._max = seconds
+
+    @property
+    def total(self) -> float:
+        with self._lock:
+            return self._total
+
+
 class MetricsRegistry:
-    """Named instruments in three domains under one lock."""
+    """Named instruments in four domains under one lock."""
 
     def __init__(self):
         self._lock = lockorder.named_rlock("obs.registry._lock")
         self._counters: "OrderedDict[str, Counter]" = OrderedDict()   # guarded-by: _lock
         self._gauges: "OrderedDict[str, Gauge]" = OrderedDict()       # guarded-by: _lock
         self._histograms: "OrderedDict[str, Histogram]" = OrderedDict()  # guarded-by: _lock
+        self._timers: "OrderedDict[str, Timer]" = OrderedDict()       # guarded-by: _lock
 
     # -- get-or-create accessors --------------------------------------------
 
@@ -289,6 +316,25 @@ class MetricsRegistry:
                                                        buckets)
             return h
 
+    def timer(self, name: str) -> Timer:
+        with self._lock:
+            t = self._timers.get(name)
+            if t is None:
+                t = self._timers[name] = Timer(self._lock)
+            return t
+
+    def timer_items(self) -> List[Tuple[str, float, int, float]]:
+        """[(name, total_s, calls, max_s)]: one consistent read."""
+        with self._lock:
+            return [(n, t._total, t._count, t._max)
+                    for n, t in self._timers.items()]
+
+    def reset_timers(self) -> None:
+        """Clear the timer domain only (each phase report covers one
+        run's deltas; counters keep accumulating)."""
+        with self._lock:
+            self._timers.clear()
+
 
 # process-global default registry: the port's instruments all live
 # here unless a caller (tests) builds a private MetricsRegistry
@@ -310,6 +356,10 @@ def gauge(name: str) -> Gauge:
 def histogram(name: str,
               buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
     return _default.histogram(name, buckets)
+
+
+def timer(name: str) -> Timer:
+    return _default.timer(name)
 
 
 def latency_histogram(name: str,

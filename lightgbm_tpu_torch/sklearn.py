@@ -228,8 +228,6 @@ class LGBMModel(BaseEstimator):
                 pred_leaf=False, pred_contrib=False, **kwargs):
         if self._Booster is None:
             raise LightGBMError("Estimator not fitted, call fit first")
-        if pred_contrib:
-            raise LightGBMError("pred_contrib is not ported yet")
         nf = X.shape[1] if hasattr(X, "shape") else len(X[0])
         if self._n_features is not None and nf != self._n_features:
             raise ValueError(
@@ -238,7 +236,7 @@ class LGBMModel(BaseEstimator):
                 f"n_features is {nf}")
         return self._Booster.predict(
             X, raw_score=raw_score, num_iteration=num_iteration,
-            pred_leaf=pred_leaf, **kwargs)
+            pred_leaf=pred_leaf, pred_contrib=pred_contrib, **kwargs)
 
     @property
     def n_features_(self) -> int:

@@ -1,11 +1,15 @@
-"""Build the port's CUDA kernels and load them with ctypes.
+"""Build the port's CUDA kernels and its native parser; load them with
+ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for sm_90a into a
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for sm_90a, and the
+text parser ``csrc/fast_parser.cpp`` by ``g++`` for the host, into a
 shared library with a plain C interface, under ``_build/`` (ignored by
 git), keyed by a hash of the source and flags. ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them; ``library``
-builds on first use, so a caller never needs a separate build step.
-``compile_seconds`` is the nvcc wall time this process has paid so far
+compiler per source at once and waits for all of them; ``library``
+builds on first use (every kernel source together, the parser alone),
+so a caller never needs a separate build step, and a failed build
+raises.
+``compile_seconds`` is the compiler wall time this process has paid so far
 (the LRB loop's per-window ``compile_s``). Nothing here runs when a
 module is imported.
 """
@@ -26,8 +30,10 @@ PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "_build")
 SOURCES = ("forest_predict", "hist_wave", "leaf_gather")
+HOST_SOURCES = ("fast_parser",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -54,28 +60,44 @@ def _nvcc() -> str:
     return path
 
 
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise LightGBMError("g++ not found: the native text parser is "
+                            "built from lightgbm_tpu_torch/csrc on first "
+                            "use")
+    return path
+
+
+def _source(name: str) -> str:
+    ext = "cpp" if name in HOST_SOURCES else "cu"
+    return os.path.join(CSRC, f"{name}.{ext}")
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    flags = GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    with open(_source(name), "rb") as fh:
+        digest = hashlib.sha1(fh.read() + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 
-def build_all() -> Dict[str, Built]:
-    """Compile every source not yet built, all nvcc processes at once.
-    Raises with nvcc's errors if any source fails."""
+def build_all(names=SOURCES + HOST_SOURCES) -> Dict[str, Built]:
+    """Compile every source of ``names`` not yet built, all compilers at
+    once. Raises with the compiler's errors if any source fails."""
     global _paid_s
     os.makedirs(BUILD_DIR, exist_ok=True)
     out: Dict[str, Built] = {}
     running = {}
-    for name in SOURCES:
+    for name in names:
         path = _target(name)
         if os.path.exists(path):
             out[name] = Built(path, 0.0, "")
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = ([_gxx(), *GXX_FLAGS] if name in HOST_SOURCES
+               else [_nvcc(), *NVCC_FLAGS])
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-             os.path.join(CSRC, f"{name}.cu")],
+            [*cmd, "-o", tmp, _source(name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, path, tmp, time.perf_counter())
     failed = []
@@ -83,7 +105,8 @@ def build_all() -> Dict[str, Built]:
         report, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on csrc/{name}.cu:\n{report}")
+            failed.append(f"{os.path.basename(_source(name))} failed to "
+                          f"build:\n{report}")
             continue
         os.replace(tmp, path)
         out[name] = Built(path, seconds, report)
@@ -97,18 +120,21 @@ def build_all() -> Dict[str, Built]:
 
 
 def compile_seconds() -> float:
-    """nvcc wall seconds paid by this process's builds so far."""
+    """Compiler wall seconds paid by this process's builds so far."""
     with _paid_lock:
         return _paid_s
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on
+    first use: a kernel source with every other kernel source, the
+    parser alone."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = _target(name)
             if not os.path.exists(path):
-                path = build_all()[name].path
+                group = SOURCES if name in SOURCES else (name,)
+                path = build_all(group)[name].path
             lib = _libs[name] = ctypes.CDLL(path)
         return lib

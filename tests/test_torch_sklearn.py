@@ -4,8 +4,9 @@
 adapters of lightgbm_tpu_torch (``device="cpu"``) against the JAX
 package's estimators on the CPU, on the same numpy inputs made from a
 seed. Bars: the fitted model's text before its parameters block
-byte-equal, predictions (labels, probabilities, raw scores) equal; the
-custom metric's values within 1e-6 relative. The estimators need
+byte-equal, predictions (labels, probabilities, raw scores) equal, SHAP
+contributions within 1e-12; the custom metric's values within 1e-6
+relative. The estimators need
 scikit-learn, which the package imports only where it is installed.
 """
 import numpy as np
@@ -122,11 +123,19 @@ def test_custom_objective_and_metric_adapters():
 
 
 def test_pred_contrib_is_refused():
-    _, lin = _set(n=300)
-    X, _ = _set(n=300)
-    est = lgt.LGBMRegressor(**KW, device="cpu").fit(X, lin, verbose=False)
-    with pytest.raises(lgt.LightGBMError, match="pred_contrib"):
-        est.predict(X, pred_contrib=True)
+    """Refused until SHAP contributions were ported; now served: the
+    estimator's ``pred_contrib`` within 1e-12 of the JAX estimator's,
+    each row summing to its raw score."""
+    X, lin = _set(n=300)
+    got = []
+    for pkg, kw in ((lgb, {}), (lgt, {"device": "cpu"})):
+        est = pkg.LGBMRegressor(**KW, **kw).fit(X, lin, verbose=False)
+        got.append((est.predict(X, pred_contrib=True),
+                    est.predict(X, raw_score=True)))
+    (jc, _), (tc, raw) = got
+    assert tc.shape == (300, X.shape[1] + 1)
+    np.testing.assert_allclose(tc, jc, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tc.sum(1), raw, rtol=0, atol=1e-5)
 
 
 def test_package_imports_without_scikit_learn():
