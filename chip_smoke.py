@@ -106,15 +106,16 @@ the entry points a user calls:
    AUC within 4e-4;
 19. the LRB loop (``lightgbm_tpu_torch.lrb``), run after phase 5 and
    before phases 6-18 (torch.profiler keeps all its records this early):
-   ``synthetic_trace(3,000,000, n_objects=100,000, seed=7)`` written as
+   ``synthetic_trace(2,000,000, n_objects=100,000, seed=7)`` written as
    a trace file and driven through ``lrb.run_trace_file`` on cuda:0 in
    the default pipelined mode: cache 2**24 bytes, windows of 1,000,000
    requests, a uniform sample of 500,000 (``TRAIN_PARAMS``, 53
-   features), cutoff 0.5; three windows, each OPT-labeled (its positive
-   share in (0.05, 0.95)), trained and published, windows 2 and 3 also
-   scored on the previous model in 15,625 calls of 64 rows. The same
-   trace in sequential mode gives records equal on ``PARITY_KEYS``.
-   Window 3's calls are bit-equal to one call with the same handle and
+   features), cutoff 0.5; two windows (three before phase 25 came), each
+   OPT-labeled (its positive share in (0.05, 0.95)), trained and
+   published, window 2 also scored on the previous model in 15,625 calls
+   of 64 rows. The same trace in sequential mode gives records equal on
+   ``PARITY_KEYS``. The last window's calls are bit-equal to one call
+   with the same handle and
    to the plain K4 version on the same device codes
    (``check_forest``). Per window: wall, derive, train (ms an
    iteration), evaluate, predict calls, p50/p99 a batch and a request,
@@ -129,7 +130,7 @@ the entry points a user calls:
    400 healthy 64-row requests a tenant over HTTP, then
    ``fleet.predict.lrb_a@1+:sleep80``): lrb_a refused with HTTP 429 with
    budget left and not exhausted, lrb_b served bit-equal, faults
-   cleared. Then 8,000 requests of 64 rows (LRB rows, HIGGS rows for
+   cleared. Then 4,000 requests of 64 rows (LRB rows, HIGGS rows for
    ``higgs``) in the ratio 7:7:2 from 32 ``FleetClient`` threads over
    localhost HTTP, coalesce_us 2000 and max_batch 4096, every answer
    bit-equal to ``LGBM_BoosterPredictForMat`` on a freshly loaded handle
@@ -139,12 +140,12 @@ the entry points a user calls:
    p50/p99 at its client, the batches' rows p50/p99, K4 launches a
    request, and, over one request in 8 sent again under the profiler,
    the card's busy share and the host's top operators; the same for the
-   first 2,000 requests with coalesce_us 0. Then 8 clients on lrb_a
+   first 1,000 requests with coalesce_us 0. Then 8 clients on lrb_a
    while it is registered 3 times, two model texts in turn: no failed
    request, every answer bit-equal to its version's, ``fleet/
-   model_swaps`` +3. Last, phase 19's trace cut to 2 windows of 250,000
-   requests (a quarter of its windows, sample 125,000), sequential, in
-   process and then with ``serve_daemon=True`` (window 2's 3,907 calls
+   model_swaps`` +3. Last, phase 19's trace cut to 2 windows of 125,000
+   requests (an eighth of its windows, sample 62,500), sequential, in
+   process and then with ``serve_daemon=True`` (window 2's 1,954 calls
    of 64 rows over HTTP): records equal on ``PARITY_KEYS``, the
    tenant's version the windows published, no fallback to in-process
    scoring, one K4 launch a request and one a registration; window 2's
@@ -179,20 +180,20 @@ the entry points a user calls:
    multiclass at UCI Covertype's shape (``make_covertype_like``:
    464,809 train rows x 54 columns, 10 numerical, 4 + 40 one-hot; 7
    classes; the 116,203-row holdout as a valid set with multi_logloss
-   and multi_error), 255 leaves, max_bin 255, 10 iterations (70 trees)
+   and multi_error), 255 leaves, max_bin 255, 5 iterations (35 trees)
    through ``train``: ms an iteration, the card's busy share, K1/K2/K3
    launches an iteration (K3 7 + 7), K3 on class row 3 of the train
    scores bit-equal to its plain version, K4's [N, 7] holdout scores and
    leaf indices bit-equal to plain (``check_forest``), each row's class
    probabilities summing to 1 within 1e-6; (b) ``regression`` and
    ``regression_l1`` at YearPredictionMSD's shape and published split
-   (``make_year_like``: 463,715 / 51,630 rows x 90), 10 iterations of
+   (``make_year_like``: 463,715 / 51,630 rows x 90), 5 iterations of
    255 leaves with l2 / l1 on the test rows: L2 at the hilo3 wave width
    W=40, the renewal's ms a tree (CUDA events), renewed outputs that
    differ from the grower's, the renewal bit-equal to its CPU run on the
    same leaf ids and residuals; (c) ``lambdarank`` at MSLR-WEB10K Fold
    1's shape (``make_mslr_like``: 723,412 rows x 136 in 6,000 queries,
-   relevance 0-4, a tail to 908 rows a query), 10 iterations of 255
+   relevance 0-4, a tail to 908 rows a query), 5 iterations of 255
    leaves, NDCG@1,3,5,10 on a 1,000-query holdout within 1e-9 of the
    host's float64 NDCG (``ndcg_np``), the gradient step's ms and its
    chunks; (d) card against CPU (``card_and_cpu``, ``judge_trees``) at
@@ -218,7 +219,7 @@ the entry points a user calls:
    rows through ``PredictForMat`` bit-equal to the plain forest
    (``check_forest``) and within 1e-5 of the float64 host walk on the
    rescaled trees; (c) RF at Covertype's shape (phase 22's generator, 7
-   classes, bagging 0.632 every iteration, 255 leaves, 10 iterations):
+   classes, bagging 0.632 every iteration, 255 leaves, 5 iterations):
    K4's [116,203, 7] holdout outputs bit-equal to plain with
    ``average_output``, each row's probabilities summing to 1 within
    1e-6; (d) forced splits on phase 6's rows (the root on feature 50,
@@ -262,9 +263,34 @@ the entry points a user calls:
    the next rows: K4 bit-equal to plain on the current tables
    (``check_forest``), within 1e-5 of the float64 host walk of the edited
    trees, ``GetLeafValue`` reading the value back, ``DumpModel`` parsing
-   as JSON with 50 trees.
+   as JSON with 50 trees;
+25. exclusive feature bundling and the sparse route, after phase 24, in
+   at most 150 s (making the data untimed): phase 15's airline rows
+   (10,000,000 and the 500,000-row holdout) one-hot encoded as a scipy
+   CSR matrix (``one_hot_airline``: 674 columns, 8 entries a row,
+   density 1.19%; szilard/benchm-ml's one-hot airline set, the LightGBM
+   paper's "Flight Delay" EFB shape), ``AIRLINE_PARAMS``. (a) ``train``
+   on the CSR matrix, 10 iterations: the set bundled (its bundle columns
+   and ``bundle_width`` printed), K2 over the bundle columns and no K1,
+   ms an iteration, the card's busy share over one more, the holdout AUC;
+   on the first 250,000 rows the CSR route's model text equal to the same
+   rows given dense (float32), 3 iterations; (b) the same rows unbundled
+   (``enable_bundle=false``, ``tpu_sparse=0``: K1 over 674 columns, at
+   (a)'s wave width), 3 iterations: ms an iteration beside (a)'s, the
+   first split where the two part, and the holdout AUC within 1e-3 of
+   (a)'s at iteration 3 (the two f32 routes sum 10M rows over other row
+   ranges and part at a near tie in the first tree); (c) the int8 tier
+   with exact counts unbundled: the auto rule takes the sparse tier (no
+   K1, no K2) and its model text equals ``tpu_sparse=0``'s, 3 iterations
+   each; (d) (a)'s model through ``LGBM_BoosterPredictForCSR`` and
+   ``LGBM_BoosterPredictForCSC`` on the holdout: equal, every K4 launch
+   bit-equal to its plain version, each chunk's scores equal to
+   ``LGBM_BoosterPredictForMat`` on the densified chunk;
+   (e) K2 at (a)'s widest wave against its plain version in the kernels'
+   order bit for bit, two launches bit-identical, timed beside its plain
+   version, ``index_add_`` and its bound.
 
-Phases 6-7, 10-12, 15-16 and 19-24 check that the main path launched
+Phases 6-7, 10-12, 15-16 and 19-25 check that the main path launched
 each kernel (and each histogram variant) of its tier. Prints a JSON line
 of the kernels, then the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero without that
@@ -338,22 +364,22 @@ CAT_CPU_ITERS = 20
 CAT_CPU_LEAVES = 31
 K1_MS_BEFORE_CAT = 7.583        # PERF.md's table: phase 8's K1, 700 W
 # phase 19: the LRB loop (lightgbm_tpu_torch/lrb.py) on a synthetic trace
-LOOP_REQUESTS = 3_000_000
+LOOP_REQUESTS = 2_000_000
 LOOP_OBJECTS = 100_000
 LOOP_CACHE = 1 << 24            # OPT's positive share 0.878 a window
 LOOP_WINDOW = 1_000_000
 LOOP_SAMPLE = 500_000
 LOOP_CUTOFF = 0.5
 LOOP_SAMPLING = 2               # uniform random
-LOOP_SEQ_WINDOWS = 3            # windows of the sequential comparison
+LOOP_SEQ_WINDOWS = 2            # windows of the sequential comparison
 SERVE_PROBE_CALLS = 200
 # tests/test_lrb_pipeline.py:122
 PARITY_KEYS = ("window", "eval_rows", "fp_rate", "fn_rate",
                "train_rows", "opt_obj_hit_ratio", "opt_byte_hit_ratio",
                "staleness_windows", "degraded", "degrade_reason")
 # phase 20: the fleet scoring daemon (lightgbm_tpu_torch/serve/)
-FLEET_REQUESTS = 8_000          # the coalesced run
-FLEET_REPEAT = 2_000            # the first of them again, coalesce_us 0
+FLEET_REQUESTS = 4_000          # the coalesced run
+FLEET_REPEAT = 1_000            # the first of them again, coalesce_us 0
 FLEET_CLIENTS = 32              # FleetClient threads, one HTTP call each
 FLEET_ROWS = 64                 # rows a request (the LRB loop's calls)
 FLEET_MIX = (("lrb_a", 7), ("lrb_b", 7), ("higgs", 2))
@@ -363,8 +389,8 @@ FLEET_PROFILED = 8              # one request in 8 again, under the profiler
 SWAP_CLIENTS = 8
 DRILL_PREFILL = 400             # tests/test_fleet.py:301
 FLEET_LOOP_WINDOWS = 2
-FLEET_LOOP_WINDOW = 250_000     # phase 19's windows cut to a quarter
-FLEET_LOOP_SAMPLE = 125_000     # for the run through the daemon
+FLEET_LOOP_WINDOW = 125_000     # phase 19's windows cut to an eighth
+FLEET_LOOP_SAMPLE = 62_500      # for the run through the daemon
 K3_RUNS = 200                   # K3 launches per timing window
 # phase 21: valid sets
 VALID_METRICS = "auc,binary_logloss,binary_error"
@@ -393,7 +419,7 @@ MSLR_FEATURES = 136
 MSLR_HOLDOUT_QUERIES = 1_000
 MSLR_MAX_QUERY = 908            # the longest query of the generator
 OBJ_PARAMS = {"num_leaves": 255, "max_bin": 255, "verbose": -1}
-OBJ_ITERS = 10
+OBJ_ITERS = 5
 OBJ_CPU_ROWS = 20_000           # (d): card against CPU
 OBJ_CPU_LEAVES = 31
 OBJ_CPU_ITERS = 5
@@ -403,6 +429,14 @@ NDCG_TOL = 1e-9
 PHASE22_BUDGET_S = 150.0
 PHASE23_BUDGET_S = 150.0
 PHASE24_BUDGET_S = 120.0
+PHASE25_BUDGET_S = 150.0
+EFB_SLICE_ROWS = 250_000        # (a): the CSR route against dense float32
+EFB_ITERS = 10
+EFB_FLAT_ITERS = 3              # (b), (c)
+# (b): the two routes sum their f32 histograms over other row ranges
+# (K2 over 11 bundle columns against K1 over 674), and at 10M rows the
+# first tree parts at a near tie (PERF.md, PR 15): 6.5e-4 at iteration 3
+EFB_AUC_TOL = 1e-3
 SHAP_ROWS = 256                 # (d): rows explained by TreeSHAP on the host
 LEAF_EDIT = (7, 3)              # (f): tree and leaf given a new value
 WRITE_LIMIT_S = 30.0            # the window's text file, written untimed
@@ -415,7 +449,7 @@ DART_PARAMS = {**TRAIN_PARAMS, "boosting": "dart", "drop_rate": "0.1",
 RF_PARAMS = {**OBJ_PARAMS, "objective": "multiclass",
              "num_class": COVERTYPE_CLASSES, "boosting": "rf",
              "bagging_fraction": 0.632, "bagging_freq": 1}
-RF_ITERS = 10
+RF_ITERS = 5
 FORCED_ITERS = 10
 CONTIN_ITERS = 25               # a first model, then as many continued
 RESET_ITERS = 10                # after ResetTrainingData on the next window
@@ -495,6 +529,29 @@ def airline_labels(X: np.ndarray, seed: int) -> np.ndarray:
              + 0.0009 * (X[:, 3] - 1400.0) - 1.0)
     noise = np.random.default_rng(seed).logistic(size=X.shape[0])
     return (logit + noise > 0).astype(np.float32)
+
+
+def one_hot_airline(X: np.ndarray):
+    """The airline rows one-hot encoded as a scipy CSR matrix, columns in
+    the source's order: each categorical column as one column a category
+    (value 1.0), DepTime and Distance as their values; 674 columns, 8
+    entries a row (szilard/benchm-ml's one-hot airline set, the LightGBM
+    paper's "Flight Delay" shape)."""
+    import scipy.sparse as ssp
+    n = X.shape[0]
+    widths = [k or 1 for k in AIRLINE_CATEGORIES]
+    offsets = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    cols = np.empty((n, len(widths)), np.int32)
+    vals = np.ones((n, len(widths)), np.float64)
+    for j, k in enumerate(AIRLINE_CATEGORIES):
+        if k:
+            cols[:, j] = offsets[j] + X[:, j].astype(np.int32)
+        else:
+            cols[:, j] = offsets[j]
+            vals[:, j] = X[:, j]
+    indptr = np.arange(0, n * len(widths) + 1, len(widths), dtype=np.int64)
+    return ssp.csr_matrix((vals.reshape(-1), cols.reshape(-1), indptr),
+                          shape=(n, int(sum(widths))))
 
 
 def make_covertype_like(n_rows: int, seed: int):
@@ -2310,9 +2367,9 @@ def loop_probes():
     iterations), each window's evaluation (``_score_window``: the forest
     kernel's launches on the calling thread), the serving call the loop
     makes (``lrb.capi.LGBM_BoosterPredictForMat``: rows and host-clock
-    ms of each call, and window 3's batches and scores with the handle
-    that scored them) and ``forest.forest_predict`` (one launch a call
-    for CUDA tensors, counted per thread). Yields the records."""
+    ms of each call, and the last window's batches and scores with the
+    handle that scored them) and ``forest.forest_predict`` (one launch a
+    call for CUDA tensors, counted per thread). Yields the records."""
     import threading
     from lightgbm_tpu_torch import lrb
     from lightgbm_tpu_torch.obs import reqlog
@@ -2352,7 +2409,7 @@ def loop_probes():
         ctx = reqlog.current()
         w = ctx.window if ctx is not None else None
         rec["calls"].setdefault(w, []).append((len(data), ms))
-        if w == 3:
+        if w == LOOP_REQUESTS // LOOP_WINDOW:      # the last window
             rec["window3"].append((data, out))
             rec["handle3"] = handle
         return out
@@ -2388,7 +2445,8 @@ def request_quantiles(calls) -> dict:
 def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
     """Phase 19 of the module docstring, its trace written under ``tmp``.
     Returns, for the kernels line, each kernel's launches in the loop's
-    run and per window, and K4's reading on window 3's rows; for phase
+    run and per window, and K4's reading on the last window's rows; for
+    phase
     20 the trace's path and the last two published models' text."""
     import itertools
     import types
@@ -2485,7 +2543,8 @@ def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
           + f"; serving latency per request (s) "
           f"{seq.serve_latency_quantiles()}")
 
-    # window 3's serving, bit for bit: its 64-row calls against one call
+    # the last window's serving, bit for bit: its 64-row calls against one
+    # call
     # with the same handle, and against the plain K4 version
     h = probes["handle3"]
     X3 = np.concatenate([x for x, _ in probes["window3"]])
@@ -2494,11 +2553,11 @@ def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
     assert ((p3 >= 0) & (p3 <= 1)).all()
     one = np.asarray(capi.LGBM_BoosterPredictForMat(h, X3))
     assert np.array_equal(one, p3), "64-row calls != one call"
-    print(f"lrb loop window 3: {len(probes['window3'])} serving calls "
+    print(f"lrb loop window {n_win}: {len(probes['window3'])} serving calls "
           f"bit-equal to one call on its {X3.shape[0]} rows")
-    kern = check_forest("lrb loop window 3",
+    kern = check_forest(f"lrb loop window {n_win}",
                         types.SimpleNamespace(_gbdt=h.gbdt), X3, p3, dev)
-    # the serving call's host path, over 200 of window 3's calls
+    # the serving call's host path, over 200 of the last window's calls
     batches = itertools.cycle([x for x, _ in
                                probes["window3"][:SERVE_PROBE_CALLS]])
 
@@ -2610,7 +2669,7 @@ def fleet_phase(dev, smi: str, loop: dict, higgs_text: str,
     from lightgbm_tpu_torch.serve import FleetClient, ScoringDaemon, ShedError
     from lightgbm_tpu_torch.utils import faults
     t_phase = time.perf_counter()
-    text_new, text_old = loop["model_texts"]   # windows 3 and 2
+    text_new, text_old = loop["model_texts"]   # the last two windows
     texts = {"lrb_a": text_new, "lrb_b": text_new, "higgs": higgs_text}
     share = {t: k for t, k in FLEET_MIX}
     total = sum(share.values())
@@ -4264,7 +4323,248 @@ def file_phases(dev, smi: str, lrb: dict, tmp: str) -> dict:
     return out
 
 
+def efb_sparse_phases(dev, smi: str) -> dict:
+    """Phase 25 of the module docstring: EFB and the sparse route on the
+    one-hot airline rows. Returns the kernels-line entry of K2 over the
+    bundle columns."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.io.sparse import predict_chunk_rows
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    from lightgbm_tpu_torch.ops import wave_grower as wg
+    walls = {}
+    t0 = time.perf_counter()
+    X = make_airline_like(AIRLINE_ROWS, seed=41)
+    y = airline_labels(X, seed=42)
+    csr = one_hot_airline(X)
+    del X
+    Xt = make_airline_like(HOLDOUT_ROWS, seed=43)
+    yt = airline_labels(Xt, seed=44)
+    csrt = one_hot_airline(Xt)
+    del Xt
+    n, nf = csr.shape
+    density = csr.nnz / (n * nf)
+    print(f"one-hot airline: {n} x {nf} CSR, {csr.nnz} entries, density "
+          f"{density:.4f}; holdout {csrt.shape[0]} rows; made untimed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t_phase = time.perf_counter()
+
+    def holdout_auc(bst, iters):
+        return auc_np(yt, bst.predict(csrt, num_iteration=iters))
+
+    # (a) EFB exact through train, K2 over the bundle columns
+    t0 = time.perf_counter()
+    k2w = Capture(wg.wave_histogram, key=lambda a: a[4].shape[0])
+    wg.wave_histogram = k2w
+    try:
+        reset_counts()
+        tb = time.perf_counter()
+        ds = lgt.Dataset(csr, label=y, params=AIRLINE_PARAMS).construct()
+        torch.cuda.synchronize()
+        bin_s = time.perf_counter() - tb
+        tb = time.perf_counter()
+        bst = lgt.train(AIRLINE_PARAMS, ds, num_boost_round=EFB_ITERS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - tb
+        counts = read_counts()
+    finally:
+        wg.wave_histogram = k2w.fn
+    td, cfg = bst._gbdt.train_data, bst._gbdt._grower_cfg
+    iters = bst.current_iteration()
+    assert td.bundles is not None and cfg.bundle_bins > 0, "not bundled"
+    assert td.sparse_density is not None, "not the sparse route"
+    assert counts["K2"] > 0 and counts["K1"] == 0, counts
+    assert counts["K2"] == k2w.hits, (counts, k2w.hits)
+    auc_a = holdout_auc(bst, EFB_FLAT_ITERS)
+    dump = bst.model_to_string()
+    wall, busy = device_busy(bst.update, 1)
+    widths = [len(b) for b in td.bundles]
+    walls["a"] = time.perf_counter() - t0
+    print(f"(a) EFB: {nf} features into {len(td.bundles)} bundle columns "
+          f"(members {sorted(widths, reverse=True)}), bundle_width "
+          f"{td.bundle_width}, K2 at B={cfg.bundle_bins}, W={cfg.wave_size}, "
+          f"split search at B={cfg.num_bins}; binning {bin_s:.2f} s; "
+          f"{iters} iterations at {1e3 * train_s / iters:.1f} ms/iteration; "
+          f"K2 {counts['K2'] / iters:.1f} launches/iteration (widest W="
+          f"{k2w.best}), K1 0; holdout auc {auc_a:.5f} at iteration "
+          f"{EFB_FLAT_ITERS}; profile of 1 iteration: wall "
+          f"{wall:.1f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); launches {counts}; {smi}")
+    # the CSR route against the same rows given dense (float32)
+    t0 = time.perf_counter()
+    m = EFB_SLICE_ROWS
+    sl = csr[:m]
+    texts = [lgt.train(AIRLINE_PARAMS, lgt.Dataset(data, label=y[:m]),
+                       num_boost_round=EFB_FLAT_ITERS).model_to_string()
+             for data in (sl, sl.toarray().astype(np.float32))]
+    assert _body(texts[0]) == _body(texts[1]), "CSR slice != dense slice"
+    walls["slice"] = time.perf_counter() - t0
+    print(f"(a) {m} rows: the CSR route's model text equals the dense "
+          f"float32 route's ({EFB_FLAT_ITERS} iterations; "
+          f"{walls['slice']:.1f} s)")
+    k2_args, k2_kw = k2w.args, k2w.kw
+    k2_launches = counts["K2"]
+    del bst, ds, td
+    torch.cuda.empty_cache()
+
+    # (b) the same rows unbundled: K1 over every column, at (a)'s wave
+    # width (the bundled route takes the JAX package's hilo5 width, 24;
+    # the unbundled one would take 32, and another width grows other
+    # trees)
+    t0 = time.perf_counter()
+    flat = {**AIRLINE_PARAMS, "enable_bundle": False, "tpu_sparse": 0,
+            "tpu_wave_size": cfg.wave_size}
+    reset_counts()
+    tb = time.perf_counter()
+    ds_b = lgt.Dataset(csr, label=y, params=flat).construct()
+    torch.cuda.synchronize()
+    bin_b = time.perf_counter() - tb
+    tb = time.perf_counter()
+    bst_b = lgt.train(flat, ds_b, num_boost_round=EFB_FLAT_ITERS)
+    torch.cuda.synchronize()
+    train_b = time.perf_counter() - tb
+    counts_b = read_counts()
+    assert bst_b._gbdt.train_data.bundles is None
+    assert counts_b["K1"] > 0, counts_b
+    auc_b = holdout_auc(bst_b, EFB_FLAT_ITERS)
+    bst_b._gbdt._ensure_host_trees()
+    first_diff = tree_diff(lgt.Booster(model_str=dump)._gbdt.models,
+                           bst_b._gbdt.models)
+    assert abs(auc_b - auc_a) <= EFB_AUC_TOL, (auc_b, auc_a)
+    cfg_b = bst_b._gbdt._grower_cfg
+    del bst_b, ds_b
+    torch.cuda.empty_cache()
+    walls["b"] = time.perf_counter() - t0
+    print(f"(b) unbundled ({nf} columns, K1 at W={cfg_b.wave_size}, "
+          f"B={cfg_b.num_bins}): binning {bin_b:.2f} s, {EFB_FLAT_ITERS} "
+          f"iterations at {1e3 * train_b / EFB_FLAT_ITERS:.1f} ms/iteration "
+          f"((a): {1e3 * train_s / iters:.1f}); holdout auc {auc_b:.5f} "
+          f"against (a)'s {auc_a:.5f} at iteration {EFB_FLAT_ITERS} (within "
+          f"{EFB_AUC_TOL}); the first split where (a) and (b) part (tree, "
+          f"split, gain in (a), in (b)): {first_diff}; launches {counts_b}")
+
+    # (c) int8 with exact counts: the auto rule takes the sparse tier
+    t0 = time.perf_counter()
+    q = {**AIRLINE_PARAMS, "enable_bundle": False,
+         "tpu_quantized_hist": True, "tpu_count_proxy": 0}
+    ds_q = lgt.Dataset(csr, label=y, params=q).construct()
+    res = {}
+    for name, params in (("sparse tier", q),
+                         ("dense tier", {**q, "tpu_sparse": 0})):
+        reset_counts()
+        tb = time.perf_counter()
+        b = lgt.train(params, ds_q, num_boost_round=EFB_FLAT_ITERS)
+        torch.cuda.synchronize()
+        res[name] = (b.model_to_string(), time.perf_counter() - tb,
+                     read_counts(), b._gbdt._grower_cfg)
+        del b
+    (t_s, s_s, c_s, g_s), (t_d, s_d, c_d, g_d) = res.values()
+    assert g_s.sparse_hist and not g_d.sparse_hist, (g_s, g_d)
+    assert g_s.precision == g_d.precision == "int8"
+    assert c_s["K1"] == 0 and c_s["K2"] == 0 and c_d["K1"] > 0, (c_s, c_d)
+    assert _body(t_s) == _body(t_d), "sparse tier != dense tier"
+    del ds_q
+    torch.cuda.empty_cache()
+    walls["c"] = time.perf_counter() - t0
+    print(f"(c) int8 with exact counts, unbundled: the auto rule picks the "
+          f"sparse tier (density {density:.4f} <= 1/16); its model text "
+          f"equals tpu_sparse=0's; {EFB_FLAT_ITERS} iterations each: sparse "
+          f"{1e3 * s_s / EFB_FLAT_ITERS:.1f} ms/iteration (launches {c_s}), "
+          f"dense {1e3 * s_d / EFB_FLAT_ITERS:.1f} (launches {c_d})")
+
+    # (d) CSR and CSC predict on the holdout through the C API
+    t0 = time.perf_counter()
+    h = capi.LGBM_BoosterLoadModelFromString(dump)
+    fcd = h.gbdt._stacked_model().forest.to(dev)
+    checked = [0]
+    k4 = forest_ops.forest_predict
+
+    def held(codes, forest, first, last, leaf_mode=False):
+        out = k4(codes, forest, first, last, leaf_mode)
+        want = forest_ops.forest_predict_plain(codes, fcd, first, last,
+                                               leaf_mode)
+        assert torch.equal(out, want), "K4 != plain on a CSR chunk"
+        checked[0] += 1
+        return out
+    forest_ops.forest_predict = held
+    try:
+        reset_counts()
+        p_csr = np.asarray(capi.LGBM_BoosterPredictForCSR(
+            h, csrt.indptr, 3, csrt.indices, csrt.data, 1,
+            len(csrt.indptr), csrt.nnz, nf))
+        csct = csrt.tocsc()
+        p_csc = np.asarray(capi.LGBM_BoosterPredictForCSC(
+            h, csct.indptr, 3, csct.indices, csct.data, 1,
+            len(csct.indptr), csct.nnz, csrt.shape[0]))
+        k4_launches = read_counts()["K4"]
+    finally:
+        forest_ops.forest_predict = k4
+    assert k4_launches > 0 and checked[0] == k4_launches, (k4_launches,
+                                                          checked)
+    assert np.array_equal(p_csr, p_csc), "CSR != CSC"
+    chunk = predict_chunk_rows(nf)
+    for r0 in range(0, csrt.shape[0], chunk):
+        dense = capi.LGBM_BoosterPredictForMat(
+            h, csrt[r0:r0 + chunk].toarray())
+        assert np.array_equal(p_csr[r0:r0 + chunk], dense), r0
+    auc_a10 = auc_np(yt, p_csr)
+    del fcd
+    walls["d"] = time.perf_counter() - t0
+    print(f"(d) PredictForCSR and PredictForCSC on {csrt.shape[0]} rows in "
+          f"chunks of {chunk}: equal, every one of {k4_launches} K4 launches "
+          f"bit-equal to plain, scores equal to PredictForMat on the "
+          f"densified chunks; (a)'s holdout auc at iteration {iters} "
+          f"{auc_a10:.5f}; {walls['d']:.1f} s")
+
+    # (e) K2 at (a)'s widest wave against its plain version
+    t0 = time.perf_counter()
+
+    def k2(*a):
+        return hw.wave_histogram(*a, **k2_kw)
+
+    def p2(*a, **k):
+        return hw.wave_histogram_plain(*a, **plain_kw(k2_kw), **k)
+    st = check_histogram("K2 bundles", k2, p2, k2_args, lambda o: o, None)
+    bins_t, B = k2_args[0], k2_args[-1]
+    Fb, nb_rows = bins_t.shape
+    W = k2_args[4].shape[0]
+    entry = dict(
+        name="wave_histogram_efb_bundles", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_wave.cu",
+        replaces="lightgbm_tpu/ops/hist_wave.py:482",
+        launches=k2_launches,
+        launches_per_iteration=k2_launches / iters,
+        shape=f"F={Fb} bundle columns, N={nb_rows}, W={W}, B={B}",
+        ms=cuda_ms(lambda: k2(*k2_args), 5),
+        plain_ms=cuda_ms(lambda: p2(*k2_args), 3),
+        library_ms=lib_index_add(k2_args, dev),
+        **{k: st[k] for k in ("max_abs_err", "max_abs_err_f64",
+                              "max_bound_used")},
+        **pass_report("efb", "K2", k2, k2_args, k2_kw,
+                      st["rows_counted"]),
+        **bound(Fb * nb_rows + 12 * nb_rows + 4 * W + 12 * W * Fb * B,
+                3 * Fb * st["rows_counted"]))
+    walls["e"] = time.perf_counter() - t0
+    print(f"(e) K2 over bundles at [{entry['shape']}]: {entry['ms']:.3f} ms, "
+          f"plain {entry['plain_ms']:.3f} ms, library (index_add_) "
+          f"{entry['library_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}); bit-equal to the plain version in the "
+          f"kernels' order, two launches bit-identical; g/h within "
+          f"{st['max_abs_err_f64']:.3g} of float64; {smi}")
+    total = time.perf_counter() - t_phase
+    print("phase 25 walls: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in sorted(walls.items()))
+          + f"; in all {total:.1f} s without making the data (budget "
+          f"{PHASE25_BUDGET_S:.0f} s); {smi}")
+    assert total <= PHASE25_BUDGET_S, f"phase 25 took {total:.1f} s"
+    entry["walls"] = walls
+    return entry
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4453,6 +4753,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         files = file_phases(dev, smi, higgs_data["lrb"], tmp)
     del higgs_data
+    # 25: EFB and the sparse route on the one-hot airline rows
+    efb = efb_sparse_phases(dev, smi)
 
     # kernels line
     forest = {
@@ -4536,7 +4838,8 @@ def main() -> None:
                             valid["lrb"]["k3_per_tree"],
                             "higgs_launches": valid["higgs"]["k3_launches"],
                             "lrb_launches": valid["lrb"]["k3_launches"]})
-    print(json.dumps({"kernels": [forest] + train + quant + cat}))
+    print(json.dumps({"kernels": [forest] + train + quant + cat + [efb]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,9 @@ custom objective's (``Booster.update(fobj=)``), with every boosting type
 scores folded into the Dataset's init scores, ``_InnerPredictor``),
 ``Dataset.save_binary``, refit on new data (``Booster.refit``), scoring a
 trained or loaded model (SHAP contributions with ``pred_contrib``), its
-JSON dump, and pickling (a pickled Booster unpickles onto the card)."""
+JSON dump, and pickling (a pickled Booster unpickles onto the card).
+scipy.sparse matrices are taken as CSR (io/sparse.py) by ``Dataset``,
+``Booster.predict`` and ``Booster.refit``."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -17,6 +19,7 @@ import numpy as np
 from .config import Config
 from .io.dataset import BinnedDataset, Metadata
 from .io.loader import DatasetLoader
+from .io.sparse import SparseMatrix
 from .metrics import create_metrics, metric_names
 from .models.boosting import create_boosting
 from .models.gbdt import GBDT
@@ -24,10 +27,18 @@ from .objectives import create_objective
 from .utils.log import LightGBMError
 
 
+def _is_scipy_sparse(data) -> bool:
+    try:
+        import scipy.sparse as ssp
+    except ImportError:
+        return False
+    return ssp.issparse(data)
+
+
 def _data_to_2d(data, feature_name="auto", categorical_feature="auto"):
-    """(ndarray[N, F] float32 or float64, feature names or None, sorted
-    categorical column indices) of an input matrix (the JAX package's
-    basic.py:52). Pandas categorical/object columns become their
+    """(ndarray[N, F] float32 or float64, or a ``SparseMatrix`` of a
+    scipy.sparse input, feature names or None, sorted categorical column
+    indices) of an input matrix (the JAX package's basic.py:52). Pandas categorical/object columns become their
     category codes, with code -1 (missing) as NaN, like the reference's
     _data_from_pandas, and are the categorical columns under "auto"; a
     list names them by index or feature name."""
@@ -53,9 +64,12 @@ def _data_to_2d(data, feature_name="auto", categorical_feature="auto"):
             X[:, i] = np.where(codes < 0, np.nan, codes)
             if categorical_feature == "auto":
                 cat_idx.append(i)
-    elif hasattr(data, "tocsr"):
-        raise LightGBMError("sparse input is not ported yet; pass a dense "
-                            "array")
+    elif isinstance(data, SparseMatrix):
+        X = data
+    elif _is_scipy_sparse(data):
+        # CSR on the host (io/sparse.py): the set decides the sparse or
+        # the densified route; predictions densify in bounded chunks
+        X = SparseMatrix.from_scipy(data)
     else:
         X = np.asarray(data)
         if X.dtype not in (np.float32, np.float64):
@@ -590,7 +604,9 @@ class Booster:
             X, _ = DatasetLoader(cfg).load_predict_matrix(
                 data, self._gbdt.max_feature_idx + 1)
         else:
-            X = np.asarray(_data_to_2d(data)[0], np.float64)
+            X = _data_to_2d(data)[0]
+            if not isinstance(X, SparseMatrix):
+                X = np.asarray(X, np.float64)
         if num_iteration < 0 and self.best_iteration > 0:
             num_iteration = self.best_iteration
         pred_kw = {k: v for k, v in kwargs.items()
@@ -740,9 +756,12 @@ class _InnerPredictor:
         return self._gbdt.current_iteration
 
     def init_score_for(self, X) -> np.ndarray:
-        """Raw scores of the rows of ``X``, float64, flattened
-        class-major (the init score layout, metadata.cpp)."""
-        raw = self._gbdt.predict_raw(np.asarray(X, np.float64))
+        """Raw scores of the rows of ``X`` (an array or a
+        ``SparseMatrix``), float64, flattened class-major (the init score
+        layout, metadata.cpp)."""
+        if not isinstance(X, SparseMatrix):
+            X = np.asarray(X, np.float64)
+        raw = self._gbdt.predict_raw(X)
         if raw.ndim == 2:
             return raw.T.reshape(-1).astype(np.float64)
         return raw.astype(np.float64)

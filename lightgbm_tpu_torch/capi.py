@@ -1,6 +1,7 @@
 """C-API-shaped entry points (the JAX package's ``capi.py``, the calls
 the fork's LRB loop makes; reference src/c_api.cpp,
-include/LightGBM/c_api.h): a dataset from a matrix (or several), a text
+include/LightGBM/c_api.h): a dataset from a matrix (or several), from
+CSR or CSC planes (kept sparse on the host, io/sparse.py), a text
 or binary file, a sample of its columns filled by pushed rows, a subset
 or a reference's mappers, with its fields (query groups among them),
 feature names and binary file; a booster of any boosting type trained one
@@ -8,8 +9,9 @@ iteration at a time, on its objective's gradients or the caller's, with
 valid sets, their metrics and scores, rollback, feature importance, its
 model text and file and JSON dump, leaf values read and set, iterations
 shuffled, refit on new data, merging two models, continuing on new
-training data, and scoring a matrix or a file (SHAP contributions
-among the predict types); the last error's text.
+training data, and scoring a matrix, CSR or CSC planes (densified in
+bounded row chunks) or a file (SHAP contributions among the predict
+types); the last error's text.
 
 Handles are opaque objects, out-parameters become return values, and
 the dtype and predict tags match c_api.h, so C callers transliterate line
@@ -26,6 +28,7 @@ from .application import write_result
 from .config import Config
 from .io.dataset import BinnedDataset, Metadata, find_column_mappers
 from .io.loader import DatasetLoader
+from .io.sparse import SparseMatrix
 from .metrics import create_metric, create_metrics, metric_names
 from .models.boosting import create_boosting
 from .models.gbdt import GBDT
@@ -68,12 +71,12 @@ def _params_to_config(parameters) -> Config:
 
 
 class _DatasetHandle:
-    """Raw matrix and fields; binning waits for the first booster
-    (c_api.cpp defers Dataset::Construct likewise). A handle with a
-    ``reference`` is binned with the reference's mappers on its
-    device."""
+    """Raw matrix (an array, or a ``SparseMatrix`` of CSR or CSC input)
+    and fields; binning waits for the first booster (c_api.cpp defers
+    Dataset::Construct likewise). A handle with a ``reference`` is binned
+    with the reference's mappers on its device."""
 
-    def __init__(self, X: np.ndarray, cfg: Config, device, reference=None):
+    def __init__(self, X, cfg: Config, device, reference=None):
         self.X = X
         self.cfg = cfg
         self.device = device
@@ -139,6 +142,29 @@ def LGBM_DatasetCreateFromMats(nmat, mats, data_type=C_API_DTYPE_FLOAT64,
                           device, reference)
 
 
+def LGBM_DatasetCreateFromCSR(indptr, indptr_type, indices, data,
+                              data_type, nindptr, nelem, num_col,
+                              parameters="", reference=None,
+                              device=None) -> _DatasetHandle:
+    """c_api.cpp:268: CSR planes, kept sparse on the host (a duplicate
+    (row, column) keeps its last value); the set takes the sparse route
+    below ``sparse_threshold`` density, else densifies."""
+    sm = SparseMatrix.from_csr(indptr, indices, data, int(num_col))
+    return _DatasetHandle(sm, _params_to_config(parameters), device,
+                          reference)
+
+
+def LGBM_DatasetCreateFromCSC(col_ptr, col_ptr_type, indices, data,
+                              data_type, ncol_ptr, nelem, num_row,
+                              parameters="", reference=None,
+                              device=None) -> _DatasetHandle:
+    """c_api.cpp:390: CSC planes, transposed to CSR in O(nnz)."""
+    sm = SparseMatrix.from_csc(col_ptr, indices, data, int(num_row),
+                               int(ncol_ptr) - 1)
+    return _DatasetHandle(sm, _params_to_config(parameters), device,
+                          reference)
+
+
 def LGBM_DatasetCreateFromFile(filename: str, parameters="",
                                reference=None, device=None
                                ) -> _DatasetHandle:
@@ -196,6 +222,21 @@ def LGBM_DatasetPushRows(handle: _DatasetHandle, data,
         raise LightGBMError("push rows before the first booster uses the "
                             "dataset")
     X = _mat_to_2d(data, nrow, ncol, 1)
+    handle.X[int(start_row):int(start_row) + X.shape[0]] = X
+    return 0
+
+
+def LGBM_DatasetPushRowsByCSR(handle: _DatasetHandle, indptr, indptr_type,
+                              indices, data, data_type, nindptr, nelem,
+                              num_col, start_row):
+    """c_api.cpp:260: a CSR row block into a dataset made by
+    CreateFromSampledColumn or CreateByReference, densified (with the
+    cliff warning) into its rows."""
+    if handle._inner is not None:
+        raise LightGBMError("push rows before the first booster uses the "
+                            "dataset")
+    X = SparseMatrix.from_csr(indptr, indices, data,
+                              int(num_col)).to_dense(warn=True)
     handle.X[int(start_row):int(start_row) + X.shape[0]] = X
     return 0
 
@@ -536,6 +577,28 @@ def LGBM_BoosterPredictForMat(handle: _BoosterHandle, data,
     """c_api.cpp:1014."""
     X = _mat_to_2d(data, nrow, ncol, is_row_major)
     return _predict(handle.gbdt, X, predict_type, num_iteration)
+
+
+def LGBM_BoosterPredictForCSR(handle: _BoosterHandle, indptr, indptr_type,
+                              indices, data, data_type, nindptr, nelem,
+                              num_col, predict_type=C_API_PREDICT_NORMAL,
+                              num_iteration=-1, parameter=""):
+    """c_api.cpp:878: CSR rows, densified in bounded row chunks by the
+    predict path (models/gbdt.py), never the whole matrix."""
+    sm = SparseMatrix.from_csr(indptr, indices, data, int(num_col))
+    return _predict(handle.gbdt, sm, predict_type, num_iteration)
+
+
+def LGBM_BoosterPredictForCSC(handle: _BoosterHandle, col_ptr,
+                              col_ptr_type, indices, data, data_type,
+                              ncol_ptr, nelem, num_row,
+                              predict_type=C_API_PREDICT_NORMAL,
+                              num_iteration=-1, parameter=""):
+    """c_api.cpp:1100: CSC columns, transposed to CSR, then as
+    ``LGBM_BoosterPredictForCSR``."""
+    sm = SparseMatrix.from_csc(col_ptr, indices, data, int(num_row),
+                               int(ncol_ptr) - 1)
+    return _predict(handle.gbdt, sm, predict_type, num_iteration)
 
 
 def LGBM_BoosterCalcNumPredict(handle: _BoosterHandle, num_row: int,

@@ -319,8 +319,9 @@ class RF(GBDT):
             if tail:
                 g = torch.cat([g, g.new_zeros(tail)])
                 h = torch.cat([h, h.new_zeros(tail)])
-            rec, leaf_ids = self._grower.grow(self._grower_bins(), g, h,
-                                              mask, fmask, counted_rows=n)
+            rec, leaf_ids = self._grower.grow(
+                self._grower_bins(), g, h, mask, fmask, counted_rows=n,
+                sparse=self._sparse_planes)
             if rec.num_leaves > 1:
                 if self._renew is not None:
                     # against zero scores (rf.hpp:146)

@@ -143,6 +143,7 @@ class GBDT:
         self._n = n = self._n_total = train_data.num_data
         self._host_meta = train_data.feature_meta()
         self._grower_cfg = None
+        self._sparse_planes = None
         # the forced splits in this train set's bins, read once a file
         self._forced_file, self._forced_splits = None, ()
         self._setup_grower()
@@ -192,12 +193,14 @@ class GBDT:
 
     def _setup_grower(self) -> None:
         """The grower of the serial learner and its histogram tier: split
-        hyperparameters, precision, count-proxy, packed bins, the wave
-        width W and the histogram width B (the JAX package's
-        gbdt.py:300-480, serial learner, no EFB bundles or sparse tier,
-        which the port has not)."""
+        hyperparameters, EFB bundles, the sparse tier, precision,
+        count-proxy, packed bins, the wave width W and the histogram
+        width B (the JAX package's gbdt.py:300-480, serial learner)."""
         cfg = self.config
         td = self.train_data
+        # EFB rides the histogram seam (bundle columns in, member
+        # histograms out) and the partition's member decode
+        use_bundles = td.bundles is not None
         if cfg.tree_learner != "serial":
             log.warning("tree_learner=%s needs several devices; the port "
                         "trains with the serial learner", cfg.tree_learner)
@@ -215,16 +218,36 @@ class GBDT:
                         for m in td.mappers))
         quant = cfg.tpu_quantized_hist
         forced = bool(cfg.forcedsplits_filename)
+        # the sparse histogram tier (config.tpu_sparse): a CSR-built
+        # train set that kept its binned entries, without bundles; the
+        # rule is ops/autotune.py's. Decided before the count-proxy gate:
+        # the tiers exclude each other. A reset keeps the tier chosen at
+        # init (the entries were kept, or not, when the set was built)
+        if self._grower_cfg is not None:
+            sparse_tier = self._grower_cfg.sparse_hist
+        elif td.sparse_coords is not None and not use_bundles:
+            from ..ops.autotune import tune_hist_tier
+            sparse_tier = tune_hist_tier(
+                requested=cfg.tpu_sparse, density=td.sparse_density or 0.0,
+                quant=quant,
+                backend="gpu" if self.device.type == "cuda" else "cpu")
+        else:
+            sparse_tier = False
+            if cfg.tpu_sparse == 1 and td.sparse_density is not None:
+                log.warning("tpu_sparse=1 needs the serial tree learner "
+                            "without EFB bundles and a CSR-constructed "
+                            "train set carrying coordinates; using the "
+                            "dense histogram tier")
         if cfg.forcedsplits_filename != self._forced_file:
             self._forced_file = cfg.forcedsplits_filename
             self._forced_splits = (self._parse_forced_splits() if forced
                                    else ())
-        # count-proxy: int8 only, no forced splits and no categorical
-        # features, whose search takes a side's count as num_data minus
-        # the other's, which would turn the proxy's lower bounds into
-        # over-estimates (EFB bundles and the sparse tier, which it also
-        # excludes, are not ported)
-        proxy = (quant and not forced and not hp.has_cat
+        # count-proxy: int8 only, no EFB bundles, no sparse tier, no
+        # forced splits and no categorical features, whose search takes a
+        # side's count as num_data minus the other's, which would turn
+        # the proxy's lower bounds into over-estimates
+        proxy = (quant and not use_bundles and not forced
+                 and not hp.has_cat and not sparse_tier
                  and cfg.tpu_count_proxy != 0)
         if cfg.tpu_count_proxy == 1 and not proxy:
             log.warning("tpu_count_proxy needs tpu_quantized_hist with "
@@ -238,7 +261,8 @@ class GBDT:
                      "min_data_in_leaf gate; set tpu_count_proxy=0 for "
                      "exact counts")
         # 4-bit packed bins ride the count-proxy tier or the exact tier
-        packed4_exact = not quant and cfg.tpu_use_dp and not forced
+        packed4_exact = (not quant and cfg.tpu_use_dp and not forced
+                         and not use_bundles and not sparse_tier)
         packed4 = ((proxy or packed4_exact) and td.max_bin_global <= 16
                    and cfg.tpu_packed_bins != 0)
         if quant and proxy:
@@ -246,6 +270,10 @@ class GBDT:
             hp = hp._replace(count_lb=True)  # conservative min_data gate
         elif quant:
             precision, w_cap = "int8", 40    # 3 channels
+        elif cfg.tpu_use_dp and (use_bundles or sparse_tier):
+            # the JAX package keeps its widest layout, hilo5, on the
+            # bundled and sparse routes
+            precision, w_cap = "f32", EXACT_TIER_CAPS["hilo5"]
         elif cfg.tpu_use_dp:
             # the exact tier's channel layout only sets the wave cap; off
             # the TPU the JAX package takes the widest layout its
@@ -282,13 +310,17 @@ class GBDT:
         # tpu_row_bucket=0 asks for exact shapes. Bins past a feature's
         # num_bin stay empty; keeping the JAX width keeps the split
         # finder's prefix products the same shape as the reference's.
+        # The JAX package's step cache does not take bundled sets: their
+        # width stays exact.
         B = max(td.max_bin_global, 2)
-        if cfg.tpu_row_bucket != 0:
+        if cfg.tpu_row_bucket != 0 and not use_bundles:
             B = 1 << (max(B, 16) - 1).bit_length()
         grower_cfg = WaveGrowerConfig(
             num_leaves=max(cfg.num_leaves, 2), num_bins=B, wave_size=W,
             max_depth=cfg.max_depth, hp=hp, precision=precision,
-            count_proxy=proxy, packed4=packed4, forced=self._forced_splits)
+            count_proxy=proxy, packed4=packed4, forced=self._forced_splits,
+            bundle_bins=max(td.bundle_width, 2) if use_bundles else 0,
+            sparse_hist=sparse_tier)
         if self._grower_cfg == grower_cfg:
             return                      # reset_config changed no field
         self._grower_cfg = grower_cfg
@@ -296,8 +328,22 @@ class GBDT:
             nbytes = -(-td.num_features // 2) * self._n
             log.info("4-bit packed bins: %.1f MB HBM (vs %.1f MB unpacked)",
                      nbytes / 1e6, 2 * nbytes / 1e6)
+        if sparse_tier:
+            self._sparse_planes = self._build_sparse_planes()
         self._grower = WaveGrower(self._grower_cfg, td.feature_meta(),
                                   self.device)
+
+    def _build_sparse_planes(self) -> tuple:
+        """(codes, feat, row, zero_bins) on the device for the sparse
+        histogram tier (the JAX package's gbdt.py:1087-1124). The entries
+        were binned on the device, so unlike the JAX package's host
+        coordinates they need no upload (its ``_upload_plane``)."""
+        td = self.train_data
+        codes, feat, rows = td.sparse_coords
+        log.info("sparse histogram tier: %d coordinate entries over %d "
+                 "features", codes.shape[0], max(td.num_features, 1))
+        return (codes, feat, rows, torch.from_numpy(
+            np.asarray(td.sparse_zero_bins, np.int32)).to(self.device))
 
     def _parse_forced_splits(self) -> tuple:
         """The ``forcedsplits_filename`` JSON as ((parent leaf, inner
@@ -585,8 +631,9 @@ class GBDT:
                 # the passengers' g and h: exact +0.0
                 g = torch.cat([g, g.new_zeros(tail)])
                 h = torch.cat([h, h.new_zeros(tail)])
-            rec, leaf_ids = self._grower.grow(self._grower_bins(), g, h,
-                                              mask, fmask, counted_rows=n)
+            rec, leaf_ids = self._grower.grow(
+                self._grower_bins(), g, h, mask, fmask, counted_rows=n,
+                sparse=self._sparse_planes)
             if renew is not None and rec.num_leaves > 1:
                 # against the scores before this tree's update
                 # (serial_tree_learner.cpp:780-818)
@@ -757,6 +804,23 @@ class GBDT:
 
     # -- prediction ---------------------------------------------------------
 
+    @staticmethod
+    def _predict_sparse_chunked(X, fn):
+        """CSR input (io/sparse.py SparseMatrix) densified on the host in
+        chunks of ``predict_chunk_rows`` rows, each through ``fn`` (the
+        JAX package's gbdt.py:2135-2150), never the whole [N, F] matrix.
+        Exact: every predict path is row-independent. None for dense
+        input."""
+        from ..io.sparse import SparseMatrix, predict_chunk_rows
+        if not isinstance(X, SparseMatrix):
+            return None
+        n = X.shape[0]
+        chunk = predict_chunk_rows(X.shape[1])
+        if n <= chunk:
+            return fn(X.to_dense())
+        return np.concatenate([fn(X.to_dense_rows(r0, min(r0 + chunk, n)))
+                               for r0 in range(0, n, chunk)], axis=0)
+
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1,
                     start_iteration: int = 0,
                     pred_early_stop: bool = False,
@@ -770,6 +834,12 @@ class GBDT:
         = 2|raw|, multiclass margin = top1 - top2). Rows stop in
         batches of ``freq`` — data-dependent, so it runs on the host
         tree path."""
+        out = self._predict_sparse_chunked(
+            X, lambda Xd: self.predict_raw(
+                Xd, num_iteration, start_iteration, pred_early_stop,
+                pred_early_stop_freq, pred_early_stop_margin))
+        if out is not None:
+            return out
         X = np.asarray(X, np.float64)
         n = X.shape[0]
         k = self.num_tree_per_iteration
@@ -842,6 +912,10 @@ class GBDT:
 
     def predict_leaf_index(self, X: np.ndarray,
                            num_iteration: int = -1) -> np.ndarray:
+        out = self._predict_sparse_chunked(
+            X, lambda Xd: self.predict_leaf_index(Xd, num_iteration))
+        if out is not None:
+            return out
         X = np.asarray(X, np.float64)
         self._ensure_host_trees()
         ntree = len(self.models)
@@ -862,6 +936,10 @@ class GBDT:
         (gbdt.h PredictContrib / tree.h:118), by TreeSHAP on the host in
         float64, as the JAX package computes them; no kernel runs."""
         self._ensure_host_trees()
+        out = self._predict_sparse_chunked(
+            X, lambda Xd: self.predict_contrib(Xd, num_iteration))
+        if out is not None:
+            return out
         X = np.asarray(X, np.float64)
         n = X.shape[0]
         k = self.num_tree_per_iteration

@@ -664,6 +664,90 @@ def dequantize(hist: torch.Tensor, gh_scale) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the sparse tier (CSR-built train sets): PyTorch ops on every device
+# ---------------------------------------------------------------------------
+
+def _cell_sums(index: torch.Tensor, values: torch.Tensor,
+               size: int) -> torch.Tensor:
+    """[size] sums of ``values`` [E] at ``index`` [E] (entries at
+    ``size`` dropped): integers by ``index_add_`` (exact in any order);
+    f32 on the CPU by ``index_add_``, serial in entry order, the bits of
+    XLA's CPU scatter; f32 on the card by a stable sort of the entries by
+    cell and each cell's segment added in XLA's order of a reduction
+    (``xla_segment_sum``), the same bits on every run."""
+    if values.dtype != torch.float32 or values.device.type == "cpu":
+        out = torch.zeros(size + 1, dtype=values.dtype,
+                          device=values.device)
+        return out.index_add_(0, index, values)[:size]
+    from .f32math import xla_segment_sum
+    order = torch.sort(index, stable=True).indices
+    counts = torch.bincount(index, minlength=size + 1)[:size]
+    starts = torch.cumsum(counts, 0) - counts
+    return xla_segment_sum(values[order], starts, counts)
+
+
+def wave_histogram_sparse(sp, g, h, leaf_ids, wave_leaves, num_bins: int,
+                          num_features: int, num_leaves: int,
+                          gh_scale=None) -> torch.Tensor:
+    """[W, F, B, 3] wave histograms by scatter over the explicit entries
+    of a CSR-built set (the JAX package's ``wave_histogram_sparse``,
+    hist_wave.py:233-309). ``sp`` = (codes, feat, row, zero_bins): each
+    entry's bin, inner feature and row [E] and each feature's bin of 0.0
+    [F]; entries with feat >= F are dropped. Each channel adds the
+    entries' row values at (slot, feature, code), then completes each
+    (slot, feature)'s bin of 0.0 with the slot's row total minus the
+    feature's explicit subtotal. A row's slot comes from a leaf -> slot
+    table of ``num_leaves`` + 1 entries gathered per entry, not the JAX
+    package's [W, E] compare matrix: the same slots.
+
+    g and h int8 (the quantized tier): integer sums, bit-equal to the
+    dense tier, dequantized with ``gh_scale`` as ``dequantize``. f32: the
+    completion reassociates the sums of the bin of 0.0, so they can part
+    from the dense tier's in the last ulp; on the CPU the sums are the
+    JAX package's bits, on the card within ``refit.sum_bound`` of them
+    (``_cell_sums``)."""
+    codes, feat, row, zb = sp
+    F, B, W = int(num_features), int(num_bins), wave_leaves.shape[0]
+    dev = g.device
+    i64 = torch.int64
+    size = W * F * B
+    wl = wave_leaves.to(i64)
+    ok = wl >= 0
+    table = torch.full((int(num_leaves) + 1,), W, dtype=i64, device=dev)
+    table[wl[ok] + 1] = torch.arange(W, device=dev)[ok]
+    slot_row = table[leaf_ids.to(i64) + 1]                    # [N], W: none
+    row = row.to(i64)
+    feat = feat.to(i64)
+    slot = slot_row[row]
+    found = (slot < W) & (feat < F)
+    flat = torch.where(found, slot * (F * B) + feat * B + codes.to(i64),
+                       size)
+    flatf = torch.where(found, slot * F + feat, W * F)
+    didx = (torch.arange(W, device=dev)[:, None] * (F * B)
+            + torch.arange(F, device=dev)[None, :] * B
+            + torch.as_tensor(zb, device=dev).to(i64)[None, :]).reshape(-1)
+    int_tier = g.dtype == torch.int8
+    acc = i64 if int_tier else torch.float32
+
+    def chan(v):
+        v = v.to(acc)
+        ev = v[row]
+        he = _cell_sums(flat, ev, size)
+        sub = _cell_sums(flatf, ev, W * F)
+        ls = _cell_sums(slot_row, v, W)
+        he[didx] += (ls[:, None] - sub.reshape(W, F)).reshape(-1)
+        return he
+
+    ones = torch.ones(leaf_ids.shape[0], dtype=acc, device=dev)
+    hist = torch.stack([chan(g), chan(h), chan(ones)], dim=1)
+    hist = hist.reshape(W, F, B, 3)
+    if int_tier:
+        hist = hist.to(torch.int32)
+        return hist if gh_scale is None else dequantize(hist, gh_scale)
+    return hist
+
+
+# ---------------------------------------------------------------------------
 # wrappers: the kernel for CUDA tensors, the plain version for CPU ones
 # ---------------------------------------------------------------------------
 

@@ -3,14 +3,29 @@
 Reference DataPartition::Split + Bin::Split
 (src/treelearner/data_partition.hpp:109-166, src/io/dense_bin.hpp Split):
 rows keep a flat ``leaf_ids[N]`` assignment that a split updates with a
-masked select. EFB bundles are not ported, so a feature's column is its
-own bin row.
+masked select. A feature's column is its own bin row, or under EFB
+bundles (io/efb.py) decoded from its bundle's column (``member_column``).
 """
 from __future__ import annotations
 
 import torch
 
 from .split import MISSING_NAN, MISSING_ZERO, NCAT_WORDS
+
+
+def member_column(bins_t, feat: int, meta) -> torch.Tensor:
+    """Feature ``feat``'s bin column [N] int32 from the bin matrix
+    (the JAX package's ``member_column``, partition.py:22-33): its row,
+    or under bundles its bundle's row decoded, a value in the member's
+    range [offset, offset + num_bin) as value - offset and any other
+    value (another member's, or 0: every member at its default) as the
+    member's default bin."""
+    if not meta.bundled:
+        return bins_t[feat].to(torch.int32)
+    col = bins_t[int(meta.bundle[feat])].to(torch.int32)
+    off, nb = int(meta.offset[feat]), int(meta.num_bin[feat])
+    return torch.where((col >= off) & (col < off + nb), col - off,
+                       int(meta.default_bin[feat]))
 
 
 def cat_bit_left(bin_col, cat_words):

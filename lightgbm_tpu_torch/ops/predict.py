@@ -46,14 +46,15 @@ def replay_partition(rec, bins_t: torch.Tensor, meta) -> torch.Tensor:
     """Leaf ids [N] int32 of the rows of ``bins_t`` [F, N] in a grown
     tree, by replaying its splits in order (the JAX package's
     predict.py:22; split i's right child is leaf i + 1), categorical
-    ones by their bitsets."""
-    from .partition import apply_split
+    ones by their bitsets. Under EFB bundles ``bins_t`` holds the bundle
+    columns and ``meta`` their layout (``member_column``)."""
+    from .partition import apply_split, member_column
     leaf_ids = torch.zeros(bins_t.shape[1], dtype=torch.int32,
                            device=bins_t.device)
     for i in range(rec.num_leaves - 1):
         f = int(rec.split_feature[i])
         leaf_ids = apply_split(
-            leaf_ids, bins_t[f].to(torch.int32), int(rec.split_leaf[i]),
+            leaf_ids, member_column(bins_t, f, meta), int(rec.split_leaf[i]),
             i + 1, int(rec.split_bin[i]), bool(rec.split_default_left[i]),
             int(meta.missing_type[f]), int(meta.default_bin[f]),
             int(meta.num_bin[f]), bool(rec.split_is_cat[i]),

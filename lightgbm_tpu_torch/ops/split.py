@@ -22,9 +22,12 @@ and a flat argmax picks the winner. Semantics kept from the reference:
 The prefix sums are a product with a lower-triangular ones matrix, as
 in the JAX package: on the CPU that product adds in bin order in f32,
 bit-equal to the JAX package's einsum, where ``torch.cumsum`` is not.
-XLA's einsum adds in bin order from width 64 up; at widths 16 and 32 it
-keeps 4 and 2 lane accumulators (bins j with j % L == l, in order) and
-adds them pairwise at the end, and the port adds in that order there.
+XLA's einsum keeps 1, 2 or 4 lane accumulators (bins j with j % L == l,
+in order) by the width mod 64 (``_dot_lanes``: 4 at width 16, 2 at 32,
+one from 64 up at the powers of two), adds them pairwise at the end and
+adds the bins past the last whole step of L on their own, after; the
+port adds in that order at every width (the EFB route's widths are not
+bucketed).
 
 Categorical features (``SplitParams.has_cat``; FindBestThresholdCategorical,
 feature_histogram.hpp:112-234, the JAX package's ``_categorical_tables``)
@@ -90,6 +93,14 @@ class FeatureMeta(NamedTuple):
     penalty: object          # float32 (feature_contri; 1.0 default)
     # int32, 1 = categorical; the scalar default broadcasts over features
     is_cat: object = np.zeros((), np.int32)
+    # EFB (io/efb.py): each member's bundle column and bin offset; the
+    # scalar default means unbundled (a feature's column is its own row)
+    bundle: object = np.zeros((), np.int32)
+    offset: object = np.zeros((), np.int32)
+
+    @property
+    def bundled(self) -> bool:
+        return self.bundle.ndim != 0
 
     def to(self, device) -> "FeatureMeta":
         return FeatureMeta(*[torch.as_tensor(np.asarray(x)).to(device)
@@ -147,23 +158,51 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-# lane accumulators of XLA's CPU dot over a reduction of this width
-_DOT_LANES = {16: 4, 32: 2}
+def _dot_lanes(B: int) -> int:
+    """Lane accumulators of XLA's CPU dot over a reduction of B bins: set
+    by B mod 64 (found by holding the JAX package's einsum to each
+    order at every width 2-256)."""
+    if B in (19, 20, 23, 24):
+        return 4
+    r = B % 64
+    if r == 0 or r > 48:
+        return 1
+    return 2 if 16 < r <= 32 else 4
 
 
 def prefix_sums(x: torch.Tensor) -> torch.Tensor:
     """[..., B, C] -> inclusive prefix sums over B in XLA's order (see
-    the module docstring): each lane's sums by a lower-triangular
-    product (sequential on the CPU), then the lanes pairwise."""
+    the module docstring): the first H = B - B mod L bins in L lanes,
+    each lane's sums by a lower-triangular product (sequential on the
+    CPU), the lanes then added pairwise; the last B - H bins summed in
+    sequence on their own and added to the head's total."""
     *lead, B, C = x.shape
-    L = _DOT_LANES.get(B, 1)
+    L = _dot_lanes(B)
+    H = B - B % L
+    x = x.reshape(-1, B, C)
+    out = _lane_prefix(x[:, :H], L) if H else x[:, :0]
+    if H < B:
+        tail = x[:, H:]
+        tril = torch.tril(torch.ones((B - H, B - H), dtype=x.dtype,
+                                     device=x.device))
+        tail = torch.matmul(tril, tail)
+        head = out[:, -1:] if H else torch.zeros_like(tail[:, :1])
+        out = torch.cat([out, head + tail], dim=1)
+    return out.reshape(*lead, B, C)
+
+
+def _lane_prefix(x: torch.Tensor, L: int) -> torch.Tensor:
+    """[M, B, C] (B a multiple of L) -> prefix sums with L lane
+    accumulators (bins j with j % L == l, in order), then the lanes
+    pairwise."""
+    M, B, C = x.shape
     steps = B // L
     tril = torch.tril(torch.ones((steps, steps), dtype=x.dtype,
                                  device=x.device))
-    lane = torch.matmul(tril, x.reshape(-1, steps, L * C)).reshape(
-        -1, steps, L, C)                 # lane[q, l]: bins j = pL + l, p <= q
+    lane = torch.matmul(tril, x.reshape(M, steps, L * C)).reshape(
+        M, steps, L, C)                  # lane[q, l]: bins j = pL + l, p <= q
     if L == 1:
-        return lane.reshape(*lead, B, C)
+        return lane.reshape(M, B, C)
     # bin k = qL + r: lanes l <= r hold their step-q sum, lanes l > r
     # the step before (zero at q = 0)
     prev = torch.cat([torch.zeros_like(lane[:, :1]), lane[:, :-1]], dim=1)
@@ -176,7 +215,7 @@ def prefix_sums(x: torch.Tensor) -> torch.Tensor:
             parts = [parts[2 * i] + parts[2 * i + 1]
                      for i in range(len(parts) // 2)]
         outs.append(parts[0])
-    return torch.stack(outs, dim=2).reshape(*lead, B, C)
+    return torch.stack(outs, dim=2).reshape(M, B, C)
 
 
 _SCAN_BLOCK = 16

@@ -36,6 +36,19 @@ Leaf numbering matches Tree::Split: the left child keeps the parent's
 index, the right child takes the next free index, assigned within a
 wave in gain-rank order, so split i's right child is leaf i + 1.
 
+Two routes leave the fused pass off, as the JAX package's two-pass
+route does (:346, :375-416): under EFB bundles (``bundle_bins`` > 0,
+io/efb.py) each wave's partition decodes every slot's member from its
+bundle column (``member_column``), then one K2 pass over the bundle
+columns at ``bundle_bins`` bins builds the smaller children's bundle
+histograms, which ``expand_bundle_histogram`` turns into member
+histograms (the JAX package's hist seam, models/gbdt.py:739-771, which
+passes the int8 scales into the pass and expands in f32); under the
+sparse tier (``sparse_hist``, a CSR-built set) the partition reads the
+member rows and the histograms are ``wave_histogram_sparse``'s scatter
+over the explicit entries. Both take the sibling as parent minus smaller
+child, in f32.
+
 JAX runs the waves in a ``lax.while_loop`` on the device. Here the loop
 is Python: each wave reads its number of active splits back to the host
 once, which both ends the loop and sizes the next launches. Capturing
@@ -50,9 +63,11 @@ import torch
 
 from .grower import TreeRecord
 from .f32math import fma, xla_sum
-from .hist_wave import dequantize, fused_partition_histogram, wave_histogram
+from .hist_wave import (dequantize, fused_partition_histogram,
+                        wave_histogram, wave_histogram_sparse)
 from .quantize import INV127, quantize
-from .partition import apply_split
+from .partition import apply_split, member_column, row_goes_right
+from ..io.efb import expand_bundle_histogram
 from .split import (KMIN_SCORE, NCAT_WORDS, FeatureMeta, SplitParams,
                     _f32, calculate_leaf_output, find_best_split,
                     threshold_l1)
@@ -68,6 +83,11 @@ class WaveGrowerConfig(NamedTuple):
     count_proxy: bool = False
     packed4: bool = False
     forced: tuple = ()       # ((parent leaf, inner feature, bin), ...) BFS
+    # EFB: the bins of the K2 pass over bundle columns (max(bundle
+    # width, 2)); 0 when the set is unbundled
+    bundle_bins: int = 0
+    # the sparse histogram tier: grow() takes the set's binned entries
+    sparse_hist: bool = False
 
 
 def bound_counts(hist: torch.Tensor, sg, sh) -> torch.Tensor:
@@ -134,11 +154,64 @@ class WaveGrower:
         if cfg.forced and (cfg.count_proxy or cfg.packed4):
             raise ValueError("forced splits do not compose with the "
                              "count-proxy or packed4 tiers")
+        if cfg.sparse_hist and (cfg.count_proxy or cfg.packed4):
+            raise ValueError("sparse_hist does not compose with "
+                             "count_proxy/packed4/quant_psum")
+        if cfg.sparse_hist and cfg.bundle_bins:
+            raise ValueError("the sparse tier does not compose with EFB "
+                             "bundles")
+        if cfg.bundle_bins and (cfg.count_proxy or cfg.packed4):
+            raise ValueError("EFB bundles do not compose with the "
+                             "count-proxy or packed4 tiers")
+        if bool(cfg.bundle_bins) != meta.bundled:
+            raise ValueError("bundle_bins needs the bundles' meta")
         self.cfg = cfg
         self.L = cfg.num_leaves
         self.W = min(cfg.wave_size, max(self.L - 1, 1))
+        self.host_meta = meta
         self.meta = meta.to(device)
         self.device = device
+        self.two_pass = bool(cfg.bundle_bins) or cfg.sparse_hist
+
+    def _hist(self, bins_t, hg, hh, ids, wl, scale, counted_rows, sparse):
+        """[W, F, B, 3] histograms of the wave leaves ``wl`` on the
+        two-pass routes, f32 (int8 sums dequantized by ``scale``): the
+        sparse tier's
+        scatter, or one K2 pass over the bundle columns expanded to the
+        members (the JAX package's gbdt.py:759-767)."""
+        cfg = self.cfg
+        if cfg.sparse_hist:
+            # int8 sums come back raw when ``scale`` is None
+            return wave_histogram_sparse(
+                sparse, hg, hh, ids, wl, cfg.num_bins,
+                int(self.host_meta.num_bin.shape[0]), self.L,
+                gh_scale=scale)
+        bh = wave_histogram(bins_t, hg, hh, ids, wl, cfg.bundle_bins,
+                            precision=cfg.precision, gh_scale=scale,
+                            counted_rows=counted_rows)
+        m = self.meta
+        return expand_bundle_histogram(bh, m.bundle, m.offset, m.num_bin,
+                                       m.default_bin, cfg.num_bins)
+
+    def _partition(self, bins_t, leaf_ids, wl, new_ids, feat, tbin, dleft,
+                   iscat, catw):
+        """The two-pass routes' partition (the JAX package's
+        ``apply_wave_splits``): each slot's right-side rows to its new
+        leaf, its feature's column decoded as ``member_column`` does,
+        every slot at once ([k, N]; a row matches at most one slot)."""
+        m = self.meta
+        col = bins_t[m.bundle[feat] if m.bundled else feat].to(torch.int32)
+        db, nb = m.default_bin[feat][:, None], m.num_bin[feat][:, None]
+        if m.bundled:
+            off = m.offset[feat][:, None]
+            col = torch.where((col >= off) & (col < off + nb), col - off, db)
+        right = row_goes_right(col, tbin[:, None], dleft[:, None],
+                               m.missing_type[feat][:, None], db, nb,
+                               is_cat=iscat[:, None], cat_words=catw)
+        moved = (leaf_ids[None, :] == wl[:, None]) & right
+        slot = torch.argmax(moved.to(torch.uint8), dim=0)
+        return torch.where(moved.any(dim=0), new_ids.to(torch.int32)[slot],
+                           leaf_ids)
 
     def _depth_ok(self, depth: torch.Tensor) -> torch.Tensor:
         if self.cfg.max_depth > 0:
@@ -147,7 +220,7 @@ class WaveGrower:
 
     def grow(self, bins_t: torch.Tensor, grad: torch.Tensor,
              hess: torch.Tensor, sample_mask: torch.Tensor,
-             feature_mask: torch.Tensor, counted_rows=None):
+             feature_mask: torch.Tensor, counted_rows=None, sparse=None):
         """One tree. bins_t [F, N] (packed4: [ceil(F/2), N]); grad, hess,
         sample_mask [N] f32 (mask 0/1 from bagging); feature_mask [F]
         bool. Returns (TreeRecord, leaf ids [N] int32 of every row,
@@ -158,7 +231,11 @@ class WaveGrower:
         package's gbdt.py:1165), whose grad, hess and sample_mask are 0:
         every split moves them and nothing counts them, and the f32
         passes keep the training rows' order of addition
-        (``hist_wave.row_ranges``)."""
+        (``hist_wave.row_ranges``).
+
+        ``bins_t`` holds the bundle columns under EFB; ``sparse``: the
+        set's binned entries (codes, feat, row, zero_bins) under the
+        sparse tier."""
         cfg, meta, L, W = self.cfg, self.meta, self.L, self.W
         hp = cfg.hp
         B = cfg.num_bins
@@ -186,10 +263,14 @@ class WaveGrower:
         # as leaf -1). The JAX package passes W slots with only slot 0
         # active; the other slots' histograms are zeros never read.
         leaf_ids = torch.zeros(n, dtype=i32, device=dev)
-        root_hist = wave_histogram(
-            bins_t, hg, hh, torch.where(in_bag, leaf_ids, -1),
-            torch.zeros(1, dtype=i32, device=dev), B, gh_scale=scale,
-            **tier)
+        root_ids = torch.where(in_bag, leaf_ids, -1)
+        root_wl = torch.zeros(1, dtype=i32, device=dev)
+        if self.two_pass:
+            root_hist = self._hist(bins_t, hg, hh, root_ids, root_wl, scale,
+                                   counted_rows, sparse)
+        else:
+            root_hist = wave_histogram(bins_t, hg, hh, root_ids, root_wl, B,
+                                       gh_scale=scale, **tier)
         if scale is None:
             root_g = _stable_sum(grad)
             root_h = _stable_sum(hess)
@@ -257,19 +338,26 @@ class WaveGrower:
             wl = torch.tensor([fs_leaf], dtype=i64, device=dev)
             new_id = torch.tensor([num_leaves], dtype=i64, device=dev)
             leaf_ids = apply_split(
-                leaf_ids, bins_t[fs_feat].to(i32), fs_leaf, num_leaves,
-                fs_bin, False, meta.missing_type[fs_feat],
-                meta.default_bin[fs_feat], meta.num_bin[fs_feat])
+                leaf_ids, member_column(bins_t, fs_feat, self.host_meta),
+                fs_leaf, num_leaves, fs_bin, False,
+                meta.missing_type[fs_feat], meta.default_bin[fs_feat],
+                meta.num_bin[fs_feat])
             ids = torch.where(in_bag, leaf_ids, -1)
-            if scale is None:
-                hist_left = wave_histogram(bins_t, hg, hh, ids, wl.to(i32),
-                                           B, **tier)
+            if scale is None or cfg.bundle_bins:
+                hist_left = (self._hist(bins_t, hg, hh, ids, wl.to(i32),
+                                        scale, counted_rows, sparse)
+                             if self.two_pass else
+                             wave_histogram(bins_t, hg, hh, ids, wl.to(i32),
+                                            B, **tier))
                 hist_right = pool[wl] - hist_left
             else:
                 # int8: the right child's subtraction fuses the
                 # dequantization, as in the waves below
-                raw = wave_histogram(bins_t, hg, hh, ids, wl.to(i32), B,
-                                     **tier)
+                raw = (self._hist(bins_t, hg, hh, ids, wl.to(i32), None,
+                                  counted_rows, sparse)
+                       if self.two_pass else
+                       wave_histogram(bins_t, hg, hh, ids, wl.to(i32), B,
+                                      **tier))
                 hist_left = dequantize(raw, scale)
                 hist_right = fma(raw.to(f32), -qscale, pool[wl])
             pool[wl] = hist_left
@@ -340,24 +428,36 @@ class WaveGrower:
             iscat, catw = t["is_cat"][wl], t["cat_words"][wl]
 
             # 3+4. partition and smaller-child histograms in one K1
-            # call; siblings by subtraction from the parents' histograms
+            # call (or the two-pass routes' partition, then histograms);
+            # siblings by subtraction from the parents' histograms
             left_smaller = lcnt <= rcnt
             small_ids = torch.where(left_smaller, wl, new_ids)
-            tbl = torch.stack([x.to(i32) for x in (
-                wl, new_ids, feat, t["threshold_bin"][wl], dleft,
-                meta.missing_type[feat], meta.default_bin[feat],
-                meta.num_bin[feat], small_ids)])      # TBL_* rows
-            if hp.has_cat:
-                tbl = torch.cat([tbl, iscat.to(i32)[None], catw.T])
             # int8 with exact counts: raw sums, so that the sibling's
             # subtraction fuses the dequantization as XLA contracts
-            # ``parent - hist * scale`` (one rounding)
-            fuse_sub = scale is not None and not proxy
-            out = fused_partition_histogram(
-                bins_t, hg, hh, sample_mask, leaf_ids, tbl, B,
-                gh_scale=None if fuse_sub else scale, any_cat=hp.has_cat,
-                **tier)
-            leaf_ids, hist_small = out[0], out[1]
+            # ``parent - hist * scale`` (one rounding); on the sparse
+            # tier too, but not under bundles, which expand in f32
+            fuse_sub = (scale is not None and not proxy
+                        and not cfg.bundle_bins)
+            if self.two_pass:
+                leaf_ids = self._partition(bins_t, leaf_ids, wl, new_ids,
+                                           feat, t["threshold_bin"][wl],
+                                           dleft, iscat, catw)
+                hist_small = self._hist(
+                    bins_t, hg, hh, torch.where(in_bag, leaf_ids, -1),
+                    small_ids.to(i32), None if fuse_sub else scale,
+                    counted_rows, sparse)
+            else:
+                tbl = torch.stack([x.to(i32) for x in (
+                    wl, new_ids, feat, t["threshold_bin"][wl], dleft,
+                    meta.missing_type[feat], meta.default_bin[feat],
+                    meta.num_bin[feat], small_ids)])      # TBL_* rows
+                if hp.has_cat:
+                    tbl = torch.cat([tbl, iscat.to(i32)[None], catw.T])
+                out = fused_partition_histogram(
+                    bins_t, hg, hh, sample_mask, leaf_ids, tbl, B,
+                    gh_scale=None if fuse_sub else scale,
+                    any_cat=hp.has_cat, **tier)
+                leaf_ids, hist_small = out[0], out[1]
             if fuse_sub:
                 raw = hist_small
                 hist_small = dequantize(raw, scale)

@@ -5,7 +5,8 @@ python-package/lightgbm/sklearn.py:128 LGBMModel, :588 LGBMRegressor,
 ``_ObjectiveFunctionWrapper``, custom metrics the (y_true, y_pred) ->
 (name, value, is_higher_better) convention. An estimator trains and
 predicts on ``device`` (None: cuda:0; ``"cpu"`` the plain PyTorch path).
-This module imports scikit-learn; the package imports it only where
+X may be a scipy.sparse matrix: it goes to ``Dataset`` and
+``Booster.predict`` as it is, which take it as CSR. This module imports scikit-learn; the package imports it only where
 scikit-learn is installed.
 """
 from __future__ import annotations
