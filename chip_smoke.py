@@ -106,14 +106,14 @@ the entry points a user calls:
    AUC within 4e-4;
 19. the LRB loop (``lightgbm_tpu_torch.lrb``), run after phase 5 and
    before phases 6-18 (torch.profiler keeps all its records this early):
-   ``synthetic_trace(2,000,000, n_objects=100,000, seed=7)`` written as
+   ``synthetic_trace(1,000,000, n_objects=100,000, seed=7)`` written as
    a trace file and driven through ``lrb.run_trace_file`` on cuda:0 in
-   the default pipelined mode: cache 2**24 bytes, windows of 1,000,000
-   requests, a uniform sample of 500,000 (``TRAIN_PARAMS``, 53
-   features), cutoff 0.5; two windows (three before phase 25 came), each
-   OPT-labeled (its positive share in (0.05, 0.95)), trained and
-   published, window 2 also scored on the previous model in 15,625 calls
-   of 64 rows. The same trace in sequential mode gives records equal on
+   the default pipelined mode: cache 2**24 bytes, windows of 500,000
+   requests, a uniform sample of 250,000 (``TRAIN_PARAMS``, 53
+   features), cutoff 0.5; two windows (three of 1,000,000 before phase
+   25 came, two of 1,000,000 before phase 26), each OPT-labeled (its
+   positive share in (0.05, 0.95)), trained and published, window 2
+   also scored on the previous model in 7,813 calls of 64 rows. The same trace in sequential mode gives records equal on
    ``PARITY_KEYS``. The last window's calls are bit-equal to one call
    with the same handle and
    to the plain K4 version on the same device codes
@@ -130,7 +130,7 @@ the entry points a user calls:
    400 healthy 64-row requests a tenant over HTTP, then
    ``fleet.predict.lrb_a@1+:sleep80``): lrb_a refused with HTTP 429 with
    budget left and not exhausted, lrb_b served bit-equal, faults
-   cleared. Then 4,000 requests of 64 rows (LRB rows, HIGGS rows for
+   cleared. Then 2,000 requests of 64 rows (LRB rows, HIGGS rows for
    ``higgs``) in the ratio 7:7:2 from 32 ``FleetClient`` threads over
    localhost HTTP, coalesce_us 2000 and max_batch 4096, every answer
    bit-equal to ``LGBM_BoosterPredictForMat`` on a freshly loaded handle
@@ -140,11 +140,11 @@ the entry points a user calls:
    p50/p99 at its client, the batches' rows p50/p99, K4 launches a
    request, and, over one request in 8 sent again under the profiler,
    the card's busy share and the host's top operators; the same for the
-   first 1,000 requests with coalesce_us 0. Then 8 clients on lrb_a
+   first 500 requests with coalesce_us 0. Then 8 clients on lrb_a
    while it is registered 3 times, two model texts in turn: no failed
    request, every answer bit-equal to its version's, ``fleet/
-   model_swaps`` +3. Last, phase 19's trace cut to 2 windows of 125,000
-   requests (an eighth of its windows, sample 62,500), sequential, in
+   model_swaps`` +3. Last, phase 19's trace cut to 2 windows of 62,500
+   requests (an eighth of its windows, sample 31,250), sequential, in
    process and then with ``serve_daemon=True`` (window 2's 1,954 calls
    of 64 rows over HTTP): records equal on ``PARITY_KEYS``, the
    tenant's version the windows published, no fallback to in-process
@@ -180,20 +180,20 @@ the entry points a user calls:
    multiclass at UCI Covertype's shape (``make_covertype_like``:
    464,809 train rows x 54 columns, 10 numerical, 4 + 40 one-hot; 7
    classes; the 116,203-row holdout as a valid set with multi_logloss
-   and multi_error), 255 leaves, max_bin 255, 5 iterations (35 trees)
+   and multi_error), 255 leaves, max_bin 255, 3 iterations (21 trees)
    through ``train``: ms an iteration, the card's busy share, K1/K2/K3
    launches an iteration (K3 7 + 7), K3 on class row 3 of the train
    scores bit-equal to its plain version, K4's [N, 7] holdout scores and
    leaf indices bit-equal to plain (``check_forest``), each row's class
    probabilities summing to 1 within 1e-6; (b) ``regression`` and
    ``regression_l1`` at YearPredictionMSD's shape and published split
-   (``make_year_like``: 463,715 / 51,630 rows x 90), 5 iterations of
+   (``make_year_like``: 463,715 / 51,630 rows x 90), 3 iterations of
    255 leaves with l2 / l1 on the test rows: L2 at the hilo3 wave width
    W=40, the renewal's ms a tree (CUDA events), renewed outputs that
    differ from the grower's, the renewal bit-equal to its CPU run on the
    same leaf ids and residuals; (c) ``lambdarank`` at MSLR-WEB10K Fold
    1's shape (``make_mslr_like``: 723,412 rows x 136 in 6,000 queries,
-   relevance 0-4, a tail to 908 rows a query), 5 iterations of 255
+   relevance 0-4, a tail to 908 rows a query), 3 iterations of 255
    leaves, NDCG@1,3,5,10 on a 1,000-query holdout within 1e-9 of the
    host's float64 NDCG (``ndcg_np``), the gradient step's ms and its
    chunks; (d) card against CPU (``card_and_cpu``, ``judge_trees``) at
@@ -214,23 +214,23 @@ the entry points a user calls:
    would lower it), on the count-proxy tier within 0.01 of the exact
    tier's (that tier's cost, as in phase 10);
    (b) DART (drop_rate 0.1, skip_drop 0.5, max_drop 50, drop_seed 4) on
-   phase 6's rows with ``TRAIN_PARAMS``, 50 iterations through the C
+   phase 6's rows with ``TRAIN_PARAMS``, 25 iterations through the C
    API: K3 one launch a tree and two a dropped tree, the next 65,536
    rows through ``PredictForMat`` bit-equal to the plain forest
    (``check_forest``) and within 1e-5 of the float64 host walk on the
    rescaled trees; (c) RF at Covertype's shape (phase 22's generator, 7
-   classes, bagging 0.632 every iteration, 255 leaves, 5 iterations):
+   classes, bagging 0.632 every iteration, 255 leaves, 3 iterations):
    K4's [116,203, 7] holdout outputs bit-equal to plain with
    ``average_output``, each row's probabilities summing to 1 within
    1e-6; (d) forced splits on phase 6's rows (the root on feature 50,
    log2 size, at its median, its children on features 0 and 51, and a
    node on the constant feature 52 that is skipped), 10 iterations:
    every tree's first three splits the forced ones, K2 one root and
-   three forced launches a tree; (e) 25 iterations, saved, 25 more with
+   three forced launches a tree; (e) 15 iterations, saved, 15 more with
    ``train(init_model=path)`` (the first scores equal to the loaded
    model's predictions in f32), ``LGBM_BoosterMerge`` (predictions
    within 1e-5 of the sum of both models'), ``LGBM_BoosterResetTraining
-   Data`` on the next window (50 trees replayed into its scores, K3 a
+   Data`` on the next window (30 trees replayed into its scores, K3 a
    tree) and 10 more iterations, the train loss falling; (f) card
    against CPU at
    20,000 rows, 31 leaves, 5 iterations: GOSS at learning_rate 0.5,
@@ -270,7 +270,7 @@ the entry points a user calls:
    CSR matrix (``one_hot_airline``: 674 columns, 8 entries a row,
    density 1.19%; szilard/benchm-ml's one-hot airline set, the LightGBM
    paper's "Flight Delay" EFB shape), ``AIRLINE_PARAMS``. (a) ``train``
-   on the CSR matrix, 10 iterations: the set bundled (its bundle columns
+   on the CSR matrix, 5 iterations: the set bundled (its bundle columns
    and ``bundle_width`` printed), K2 over the bundle columns and no K1,
    ms an iteration, the card's busy share over one more, the holdout AUC;
    on the first 250,000 rows the CSR route's model text equal to the same
@@ -288,10 +288,35 @@ the entry points a user calls:
    ``LGBM_BoosterPredictForMat`` on the densified chunk;
    (e) K2 at (a)'s widest wave against its plain version in the kernels'
    order bit for bit, two launches bit-identical, timed beside its plain
-   version, ``index_add_`` and its bound.
+   version, ``index_add_`` and its bound;
+26. the ingest routes (io/ingest.py), after phase 24 in its directory,
+   in at most 60 s (making the data untimed): (a) phase 6's window
+   binned on the streamed route (the default on the card, tpu_ingest -1)
+   and the one-copy route (tpu_ingest 0) with one mapper set: the bins
+   bit-equal, each route's seconds, bytes to the card
+   (``ingest/h2d_bytes``) and peak device memory over its binning;
+   the one-copy route's 50 iterations of ``TRAIN_PARAMS`` give phase 6's
+   model text; (b) phase 7's rows likewise, bins only; (c) phase 25's
+   one-hot airline CSR (10,000,000 x 674, made untimed) binned into its
+   entries by the one upload (``SparseEntries.upload``, the default) and
+   the streamed sparse binner (``SparseDeviceBinner``, tpu_ingest 1)
+   with one mapper set: the entries equal, each route's seconds, bytes
+   to the card and peak device memory;
+   (d) phase 24's TSV through ``LGBM_DatasetCreateFromFile`` one-round
+   and with ``two_round=true``, each in a child process of its own
+   (``ingest_child``; the two side by side) under a wrapper whose
+   ``RUSAGE_CHILDREN`` is that child's peak host RSS: the load's phase timers, the RSS after the
+   load, bins equal to each other and to (a)'s, and the two-round
+   child's 50 iterations giving phase 6's (phase 24's) model text.
 
-Phases 6-7, 10-12, 15-16 and 19-25 check that the main path launched
-each kernel (and each histogram variant) of its tier. Prints a JSON line
+The CPU halves of the card-vs-CPU checks of phases 9, 14, 18, 22 and 23
+train in a side process started after phase 20 (``CpuJobs``,
+``train_on`` as on the main process), while the card runs phases 6-23;
+the checks read them back. The two processes run on disjoint halves of
+the cores until the side process ends; 20 iterations of
+``TRAIN_PARAMS`` on 200,000 LRB rows (``contention_probe``) are timed
+alone before it starts, beside it, and alone after it, and printed. Phases 6-7, 10-12, 15-16 and 19-26 check that the main path
+launched each kernel (and each histogram variant) of its tier. Prints a JSON line
 of the kernels, then the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero without that
 line. The model generators are importable (the body runs only under
@@ -364,11 +389,11 @@ CAT_CPU_ITERS = 20
 CAT_CPU_LEAVES = 31
 K1_MS_BEFORE_CAT = 7.583        # PERF.md's table: phase 8's K1, 700 W
 # phase 19: the LRB loop (lightgbm_tpu_torch/lrb.py) on a synthetic trace
-LOOP_REQUESTS = 2_000_000
+LOOP_REQUESTS = 1_000_000
 LOOP_OBJECTS = 100_000
 LOOP_CACHE = 1 << 24            # OPT's positive share 0.878 a window
-LOOP_WINDOW = 1_000_000
-LOOP_SAMPLE = 500_000
+LOOP_WINDOW = 500_000
+LOOP_SAMPLE = 250_000
 LOOP_CUTOFF = 0.5
 LOOP_SAMPLING = 2               # uniform random
 LOOP_SEQ_WINDOWS = 2            # windows of the sequential comparison
@@ -378,8 +403,8 @@ PARITY_KEYS = ("window", "eval_rows", "fp_rate", "fn_rate",
                "train_rows", "opt_obj_hit_ratio", "opt_byte_hit_ratio",
                "staleness_windows", "degraded", "degrade_reason")
 # phase 20: the fleet scoring daemon (lightgbm_tpu_torch/serve/)
-FLEET_REQUESTS = 4_000          # the coalesced run
-FLEET_REPEAT = 1_000            # the first of them again, coalesce_us 0
+FLEET_REQUESTS = 2_000          # the coalesced run
+FLEET_REPEAT = 500              # the first of them again, coalesce_us 0
 FLEET_CLIENTS = 32              # FleetClient threads, one HTTP call each
 FLEET_ROWS = 64                 # rows a request (the LRB loop's calls)
 FLEET_MIX = (("lrb_a", 7), ("lrb_b", 7), ("higgs", 2))
@@ -389,8 +414,8 @@ FLEET_PROFILED = 8              # one request in 8 again, under the profiler
 SWAP_CLIENTS = 8
 DRILL_PREFILL = 400             # tests/test_fleet.py:301
 FLEET_LOOP_WINDOWS = 2
-FLEET_LOOP_WINDOW = 125_000     # phase 19's windows cut to an eighth
-FLEET_LOOP_SAMPLE = 62_500      # for the run through the daemon
+FLEET_LOOP_WINDOW = 62_500      # phase 19's windows cut to an eighth
+FLEET_LOOP_SAMPLE = 31_250      # for the run through the daemon
 K3_RUNS = 200                   # K3 launches per timing window
 # phase 21: valid sets
 VALID_METRICS = "auc,binary_logloss,binary_error"
@@ -419,7 +444,7 @@ MSLR_FEATURES = 136
 MSLR_HOLDOUT_QUERIES = 1_000
 MSLR_MAX_QUERY = 908            # the longest query of the generator
 OBJ_PARAMS = {"num_leaves": 255, "max_bin": 255, "verbose": -1}
-OBJ_ITERS = 5
+OBJ_ITERS = 3
 OBJ_CPU_ROWS = 20_000           # (d): card against CPU
 OBJ_CPU_LEAVES = 31
 OBJ_CPU_ITERS = 5
@@ -430,8 +455,9 @@ PHASE22_BUDGET_S = 150.0
 PHASE23_BUDGET_S = 150.0
 PHASE24_BUDGET_S = 120.0
 PHASE25_BUDGET_S = 150.0
+PHASE26_BUDGET_S = 60.0
 EFB_SLICE_ROWS = 250_000        # (a): the CSR route against dense float32
-EFB_ITERS = 10
+EFB_ITERS = 5
 EFB_FLAT_ITERS = 3              # (b), (c)
 # (b): the two routes sum their f32 histograms over other row ranges
 # (K2 over 11 bundle columns against K1 over 674), and at 10M rows the
@@ -445,16 +471,19 @@ GOSS_RATES = {"top_rate": 0.2, "other_rate": 0.1}
 GOSS_KEPT_TOL = 0.005           # kept rows within 0.5% of n of 0.3 n
 GOSS_AUC_BAND = (-0.002, 0.05)  # exact tier: holdout AUC minus phase 7's
 DART_PARAMS = {**TRAIN_PARAMS, "boosting": "dart", "drop_rate": "0.1",
-               "skip_drop": "0.5", "max_drop": "50", "drop_seed": "4"}
+               "skip_drop": "0.5", "max_drop": "50", "drop_seed": "4",
+               "num_iterations": "25"}
 RF_PARAMS = {**OBJ_PARAMS, "objective": "multiclass",
              "num_class": COVERTYPE_CLASSES, "boosting": "rf",
              "bagging_fraction": 0.632, "bagging_freq": 1}
-RF_ITERS = 5
+RF_ITERS = 3
 FORCED_ITERS = 10
-CONTIN_ITERS = 25               # a first model, then as many continued
+CONTIN_ITERS = 15               # a first model, then as many continued
 RESET_ITERS = 10                # after ResetTrainingData on the next window
 VAR_CPU_ROWS = 20_000           # (f): card against CPU
 VAR_CPU_ITERS = 5
+PROBE_ROWS = 200_000            # contention_probe: LRB rows, iterations
+PROBE_ITERS = 20
 
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 7):
@@ -1332,38 +1361,253 @@ def explain_difference(runs: dict, t: int, i: int,
             "gain_tie": gap <= rounding, "hessian_boundary": boundary}
 
 
+def train_on(where: str, params: dict, X, y, iters: int, fobj=None,
+             init_model: str = None, **ds_kw) -> tuple:
+    """One half of ``card_and_cpu``: ``iters`` ``Booster.update(fobj=fobj)``
+    calls on the card (``where`` "cuda") or the CPU: (booster, train
+    metrics, seconds, each tree's grower inputs on the CPU)."""
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.basic import _InnerPredictor
+    t0 = time.perf_counter()
+    device = None if where == "cuda" else "cpu"
+    ds = lgt.Dataset(X, label=y, **ds_kw)
+    if init_model is not None:
+        ds._set_predictor(_InnerPredictor(model_str=init_model,
+                                          device=device))
+    b = lgt.Booster(params, ds, device=device)
+    grower = b._gbdt._grower
+    inputs = []
+
+    def grow(*args, _grow=grower.grow, **kw):
+        inputs.append([a.cpu() for a in args[1:]])
+        return _grow(*args, **kw)
+    grower.grow = grow
+    for _ in range(iters):
+        b.update(fobj=fobj)
+    b.model_to_string()
+    return (b, dict((m, v) for _, m, v, _ in b.eval_train()),
+            time.perf_counter() - t0, inputs)
+
+
 def card_and_cpu(params: dict, X, y, iters: int, fobj=None,
-                 init_model: str = None, **ds_kw) -> dict:
+                 init_model: str = None, *, cpu, **ds_kw) -> dict:
     """``iters`` ``Booster.update(fobj=fobj)`` calls from the same rows on
     the card and with ``device="cpu"``: {"cuda" | "cpu": (booster, train
     metrics, seconds, each tree's grower inputs on the CPU)}; the inputs
     let ``explain_difference`` attribute a first difference. With
     ``init_model`` (model text) training continues from that model, its
-    raw scores predicted on each run's device."""
-    import lightgbm_tpu_torch as lgt
-    from lightgbm_tpu_torch.basic import _InnerPredictor
-    runs = {}
-    for where in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        device = None if where == "cuda" else "cpu"
-        ds = lgt.Dataset(X, label=y, **ds_kw)
-        if init_model is not None:
-            ds._set_predictor(_InnerPredictor(model_str=init_model,
-                                              device=device))
-        b = lgt.Booster(params, ds, device=device)
-        grower = b._gbdt._grower
-        inputs = []
-
-        def grow(*args, _grow=grower.grow, _inputs=inputs, **kw):
-            _inputs.append([a.cpu() for a in args[1:]])
-            return _grow(*args, **kw)
-        grower.grow = grow
-        for _ in range(iters):
-            b.update(fobj=fobj)
-        b.model_to_string()
-        runs[where] = (b, dict((m, v) for _, m, v, _ in b.eval_train()),
-                       time.perf_counter() - t0, inputs)
+    raw scores predicted on each run's device. ``cpu``: a callable that
+    returns the CPU half trained by the side process (``CpuJobs.take``),
+    called once the card's half is done."""
+    runs = {"cuda": train_on("cuda", params, X, y, iters, fobj,
+                             init_model, **ds_kw)}
+    runs["cpu"] = cpu()
     return runs
+
+
+# -- the CPU halves that take longest, trained in a side process -----------
+#
+# The card-vs-CPU checks of phases 9, 14, 18, 22 and 23 spend most of
+# their time on the CPU half (the plain PyTorch path). A process started
+# after phase 20 trains those halves, each exactly as ``train_on`` does,
+# while the card runs phases 6-23, and the checks read them back. The
+# two processes run on disjoint halves of the cores (``split_cores``),
+# each with as many torch threads as it has cores, so that the side
+# process does not take the host from the card's host-bound phases;
+# ``contention_probe`` reads the main process's ms an iteration before,
+# beside and after it.
+
+def objective_cases() -> list:
+    """Phase 22 (d)'s cases: (name, X, y, params, dataset keywords,
+    fobj)."""
+    Xc, yc = make_covertype_like(OBJ_CPU_ROWS, seed=71)
+    Xy, yy = make_year_like(OBJ_CPU_ROWS, seed=72)
+    Xr, yr, cr = make_mslr_like(OBJ_CPU_QUERIES, int(
+        MSLR_ROWS * OBJ_CPU_QUERIES / MSLR_QUERIES), seed=73)
+    small = {"num_leaves": OBJ_CPU_LEAVES, "max_bin": 255, "verbose": -1}
+    K = COVERTYPE_CLASSES
+    cases = [
+        ("multiclass", Xc, yc, {"num_class": K}, {}),
+        ("multiclassova", Xc, yc, {"num_class": K}, {}),
+        ("regression", Xy, yy, {"boost_from_average": False}, {}),
+        ("regression_l1", Xy, yy, {}, {}),
+        ("huber", Xy, yy, {"alpha": 5.0}, {}),
+        ("poisson", Xy, yy - 1900.0, {}, {}),
+        ("lambdarank", Xr, yr, {}, {"group": cr}),
+        ("fobj", Xy, yy, {"boost_from_average": False}, {})]
+    return [(name, X, y, {**small, "objective": "regression"
+                          if name == "fobj" else name, **extra}, kw,
+             _l2_fobj if name == "fobj" else None)
+            for name, X, y, extra, kw in cases]
+
+
+def cpu_job(name: str) -> tuple:
+    """A side-process job: (params, X, y, iterations, dataset keywords,
+    fobj)."""
+    if name in ("lrb", "lrb_int8"):
+        X = make_lrb_rows(CPU_ROWS, seed=31)
+        params = (dict(TRAIN_PARAMS) if name == "lrb" else
+                  {**TRAIN_PARAMS, "tpu_quantized_hist": "true",
+                   "num_iterations": str(CPU_Q_ITERS)})
+        iters = (int(TRAIN_PARAMS["num_iterations"]) if name == "lrb"
+                 else CPU_Q_ITERS)
+        return params, X, lrb_labels(X, seed=32), iters, {}, None
+    if name.startswith("obj:"):
+        case = next(c for c in objective_cases() if c[0] == name[4:])
+        _, X, y, params, kw, fobj = case
+        return params, X, y, OBJ_CPU_ITERS, kw, fobj
+    X = make_airline_like(CPU_ROWS, seed=51)
+    extra = {} if name == "airline_exact" else {"tpu_quantized_hist": True}
+    return ({**AIRLINE_PARAMS, **extra, "num_leaves": CAT_CPU_LEAVES}, X,
+            airline_labels(X, seed=52), CAT_CPU_ITERS,
+            {"categorical_feature": AIRLINE_CAT_COLUMNS}, None)
+
+
+CPU_JOBS = ("lrb", "lrb_int8", "airline_exact", "airline_int8",
+            "obj:multiclass", "obj:multiclassova", "obj:regression",
+            "obj:regression_l1", "obj:huber", "obj:poisson",
+            "obj:lambdarank", "obj:fobj", "var:goss", "var:dart",
+            "var:dart uniform", "var:dart xgboost",
+            "var:dart uniform xgboost", "var:rf binary",
+            "var:rf multiclass", "var:forced", "var:continued")
+
+
+def split_cores() -> tuple:
+    """(main, side): the cores this process may run on, split in two
+    halves."""
+    cores = sorted(os.sched_getaffinity(0))
+    assert len(cores) >= 2, f"the side process needs cores: {cores}"
+    half = len(cores) // 2
+    return cores[:half], cores[half:]
+
+
+def pin_threads(cores) -> None:
+    """Every thread of this process on ``cores`` (a thread made later
+    inherits its maker's set)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except ProcessLookupError:      # a thread that has ended
+            pass
+
+
+def cpu_worker(names, out: str, cores) -> None:
+    """The side process, on ``cores``: each job's CPU half, saved to
+    ``out`` as ``<name>.pt`` (written aside, then renamed): the model
+    text, the train metrics, the seconds, the grower inputs and the tree
+    records. ``busy`` is written as the first job starts to train."""
+    pin_threads(cores)
+    import torch
+    torch.set_num_threads(len(cores))
+    sys.path.insert(0, ROOT)
+    variants = None
+    for i, name in enumerate(names):
+        init = None
+        if name.startswith("var:"):
+            if variants is None:
+                variants = {c[0]: c for c in variant_cases(out, forced_spec(
+                    make_lrb_rows(LRB_TRAIN_ROWS, seed=21)))}
+            _, X, y, params, init = variants[name[4:]]
+            iters, kw, fobj = VAR_CPU_ITERS, {}, None
+        else:
+            params, X, y, iters, kw, fobj = cpu_job(name)
+        if i == 0:
+            open(os.path.join(out, "busy"), "w").close()
+        b, metrics, secs, inputs = train_on("cpu", params, X, y, iters,
+                                            fobj, init, **kw)
+        path = os.path.join(out, f"{name}.pt")
+        torch.save({"text": b.model_to_string(), "metrics": metrics,
+                    "seconds": secs, "inputs": inputs,
+                    "records": b._gbdt.records}, path + ".part")
+        os.replace(path + ".part", path)
+
+
+class _CpuRun:
+    """A CPU half trained in the side process, as ``judge_trees`` and
+    ``explain_difference`` read a booster: the CPU set and grower built
+    here, the side process's trees and records, its model text."""
+
+    def __init__(self, gbdt, text: str):
+        self._gbdt, self._text = gbdt, text
+
+    def model_to_string(self) -> str:
+        return self._text
+
+
+class CpuJobs:
+    """The side process (``cpu_worker``) on one half of the cores, this
+    process on the other until ``close``; ``take(name)`` waits for a job
+    and returns its CPU half in ``train_on``'s form."""
+
+    def __init__(self, tmp: str):
+        import multiprocessing
+        import torch
+        self.out = tmp
+        self.main_cores, self.side_cores = split_cores()
+        self._cores = sorted(os.sched_getaffinity(0))
+        self._threads = torch.get_num_threads()
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=cpu_worker, args=(CPU_JOBS, tmp, self.side_cores),
+            daemon=True)
+        self.proc.start()
+        pin_threads(self.main_cores)
+        torch.set_num_threads(len(self.main_cores))
+
+    def wait_busy(self, timeout: float = 120.0) -> None:
+        """Until the side process trains its first job."""
+        t0 = time.perf_counter()
+        while not os.path.exists(os.path.join(self.out, "busy")):
+            assert self.proc.is_alive(), "cpu jobs: the side process ended"
+            assert time.perf_counter() - t0 < timeout, "cpu jobs: not busy"
+            time.sleep(0.1)
+
+    def take(self, name: str, params=None, X=None, y=None,
+             timeout: float = 900.0, **kw) -> tuple:
+        import torch
+        import lightgbm_tpu_torch as lgt
+        path = os.path.join(self.out, f"{name}.pt")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            assert self.proc.is_alive() or os.path.exists(path), \
+                f"cpu jobs: the side process ended before {name}"
+            assert time.perf_counter() - t0 < timeout, f"cpu job {name}"
+            time.sleep(0.2)
+        waited = time.perf_counter() - t0
+        r = torch.load(path, weights_only=False)
+        if params is None:
+            params, X, y, _, kw, _ = cpu_job(name)
+        g = lgt.Booster(params, lgt.Dataset(X, label=y, **kw),
+                        device="cpu")._gbdt
+        g.models = lgt.Booster(model_str=r["text"], device="cpu")._gbdt.models
+        g.records = r["records"]
+        print(f"  cpu job {name}: trained in the side process in "
+              f"{r['seconds']:.1f} s; waited {waited:.1f} s for it")
+        return _CpuRun(g, r["text"]), r["metrics"], r["seconds"], r["inputs"]
+
+    def close(self) -> None:
+        import torch
+        self.proc.join(timeout=5)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
+        pin_threads(self._cores)
+        torch.set_num_threads(self._threads)
+
+
+def contention_probe(X, y) -> float:
+    """ms an iteration of ``PROBE_ITERS`` ``Booster.update`` calls of
+    ``TRAIN_PARAMS`` on the card over ``X``, a host-bound stretch like
+    those of phases 6-23 (the first iteration untimed)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    b = lgt.Booster(dict(TRAIN_PARAMS), lgt.Dataset(X, label=y))
+    b.update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROBE_ITERS):
+        b.update()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / PROBE_ITERS
 
 
 def judge_trees(runs: dict, quantized: bool = False, metric: str = "auc",
@@ -1614,7 +1858,7 @@ def read_counts() -> dict:
             if c.value or "/" not in k}
 
 
-def train_phases(dev) -> tuple:
+def train_phases(dev, cpu_jobs) -> tuple:
     """Phases 6-9 of the module docstring. Returns the kernels-line
     entries of K2, K1 and K3, and phase 7's rows, holdout AUC, model
     text, ms an iteration, busy share and launches, with phase 6's model
@@ -1734,7 +1978,8 @@ def train_phases(dev) -> tuple:
     X = make_lrb_rows(CPU_ROWS, seed=31)
     y = lrb_labels(X, seed=32)
     runs = card_and_cpu(TRAIN_PARAMS, X, y,
-                        int(TRAIN_PARAMS["num_iterations"]))
+                        int(TRAIN_PARAMS["num_iterations"]),
+                        cpu=lambda: cpu_jobs.take("lrb"))
     diff, where = judge_trees(runs)
     gm = runs["cuda"][0]._gbdt.models
     # the card's tree at the first difference (else its last), grown
@@ -1894,7 +2139,8 @@ def int8_vs_before(key, ms: float, power_limit_w: float) -> str:
             f"redesign ({verdict})")
 
 
-def quant_phases(dev, higgs: dict, power_limit_w: float) -> list:
+def quant_phases(dev, higgs: dict, power_limit_w: float,
+                 cpu_jobs) -> list:
     """Phases 10-14 of the module docstring: the int8 tiers and 4-bit
     packed bins. ``higgs`` holds phase 7's rows and exact-tier holdout
     AUC (``train_phases``), and takes phase 11's model text
@@ -2080,7 +2326,8 @@ def quant_phases(dev, higgs: dict, power_limit_w: float) -> list:
     yc = lrb_labels(Xc, seed=32)
     params = {**TRAIN_PARAMS, "tpu_quantized_hist": "true",
               "num_iterations": str(CPU_Q_ITERS)}
-    cmp_runs = card_and_cpu(params, Xc, yc, CPU_Q_ITERS)
+    cmp_runs = card_and_cpu(params, Xc, yc, CPU_Q_ITERS,
+                            cpu=lambda: cpu_jobs.take("lrb_int8"))
     _, where = judge_trees(cmp_runs, quantized=True)
     print(f"quantized card vs CPU, {CPU_ROWS} LRB rows x {CPU_Q_ITERS} "
           f"iterations (count-proxy): {where}; train auc "
@@ -2118,7 +2365,8 @@ def quant_phases(dev, higgs: dict, power_limit_w: float) -> list:
     return entries
 
 
-def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> tuple:
+def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float,
+               cpu_jobs) -> tuple:
     """Phases 15-18 of the module docstring: categorical features.
     ``k1_ms_phase7`` is phase 8's K1 time on phase 7's inputs (no
     categorical rows). Returns the kernels-line entries of K1 with
@@ -2337,6 +2585,8 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float) -> tuple:
         cmp_runs = card_and_cpu({**AIRLINE_PARAMS, **extra,
                                  "num_leaves": CAT_CPU_LEAVES}, Xc, yc,
                                 CAT_CPU_ITERS,
+                                cpu=lambda: cpu_jobs.take(
+                                    f"airline_{tier}"),
                                 categorical_feature=AIRLINE_CAT_COLUMNS)
         _, where = judge_trees(cmp_runs, quantized=bool(extra))
         n_cat = sum(t.num_cat for t in cmp_runs["cuda"][0]._gbdt.models)
@@ -3335,7 +3585,7 @@ def _l2_fobj(preds, data):
     return preds - data.get_label(), np.ones_like(preds)
 
 
-def objective_phases(dev, smi: str) -> dict:
+def objective_phases(dev, smi: str, cpu_jobs) -> dict:
     """Phase 22 of the module docstring: every objective family on the
     card at the published widths of public sets, and card against CPU at
     small sizes. Returns the readings the kernels line keeps."""
@@ -3540,28 +3790,13 @@ def objective_phases(dev, smi: str) -> dict:
 
     # (d) card against CPU at small sizes
     t0 = time.perf_counter()
-    Xc, yc = make_covertype_like(OBJ_CPU_ROWS, seed=71)
-    Xy, yy = make_year_like(OBJ_CPU_ROWS, seed=72)
-    Xr, yr, cr = make_mslr_like(OBJ_CPU_QUERIES, int(
-        MSLR_ROWS * OBJ_CPU_QUERIES / MSLR_QUERIES), seed=73)
-    small = {"num_leaves": OBJ_CPU_LEAVES, "max_bin": 255, "verbose": -1}
-    cases = [
-        ("multiclass", Xc, yc, {"num_class": K}, {}),
-        ("multiclassova", Xc, yc, {"num_class": K}, {}),
-        ("regression", Xy, yy, {"boost_from_average": False}, {}),
-        ("regression_l1", Xy, yy, {}, {}),
-        ("huber", Xy, yy, {"alpha": 5.0}, {}),
-        ("poisson", Xy, yy - 1900.0, {}, {}),
-        ("lambdarank", Xr, yr, {}, {"group": cr}),
-        ("fobj", Xy, yy, {"boost_from_average": False}, {})]
     texts = {}
     out["card_vs_cpu"] = {}
-    for name, Xs, ys, extra, ds_kw in cases:
-        objective = "regression" if name == "fobj" else name
-        params = {**small, "objective": objective, **extra}
-        runs = card_and_cpu(params, Xs, ys, OBJ_CPU_ITERS,
-                            fobj=_l2_fobj if name == "fobj" else None,
-                            **ds_kw)
+    for name, Xs, ys, params, ds_kw, fobj in objective_cases():
+        runs = card_and_cpu(
+            params, Xs, ys, OBJ_CPU_ITERS, fobj=fobj,
+            cpu=lambda: cpu_jobs.take(f"obj:{name}"),
+            **ds_kw)
         metric = next(iter(runs["cuda"][1]))
         _, where = judge_trees(runs, metric=metric, tol=OBJ_METRIC_TOL)
         texts[name] = runs["cuda"][0].model_to_string()
@@ -3682,7 +3917,8 @@ def _goss_tier(name, params, ds, Xt, yt, higgs, smi, exact_auc=None) -> dict:
                 k: counts[k] / GOSS_ITERS for k in ("K1", "K2", "K3")}}
 
 
-def variant_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
+def variant_phases(dev, smi: str, higgs: dict, tmp: str,
+                   cpu_jobs) -> dict:
     """Phase 23 of the module docstring: GOSS, DART, RF, forced splits
     and continued training on the card, and card against CPU at small
     sizes. Returns the readings the kernels line keeps."""
@@ -3778,15 +4014,7 @@ def variant_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
 
     # (d) forced splits at the LRB window (phase 6's rows)
     t0 = time.perf_counter()
-    med = {f: float(np.median(X[:, f])) for f in (0, HISTFEATURES,
-                                                   HISTFEATURES + 1)}
-    spec = {"feature": HISTFEATURES, "threshold": med[HISTFEATURES],
-            "left": {"feature": 0, "threshold": med[0],
-                     # the cost column is constant: skipped, as unused
-                     "left": {"feature": HISTFEATURES + 2,
-                              "threshold": 1.0}},
-            "right": {"feature": HISTFEATURES + 1,
-                      "threshold": med[HISTFEATURES + 1]}}
+    spec = forced_spec(X)
     path = os.path.join(tmp, "forced.json")
     with open(path, "w") as fh:
         json.dump(spec, fh)
@@ -3969,38 +4197,12 @@ def variant_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
 
     # (f) card against CPU at small sizes
     t0 = time.perf_counter()
-    Xs = make_lrb_rows(VAR_CPU_ROWS, seed=81)
-    ys = lrb_labels(Xs, seed=82)
-    Xc, yc = make_covertype_like(VAR_CPU_ROWS, seed=83)
-    small = {**TRAIN_PARAMS, "num_leaves": "31", "bagging_freq": "0",
-             "feature_fraction": "1.0"}
-    del small["num_iterations"]
-    init_text = lgt.train(small, lgt.Dataset(Xs, label=ys), VAR_CPU_ITERS,
-                          verbose_eval=False, device="cpu").model_to_string()
-    path = os.path.join(tmp, "forced_small.json")
-    with open(path, "w") as fh:
-        json.dump(spec, fh)
-    dart = {**small, "boosting": "dart", "drop_rate": "0.5",
-            "skip_drop": "0.0"}
-    cases = [
-        ("goss", Xs, ys, {**small, "boosting": "goss",
-                          "learning_rate": "0.5"}, None),
-        ("dart", Xs, ys, dart, None),
-        ("dart uniform", Xs, ys, {**dart, "uniform_drop": "true"}, None),
-        ("dart xgboost", Xs, ys, {**dart, "xgboost_dart_mode": "true"},
-         None),
-        ("dart uniform xgboost", Xs, ys, {**dart, "uniform_drop": "true",
-                                          "xgboost_dart_mode": "true"},
-         None),
-        ("rf binary", Xs, ys, {**small, "boosting": "rf",
-                               "bagging_freq": "1",
-                               "bagging_fraction": "0.632"}, None),
-        ("rf multiclass", Xc, yc, {**RF_PARAMS, "num_leaves": 31}, None),
-        ("forced", Xs, ys, {**small, "forcedsplits_filename": path}, None),
-        ("continued", Xs, ys, small, init_text)]
+    cases = variant_cases(cpu_jobs.out, spec)
     out["card_vs_cpu"] = {}
     for name, Xa, ya, params, init in cases:
-        runs = card_and_cpu(params, Xa, ya, VAR_CPU_ITERS, init_model=init)
+        runs = card_and_cpu(
+            params, Xa, ya, VAR_CPU_ITERS, init_model=init,
+            cpu=lambda: cpu_jobs.take(f"var:{name}", params, Xa, ya))
         metric = next(iter(runs["cuda"][1]))
         _, where = judge_trees(runs, metric=metric, tol=OBJ_METRIC_TOL)
         print(f"{name} card vs CPU, {Xa.shape[0]} x {Xa.shape[1]} rows x "
@@ -4017,6 +4219,59 @@ def variant_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
     assert total <= PHASE23_BUDGET_S, f"phase 23 took {total:.1f} s"
     out["walls"] = walls
     return out
+
+
+def forced_spec(X: np.ndarray) -> dict:
+    """Phase 23's forced splits on LRB rows ``X``: the root on feature 50
+    (log2 size) at its median, its children on features 0 and 51, and a
+    node on the constant feature 52."""
+    med = {f: float(np.median(X[:, f])) for f in (0, HISTFEATURES,
+                                                   HISTFEATURES + 1)}
+    return {"feature": HISTFEATURES, "threshold": med[HISTFEATURES],
+            "left": {"feature": 0, "threshold": med[0],
+                     # the cost column is constant: skipped, as unused
+                     "left": {"feature": HISTFEATURES + 2,
+                              "threshold": 1.0}},
+            "right": {"feature": HISTFEATURES + 1,
+                      "threshold": med[HISTFEATURES + 1]}}
+
+
+def variant_cases(out: str, spec: dict) -> list:
+    """Phase 23 (f)'s cases: (name, X, y, params, init model text); the
+    forced splits ``spec`` written to ``out``."""
+    import lightgbm_tpu_torch as lgt
+    Xs = make_lrb_rows(VAR_CPU_ROWS, seed=81)
+    ys = lrb_labels(Xs, seed=82)
+    Xc, yc = make_covertype_like(VAR_CPU_ROWS, seed=83)
+    small = {**TRAIN_PARAMS, "num_leaves": "31", "bagging_freq": "0",
+             "feature_fraction": "1.0"}
+    del small["num_iterations"]
+    init_text = lgt.train(small, lgt.Dataset(Xs, label=ys), VAR_CPU_ITERS,
+                          verbose_eval=False, device="cpu").model_to_string()
+    # written aside, then renamed: the side process and the main one
+    # write the same file, and a reader never sees half of it
+    path = os.path.join(out, "forced_small.json")
+    with open(path + f".{os.getpid()}", "w") as fh:
+        json.dump(spec, fh)
+    os.replace(path + f".{os.getpid()}", path)
+    dart = {**small, "boosting": "dart", "drop_rate": "0.5",
+            "skip_drop": "0.0"}
+    return [
+        ("goss", Xs, ys, {**small, "boosting": "goss",
+                          "learning_rate": "0.5"}, None),
+        ("dart", Xs, ys, dart, None),
+        ("dart uniform", Xs, ys, {**dart, "uniform_drop": "true"}, None),
+        ("dart xgboost", Xs, ys, {**dart, "xgboost_dart_mode": "true"},
+         None),
+        ("dart uniform xgboost", Xs, ys, {**dart, "uniform_drop": "true",
+                                          "xgboost_dart_mode": "true"},
+         None),
+        ("rf binary", Xs, ys, {**small, "boosting": "rf",
+                               "bagging_freq": "1",
+                               "bagging_fraction": "0.632"}, None),
+        ("rf multiclass", Xc, yc, {**RF_PARAMS, "num_leaves": 31}, None),
+        ("forced", Xs, ys, {**small, "forcedsplits_filename": path}, None),
+        ("continued", Xs, ys, small, init_text)]
 
 
 def write_int_tsv(path: str, y: np.ndarray, X: np.ndarray,
@@ -4323,6 +4578,257 @@ def file_phases(dev, smi: str, lrb: dict, tmp: str) -> dict:
     return out
 
 
+# the wrapper of one route's child process in phase 26 (d): its
+# RUSAGE_CHILDREN covers that child alone
+_RSS_WRAPPER = ("import json, resource, subprocess, sys; "
+                "rc = subprocess.run(sys.argv[1:]).returncode; "
+                "print(json.dumps({'rc': rc, 'children_maxrss_kb': "
+                "resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss}))")
+
+
+def ingest_child(route: str, tmp: str) -> None:
+    """Phase 26 (d)'s child process: phase 24's TSV through
+    ``LGBM_DatasetCreateFromFile`` on one route ("one_round" or
+    "two_round"), its bins saved beside the file; on the two-round
+    route then 50 iterations of ``TRAIN_PARAMS`` and the model text
+    saved. Prints one JSON line of the load's phase timers and the RSS
+    before (the card's context made) and after the load."""
+    import resource
+    import torch
+    sys.path.insert(0, ROOT)
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.obs import registry
+    params = dict(TRAIN_PARAMS)
+    if route == "two_round":
+        params["two_round"] = "true"
+    torch.zeros(1, device="cuda:0")
+    rss_base = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    ds = capi.LGBM_DatasetCreateFromFile(
+        os.path.join(tmp, "lrb_window.tsv"), params)
+    bins = ds.construct().member_bins()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rss_load = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    timers = {n: round(tot, 3) for n, tot, _, _ in
+              registry.default_registry().timer_items()
+              if n.startswith(("io/", "binning/"))}
+    np.save(os.path.join(tmp, f"bins_{route}.npy"), bins.cpu().numpy())
+    if route == "two_round":
+        bst = capi.LGBM_BoosterCreate(ds, params)
+        for _ in range(int(TRAIN_PARAMS["num_iterations"])):
+            if capi.LGBM_BoosterUpdateOneIter(bst):
+                break
+        with open(os.path.join(tmp, f"model_{route}.txt"), "w") as fh:
+            fh.write(capi.LGBM_BoosterSaveModelToString(bst))
+    print(json.dumps({"route": route, "load_s": round(load_s, 3),
+                      "timers": timers, "rss_base_kb": rss_base,
+                      "rss_after_load_kb": rss_load,
+                      "h2d_bytes": registry.counter("ingest/h2d_bytes").value,
+                      "rows_device": registry.counter(
+                          "ingest/rows_device").value}))
+
+
+def ingest_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
+    """Phase 26 of the module docstring, in phase 24's ``tmp`` (its TSV
+    and ``train.conf``) after phase 24, with phase 7's rows and phase
+    6's model text in ``higgs``. Returns its readings."""
+    import torch
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io import ingest
+    from lightgbm_tpu_torch.io.dataset import (BinnedDataset, SparseEntries,
+                                               find_column_mappers)
+    from lightgbm_tpu_torch.io.sparse import (SparseMatrix,
+                                              find_column_mappers_sparse)
+    from lightgbm_tpu_torch.obs import registry
+    c = registry.counter
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    X = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    y = lrb_labels(X, seed=22)
+    airline = one_hot_airline(make_airline_like(AIRLINE_ROWS, seed=41))
+    make_s = time.perf_counter() - t0
+    t_phase = time.perf_counter()
+
+    def bin_routes(name, Xb, params):
+        """Xb's bins on the streamed route (the default, tpu_ingest -1)
+        and the one-copy route (0) with one mapper set: seconds, bytes
+        to the card and peak device memory of each; the bins equal."""
+        cfg = Config().set(dict(params))
+        mappers = find_column_mappers(Xb, cfg)
+        used = sum(1 for m in mappers if not m.is_trivial)
+        got, read = {}, {}
+        for route, knob in (("streamed", -1), ("one_copy", 0)):
+            ds = BinnedDataset(Config().set({**params, "tpu_ingest": knob}),
+                               dev)
+            ds.set_mappers(mappers)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            h0, d0 = c("ingest/h2d_bytes").value, c("ingest/rows_device").value
+            t1 = time.perf_counter()
+            bins = ds._bin_dense(Xb)
+            torch.cuda.synchronize()
+            read[route] = {
+                "s": time.perf_counter() - t1,
+                "h2d_bytes": c("ingest/h2d_bytes").value - h0,
+                "rows_device": c("ingest/rows_device").value - d0,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+                "bins_bytes": bins.numel() * bins.element_size()}
+            got[route] = bins
+        assert read["streamed"]["rows_device"] == Xb.shape[0], read
+        assert read["one_copy"]["rows_device"] == 0, read
+        assert torch.equal(got["streamed"], got["one_copy"]), \
+            f"{name}: the routes' bins differ"
+        chunk = ingest.auto_chunk_rows(cfg, used, Xb.itemsize)
+        print(f"({name}) {Xb.shape[0]} x {Xb.shape[1]} {Xb.dtype}: bins "
+              f"bit-equal on both routes; streamed in chunks of {chunk} "
+              "rows: "
+              + "; ".join(
+                  f"{r} {v['s']:.3f} s, {v['h2d_bytes'] / 1e6:.1f} MB to "
+                  f"the card, peak device memory {v['peak_bytes'] / 1e9:.3f}"
+                  f" GB (the bins {v['bins_bytes'] / 1e9:.3f})"
+                  for r, v in read.items())
+              + f"; streaming's peak {(read['one_copy']['peak_bytes'] - read['streamed']['peak_bytes']) / 1e9:.3f} GB "
+              f"below the one-copy route's; {smi}")
+        return got["streamed"], read
+
+    # (a) phase 6's window: the two routes' bins, then the one-copy
+    # route's 50 iterations against phase 6's streamed text
+    t0 = time.perf_counter()
+    lrb_bins, out["a"] = bin_routes("a", X, TRAIN_PARAMS)
+    one = {**TRAIN_PARAMS, "tpu_ingest": "0"}
+    ds = capi.LGBM_DatasetCreateFromMat(X, parameters=one)
+    capi.LGBM_DatasetSetField(ds, "label", y)
+    bst = capi.LGBM_BoosterCreate(ds, one)
+    for _ in range(int(TRAIN_PARAMS["num_iterations"])):
+        if capi.LGBM_BoosterUpdateOneIter(bst):
+            break
+    assert _body(capi.LGBM_BoosterSaveModelToString(bst)) == \
+        _body(higgs["lrb"]["text"]), \
+        "the one-copy route's model text differs from phase 6's"
+    del ds, bst
+    walls["a"] = time.perf_counter() - t0
+    print(f"(a) the one-copy route's {TRAIN_PARAMS['num_iterations']} "
+          f"iterations: model text equal to phase 6's (streamed); "
+          f"{walls['a']:.1f} s")
+
+    # (b) phase 7's HIGGS rows
+    t0 = time.perf_counter()
+    _, out["b"] = bin_routes("b", higgs["X"], HIGGS_PARAMS)
+    walls["b"] = time.perf_counter() - t0
+
+    # (c) phase 25's CSR: its entries by the one upload (the default)
+    # and by the streamed sparse binner (tpu_ingest 1)
+    t0 = time.perf_counter()
+    sm = SparseMatrix.from_scipy(airline)
+    del airline
+    cfg = Config().set(dict(AIRLINE_PARAMS))
+    ds = BinnedDataset(cfg, dev)
+    ds.set_mappers(find_column_mappers_sparse(sm, cfg, set()))
+    got, out["c"] = {}, {}
+    for route in ("upload", "streamed"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        h0 = c("ingest/h2d_bytes").value
+        t1 = time.perf_counter()
+        if route == "upload":
+            ent = SparseEntries.upload(sm, ds.mappers, ds.used_feature_map,
+                                       dev)
+        else:
+            ent = SparseEntries(*ingest.SparseDeviceBinner(
+                ds.mappers, ds.used_feature_map, cfg, dev).bin_entries(sm))
+        torch.cuda.synchronize()
+        out["c"][route] = {
+            "s": time.perf_counter() - t1,
+            "h2d_bytes": c("ingest/h2d_bytes").value - h0,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "entries_bytes": 3 * ent.codes.numel() * 4}
+        got[route] = ent
+    a, b = got["upload"], got["streamed"]
+    assert np.array_equal(a.bounds, b.bounds), "(c): entry bounds differ"
+    for k in ("codes", "rows", "feat"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), \
+            f"(c): the routes' entry {k} differ"
+    del got, a, b, ent, sm, ds
+    torch.cuda.empty_cache()
+    walls["c"] = time.perf_counter() - t0
+    up, st = out["c"]["upload"], out["c"]["streamed"]
+    print(f"(c) phase 25's CSR ({AIRLINE_ROWS} x 674): entries equal on "
+          "both routes; "
+          + "; ".join(
+              f"{r} {v['s']:.3f} s, {v['h2d_bytes'] / 1e6:.1f} MB to the "
+              f"card, peak device memory {v['peak_bytes'] / 1e9:.3f} GB "
+              f"(the entries {v['entries_bytes'] / 1e9:.3f})"
+              for r, v in out["c"].items())
+          + f"; streaming's peak "
+          f"{(up['peak_bytes'] - st['peak_bytes']) / 1e9:.3f} GB below "
+          f"the upload's, its seconds {st['s'] / up['s']:.2f}x the "
+          f"upload's; {walls['c']:.1f} s; {smi}")
+
+    # (d) phase 24's TSV on each route in a child process of its own, the
+    # two side by side
+    t0 = time.perf_counter()
+    out["d"] = {}
+    procs = {}
+    try:
+        for route in ("one_round", "two_round"):
+            child = [sys.executable, "-c",
+                     "import sys; sys.path.insert(0, sys.argv[1]); "
+                     "import chip_smoke; "
+                     "chip_smoke.ingest_child(*sys.argv[2:])",
+                     ROOT, route, tmp]
+            procs[route] = subprocess.Popen(
+                [sys.executable, "-c", _RSS_WRAPPER, *child],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for route, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+            assert proc.returncode == 0 and len(lines) == 2, \
+                (route, proc.returncode, stdout[-2000:], stderr[-2000:])
+            read, wrap = json.loads(lines[0]), json.loads(lines[1])
+            assert wrap["rc"] == 0, (route, stderr[-2000:])
+            read["children_maxrss_kb"] = wrap["children_maxrss_kb"]
+            out["d"][route] = read
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = open(os.path.join(tmp, "model_two_round.txt")).read()
+    assert _body(text) == _body(higgs["lrb"]["text"]), \
+        "two_round: model text differs from phase 24's (phase 6's)"
+    b1 = np.load(os.path.join(tmp, "bins_one_round.npy"))
+    b2 = np.load(os.path.join(tmp, "bins_two_round.npy"))
+    assert np.array_equal(b1, b2), "two_round: bins differ from one-round"
+    assert np.array_equal(b1, lrb_bins.cpu().numpy()), \
+        "the file's bins differ from phase 6's matrix's"
+    walls["d"] = time.perf_counter() - t0
+    for route, r in out["d"].items():
+        print(f"(d) {route}: phase 24's TSV loaded in {r['load_s']:.2f} s "
+              f"(phase timers {r['timers']}), {r['h2d_bytes'] / 1e6:.1f} MB "
+              f"to the card; peak host RSS {r['children_maxrss_kb'] / 1024:.0f}"
+              f" MB for the child's whole run (RUSAGE_CHILDREN of its "
+              f"wrapper), {r['rss_base_kb'] / 1024:.0f} MB with the card's "
+              f"context made before the load, "
+              f"{r['rss_after_load_kb'] / 1024:.0f} MB after it; bins equal "
+              f"to phase 24's" + ("; 50 iterations give phase 24's model "
+                                  "text" if route == "two_round" else "")
+              + f"; {smi}")
+    total = time.perf_counter() - t_phase
+    print("phase 26 walls: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in sorted(walls.items()))
+          + f"; in all {total:.1f} s without making the data ({make_s:.1f}"
+          f" s; budget {PHASE26_BUDGET_S:.0f} s); {smi}")
+    assert total <= PHASE26_BUDGET_S, f"phase 26 took {total:.1f} s"
+    out["walls"] = walls
+    return out
+
+
 def efb_sparse_phases(dev, smi: str) -> dict:
     """Phase 25 of the module docstring: EFB and the sparse route on the
     one-hot airline rows. Returns the kernels-line entry of K2 over the
@@ -4590,6 +5096,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    phase_walls = []                  # (phases, seconds) in run order
+    t_mark = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_walls.append((name, now - t_mark[0]))
+        t_mark[0] = now
 
     # 2. build: every csrc/*.cu (nvcc) and the text parser (g++), one
     # compiler each, all at once
@@ -4603,6 +5116,7 @@ def main() -> None:
         for line in b.report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+    mark("1-2")
 
     # 3. golden corpus: host binning, then device binning
     worst = 0.0
@@ -4639,6 +5153,7 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"golden: {len(GOLDEN_CASES) * 2 + len(REVERSE_ONLY)} models "
           f"within 1e-5 of the reference (worst {worst:.3g})")
+    mark("3")
 
     # 4. full width: HIGGS-shape model, 500k rows
     X, _ = make_higgs_like(HOLDOUT_ROWS)
@@ -4694,6 +5209,8 @@ def main() -> None:
           f"host f64 check and f32 cast, timed alone: "
           f"{host_prep_ms(X):.1f} ms")
 
+    mark("4")
+
     # 5. serving: LRB window model through the C API
     Xl = make_lrb_rows(70_000)
     ltext = random_model_text(Xl, LRB_TREES, LRB_LEAVES, 5)
@@ -4723,38 +5240,75 @@ def main() -> None:
           + ", ".join(f"{r} rows {t:.2f} ms" for r, t in served)
           + f"; {serve_launches} launches")
     print(kernel_line("lrb", lrb, LRB_TREES))
+    mark("5")
 
     # 19 and 20, before 6-18: the LRB loop on the card, then the fleet
     # scoring daemon on its trace and models (torch.profiler's records
     # are still whole this early in the run)
     with tempfile.TemporaryDirectory() as tmp:
         loop = lrb_loop_phase(dev, smi, tmp)
+        mark("19")
         fleet = fleet_phase(dev, smi, loop, text, X, tmp)
+        mark("20")
 
     # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins;
-    # 21: valid sets, against phases 6, 7 and 11
+    # 21: valid sets, against phases 6, 7 and 11. The CPU halves of
+    # phases 9, 14 and 18 train in a side process meanwhile
     kid_of = {"wave_histogram": "K2", "fused_partition_histogram": "K1",
               "leaf_gather_add": "K3"}
-    train, higgs_data = train_phases(dev)
-    quant = quant_phases(dev, higgs_data, power_limit_w)
-    valid = valid_phases(dev, smi, higgs_data, {
-        kid_of[e["name"]]: e["lrb"] for e in train if e["name"] in (
-            "wave_histogram", "fused_partition_histogram")})
-    # 15-18: categorical features
-    k1_ms = next(e["ms"] for e in train
-                 if e["name"] == "fused_partition_histogram")
-    cat, airline = cat_phases(dev, k1_ms, power_limit_w)
-    # 22: every objective family, card against CPU
-    objectives = objective_phases(dev, smi)
-    # 23: GOSS (on phase 7's rows), DART, RF, forced splits, continued
-    with tempfile.TemporaryDirectory() as tmp:
-        variants = variant_phases(dev, smi, higgs_data, tmp)
+    cpu_dir = tempfile.TemporaryDirectory()
+    Xp = make_lrb_rows(PROBE_ROWS, seed=61)
+    yp = lrb_labels(Xp, seed=62)
+    probe = {"alone before": contention_probe(Xp, yp)}
+    cpu_jobs = CpuJobs(cpu_dir.name)
+    try:
+        cpu_jobs.wait_busy()
+        probe["beside the side process"] = contention_probe(Xp, yp)
+        train, higgs_data = train_phases(dev, cpu_jobs)
+        mark("6-9")
+        quant = quant_phases(dev, higgs_data, power_limit_w, cpu_jobs)
+        mark("10-14")
+        valid = valid_phases(dev, smi, higgs_data, {
+            kid_of[e["name"]]: e["lrb"] for e in train if e["name"] in (
+                "wave_histogram", "fused_partition_histogram")})
+        mark("21")
+        # 15-18: categorical features
+        k1_ms = next(e["ms"] for e in train
+                     if e["name"] == "fused_partition_histogram")
+        cat, airline = cat_phases(dev, k1_ms, power_limit_w, cpu_jobs)
+        mark("15-18")
+        # 22: every objective family, card against CPU
+        objectives = objective_phases(dev, smi, cpu_jobs)
+        mark("22")
+        # 23: GOSS (on phase 7's rows), DART, RF, forced splits, continued
+        with tempfile.TemporaryDirectory() as tmp:
+            variants = variant_phases(dev, smi, higgs_data, tmp, cpu_jobs)
+        mark("23")
+    finally:
+        cpu_jobs.close()
+        cpu_dir.cleanup()
+    probe["alone after"] = contention_probe(Xp, yp)
+    del Xp, yp
+    alone = min(probe["alone before"], probe["alone after"])
+    print(f"side process contention ({smi}): {PROBE_ROWS} LRB rows, "
+          f"{PROBE_ITERS} iterations on the card, ms an iteration "
+          + ", ".join(f"{k} {v:.2f}" for k, v in probe.items())
+          + f"; beside / the faster alone reading "
+          f"{probe['beside the side process'] / alone:.3f}; this process "
+          f"on cores {cpu_jobs.main_cores}, the side process on "
+          f"{cpu_jobs.side_cores} while it ran")
     # 24: the file entry point on phase 6's window
+    # 26: the ingest routes, on phase 6's window, phase 7's rows and phase
+    # 24's TSV
     with tempfile.TemporaryDirectory() as tmp:
         files = file_phases(dev, smi, higgs_data["lrb"], tmp)
+        mark("24")
+        ingest_phases(dev, smi, higgs_data, tmp)
+        mark("26")
     del higgs_data
     # 25: EFB and the sparse route on the one-hot airline rows
     efb = efb_sparse_phases(dev, smi)
+    mark("25")
 
     # kernels line
     forest = {
@@ -4838,6 +5392,8 @@ def main() -> None:
                             valid["lrb"]["k3_per_tree"],
                             "higgs_launches": valid["higgs"]["k3_launches"],
                             "lrb_launches": valid["lrb"]["k3_launches"]})
+    print("chip_smoke walls (s), phases in run order: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_walls))
     print(json.dumps({"kernels": [forest] + train + quant + cat + [efb]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

@@ -101,6 +101,29 @@ int count_cols(const char* b, const char* e, char delim) {
   return cols;
 }
 
+// one delimited row [p, e) into values (cols feature columns) and its
+// label; false for a ragged row (other than cols + label columns)
+bool fill_delimited_row(const char* p, const char* e, char delim,
+                        int32_t label_idx, double* values, float* label,
+                        int32_t cols) {
+  int32_t expect_cols = cols + (label_idx >= 0 ? 1 : 0);
+  int32_t col = 0, feat = 0;
+  while (p <= e) {
+    const char* t = p;
+    while (p < e && *p != delim) ++p;
+    if (col == label_idx) {
+      if (label) *label = (float)tok_to_double(t, p);
+    } else if (feat < cols) {
+      values[feat] = tok_to_double(t, p);
+      ++feat;
+    }
+    ++col;
+    if (p >= e) break;
+    ++p;  // skip delimiter
+  }
+  return col == expect_cols;
+}
+
 }  // namespace
 
 extern "C" {
@@ -184,29 +207,38 @@ int lgbm_tpu_parse_fill(const char* path, int skip_header,
     }
     return 0;
   }
-  int32_t expect_cols = cols + (label_idx >= 0 ? 1 : 0);
   for (int64_t i = 0; i < rows; ++i) {
-    const char* p = ln.begin[i];
-    const char* e = ln.end[i];
-    int32_t col = 0, feat = 0;
-    while (p <= e) {
-      const char* t = p;
-      while (p < e && *p != delim) ++p;
-      if (col == label_idx) {
-        if (labels) labels[i] = (float)tok_to_double(t, p);
-      } else if (feat < cols) {
-        values[i * cols + feat] = tok_to_double(t, p);
-        ++feat;
-      }
-      ++col;
-      if (p >= e) break;
-      ++p;  // skip delimiter
-    }
     // ragged rows (more or fewer columns than the first line): refuse
     // so the caller falls back to the python parser's pad-and-warn
-    if (col != expect_cols) return 3;
+    if (!fill_delimited_row(ln.begin[i], ln.end[i], delim, label_idx,
+                            values + i * cols, labels ? labels + i : nullptr,
+                            cols))
+      return 3;
   }
   return 0;
+}
+
+// A block of delimited data lines, joined by '\n' (the two-round
+// loader's blocks: header, comments and blanks already dropped), into
+// values [rows, cols] and labels [rows] as lgbm_tpu_parse_fill fills
+// them. 2: not `rows` lines; 3: a ragged row.
+int lgbm_tpu_parse_block(const char* buf, int64_t len, char delim,
+                         int32_t label_idx, double* values, float* labels,
+                         int64_t rows, int32_t cols) {
+  const char* p = buf;
+  const char* endp = buf + len;
+  for (int64_t i = 0; i < rows; ++i) {
+    if (p > endp) return 2;
+    const char* eol = (const char*)memchr(p, '\n', endp - p);
+    if (!eol) eol = endp;
+    const char* e = eol;
+    while (e > p && (e[-1] == '\r' || e[-1] == ' ')) --e;
+    if (!fill_delimited_row(p, e, delim, label_idx, values + i * cols,
+                            labels ? labels + i : nullptr, cols))
+      return 3;
+    p = eol + 1;
+  }
+  return p >= endp ? 0 : 2;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """ctypes binding for the native C++ text parser.
 
-The JAX package's ``io/native.py``, ``parse_file_native`` only. The
+The JAX package's ``io/native.py``, ``parse_file_native`` only, and
+``parse_block_native`` for the two-round loader's blocks. The
 parser's source is ``csrc/fast_parser.cpp`` (a copy of the JAX package's
 ``native/fast_parser.cpp``), built with g++ into ``_build/`` at first use
 by ``utils/cuda_build.py``; a failed build raises, there is no quiet
@@ -41,6 +42,12 @@ def _load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
                 ctypes.c_int32]
             lib.lgbm_tpu_parse_fill.restype = ctypes.c_int
+            lib.lgbm_tpu_parse_block.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_char,
+                ctypes.c_int32, ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                ctypes.c_int32]
+            lib.lgbm_tpu_parse_block.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -83,3 +90,38 @@ def parse_file_native(filename: str, header: bool, label_idx: int
         # rc 3: ragged rows
         return None
     return values, labels, f
+
+
+def parse_block_native(lines, delim: str, label_idx: int, cols: int,
+                       threads: int = 1
+                       ) -> Optional[Tuple[np.ndarray, Optional[np.ndarray]]]:
+    """Delimited data lines (bytes, without their line ends), each of
+    ``cols`` feature columns beside the label column ``label_idx`` (< 0:
+    none): (values [N, cols] float64, labels [N] float32 or None), or
+    None for a ragged row (the Python parser pads it and warns). With
+    ``threads`` > 1 the lines are cut into that many runs parsed at once
+    (the library call releases the interpreter)."""
+    lib = _load()
+    n = len(lines)
+    values = np.empty((n, cols), np.float64)
+    labels = np.zeros(n, np.float32) if label_idx >= 0 else None
+
+    def run(a: int, b: int) -> int:
+        buf = b"\n".join(lines[a:b])
+        return lib.lgbm_tpu_parse_block(
+            buf, len(buf), delim.encode(), np.int32(label_idx),
+            values[a:b].ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            (labels[a:b].ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+             if labels is not None else None),
+            np.int64(b - a), np.int32(cols))
+
+    cuts = np.linspace(0, n, max(min(int(threads), n), 1) + 1).astype(int)
+    if len(cuts) > 2:
+        import concurrent.futures
+        with concurrent.futures.ThreadPoolExecutor(len(cuts) - 1) as ex:
+            rcs = list(ex.map(run, cuts[:-1], cuts[1:]))
+    else:
+        rcs = [run(0, n)]
+    if any(rcs):
+        return None
+    return values, labels

@@ -42,9 +42,14 @@ Where the port differs from the JAX driver:
 - ``device``: where each window trains and serves (None: ``cuda:0``,
   raising at the first window's training when there is no card;
   ``"cpu"`` runs the plain PyTorch path, as the tests do).
-- No device ingest chunk ring (``tpu_lrb_ring``, ``io/ingest.py
-  ChunkRing``, ROADMAP item 17): each window's matrix goes through
-  ``LGBM_DatasetCreateFromMat`` whole.
+- No device ingest chunk ring: ``tpu_lrb_ring`` is accepted and does
+  nothing. The JAX ring keeps a window's chunks resident so that its
+  fixed compiled chunk shape's pad rows are not sent again; the port's
+  binner compiles no shape and sends no pad rows, so a ring would save
+  no bytes on the wire. A port of it, measured on an H100, moved the
+  same bytes with it and without, and no allocation retries, while it
+  held its slots resident for the loop's lifetime (PERF.md, the ingest
+  rows).
 - No compiled-step registry (``ops/step_cache.py``, ROADMAP item 16):
   the record has no ``step_cache_hits``, and ``compile_s`` is
   the nvcc time the window paid building the kernels

@@ -675,10 +675,10 @@ def _one_chunk(score, labels, idx, valid, imd, label_gain, sigmoid, qmax):
         plane[qi, i, j] = v
         planes.append(plane)
     pl, ph = planes
-    lam = (f32math.xla_sum(pl, qmax)
-           - f32math.xla_sum(pl.transpose(1, 2), qmax))
-    hes = (f32math.xla_sum(ph, qmax)
-           + f32math.xla_sum(ph.transpose(1, 2), qmax))
+    lam = (f32math.xla_vec_sum(pl, qmax)
+           - f32math.xla_vec_sum(pl.transpose(1, 2), qmax))
+    hes = (f32math.xla_vec_sum(ph, qmax)
+           + f32math.xla_vec_sum(ph.transpose(1, 2), qmax))
     return lam, hes
 
 

@@ -113,6 +113,51 @@ def xla_sum(x: torch.Tensor, length: int = 0) -> torch.Tensor:
     return _seq_last(x)
 
 
+VEC_LANES = 8        # the vectorized loop's f32 accumulators (256 bits)
+
+
+def _lane_last(x: torch.Tensor) -> torch.Tensor:
+    """[..., w] -> [...] in the order of a reduction loop vectorized over
+    8 lanes: lane k adds x[k], x[k + 8], ... of the first 8 * (w // 8)
+    entries in sequence, the lanes are folded by halves (k + 4, then
+    k + 2, then k + 1), and the rest follow one by one."""
+    w = x.shape[-1]
+    k = w // VEC_LANES * VEC_LANES
+    if k == 0:
+        return _seq_last(x)
+    lanes = _seq_last(x[..., :k].reshape(*x.shape[:-1], -1, VEC_LANES)
+                      .transpose(-1, -2))                  # [..., 8]
+    h = VEC_LANES
+    while h > 1:
+        h //= 2
+        lanes = lanes[..., :h] + lanes[..., h:2 * h]
+    acc = lanes[..., 0]
+    for j in range(k, w):
+        acc = acc + x[..., j]
+    return acc
+
+
+# the widths at which XLA's CPU compiler (on x86-64 with 256-bit vectors)
+# was seen to add a reduction of at most 32 entries over 8 lanes, as
+# ``_lane_last`` does; below 12 it adds in sequence, as ``xla_sum`` does,
+# and at 12-15, 20-23 and 32 by loops not followed here
+LANE_WIDTHS = frozenset(range(16, 20)) | frozenset(range(24, SUM_WINDOW))
+
+
+def xla_vec_sum(x: torch.Tensor, length: int = 0) -> torch.Tensor:
+    """``xla_sum`` of a reduction that XLA's CPU compiler vectorizes (the
+    lambdarank step's pair sums): over ``length`` entries (zeros after
+    ``x``'s) in ``LANE_WIDTHS`` the order of ``_lane_last``, else
+    ``xla_sum``'s."""
+    n = max(int(length), x.shape[-1])
+    if n not in LANE_WIDTHS:
+        return xla_sum(x, n)
+    if x.shape[-1] < n:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (n - x.shape[-1],))],
+                      dim=-1)
+    return _lane_last(x)
+
+
 def xla_segment_sum(x: torch.Tensor, starts: torch.Tensor,
                     counts: torch.Tensor, length: int = 0) -> torch.Tensor:
     """[S] f32: for each segment ``[start, start + count)`` of ``x`` [n],

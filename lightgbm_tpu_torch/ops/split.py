@@ -423,6 +423,14 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     num_data = num_data.to(f32)[:, None, None]
     gain_shift = leaf_split_gain(sum_g, sum_h2, l1, l2, mds)
     min_gain_shift = gain_shift + _f32(hp.min_gain_to_split)
+    # the JAX package grows a bundled set inside its per-booster step,
+    # whose metadata are constants. There XLA fuses the leaf's gain into
+    # the candidates' loop and contracts it as ``_fused_leaf_gain``: the
+    # candidates are held against that, and the reported gain subtracts
+    # the unfused one
+    cmp_shift = min_gain_shift if not meta.bundled else (
+        _fused_leaf_gain(sum_g, sum_h2, l1, l2, mds)
+        + _f32(hp.min_gain_to_split))
 
     bidx = torch.arange(B, device=dev)[None, None, :]      # [1, 1, B]
     two_scan = (nb > 2) & (mt != MISSING_NONE)             # [1, F, 1]
@@ -469,10 +477,10 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
 
     gains1 = side_gains(l_g1, l_h1, r_g1, r_h1)
     ok1 = valid1 & constraints(l_c1, l_h1, r_c1, r_h1) \
-        & (gains1 > min_gain_shift)
+        & (gains1 > cmp_shift)
     gains2 = side_gains(l_g2, l_h2, r_g2, r_h2)
     ok2 = valid2 & constraints(l_c2, l_h2, r_c2, r_h2) \
-        & (gains2 > min_gain_shift)
+        & (gains2 > cmp_shift)
     fmask = feature_mask.to(torch.bool)[None, :, None] \
         & can_split.to(torch.bool)[:, None, None]
     ic = (meta.is_cat.to(torch.int64).expand(F) > 0)[None, :, None]

@@ -30,7 +30,11 @@ What is held, and to which bar:
   contracts otherwise than the cached step the port follows: beyond the
   probe, the texts are held line for line but for the split gains, each
   within 1e-5 of the JAX package's (``assert_bundled_texts_match``;
-  trees, thresholds, leaf values and counts equal, so the scores are);
+  trees, thresholds, leaf values and counts equal, so the scores are).
+  Multiclass on three classes of pure leaves is held byte for byte: there
+  a candidate's gain equals the leaf's up to rounding, and the step
+  holds the candidates against the leaf's gain contracted into one fused
+  multiply-add (``ops/split.py find_best_split``'s ``cmp_shift``);
 - the int8 tier with exact counts under bundles: every tree equal in
   structure and counts, the first three byte-equal; from the fourth on
   the root's gain can part by an ulp (ROADMAP queue 3 E: XLA rounds the
@@ -293,15 +297,27 @@ def test_default_params_on_one_hot_data_equal_jax():
 @pytest.mark.parametrize("extra", [
     {}, {"bagging_fraction": 0.8, "bagging_freq": 2,
          "feature_fraction": 0.8},
-    {"objective": "regression", "lambda_l2": 1.0}])
+    {"objective": "regression", "lambda_l2": 1.0},
+    {"objective": "multiclass", "num_class": 3}])
 def test_bundled_training_equal_jax(extra):
-    X, y = one_hot_data(12_000, 1)
+    multiclass = extra.get("objective") == "multiclass"
+    if multiclass:
+        # three classes of |2 x0|: pure leaves whose candidates' gains
+        # are rounding noise around the leaf's own (ROADMAP queue 3 M)
+        X, _ = one_hot_data(6_000, 5)
+        y = (np.abs(2 * X[:, 0]).astype(int) % 3).astype(np.float64)
+    else:
+        X, y = one_hot_data(12_000, 1)
+    rounds = 4 if multiclass else 8
     p = {"objective": "binary", "num_leaves": 15, "verbose": -1, **extra}
-    jt = lgb.train(p, lgb.Dataset(X, label=y), 8).model_to_string()
-    tb = lgt.train(p, lgt.Dataset(X, label=y), 8, device="cpu")
+    jt = lgb.train(p, lgb.Dataset(X, label=y), rounds).model_to_string()
+    tb = lgt.train(p, lgt.Dataset(X, label=y), rounds, device="cpu")
     assert tb._gbdt.train_data.bundles is not None
     assert tb._gbdt._grower_cfg.bundle_bins > 0
-    assert_bundled_texts_match(jt, tb.model_to_string())
+    if multiclass:
+        assert body(tb.model_to_string()) == body(jt)
+    else:
+        assert_bundled_texts_match(jt, tb.model_to_string())
 
 
 @needs_jax

@@ -9,8 +9,11 @@ Bars, each where it is checked:
   gamma follows the training step, which contracts 1 - y * exp(-s) into
   a fused multiply-add (the standalone function does not: g within
   ``GAMMA_G_ULPS``, h within ``GAMMA_H_ULPS`` ulps of it), and lambdarank,
-  whose pair sums XLA fuses and reorders in ways the port does not
-  follow, is within ``RANK_REL`` of the largest gradient of the set.
+  whose pair sums XLA's CPU compiler orders by the query width: bit-equal
+  at the widths where that order was measured (below 12, 16-19 and
+  24-31 in eight vector lanes, beyond 32 in windows of 32;
+  ``f32math.xla_vec_sum``),
+  within ``RANK_REL`` of the largest gradient of the set at the others;
   exp, log and log1p are XLA's CPU functions (ops/f32math.py), bit for
   bit;
 - ``boost_from_score``: equal in float64;
@@ -424,6 +427,54 @@ def test_train_matches_jax(objective):
     _check(jt, tt, X)
     if objective != "lambdarank":
         assert tt.split("parameters:")[0] == jt.split("parameters:")[0]
+
+
+def _rank_set(width: int, n_queries: int, seed: int):
+    """Queries of one width, label ``clip(round(1.5 x0 + 1), 0, 3)``."""
+    X = np.random.default_rng(seed).normal(size=(width * n_queries, 6))
+    return X, np.clip(np.round(1.5 * X[:, 0] + 1), 0, 3), [width] * n_queries
+
+
+@pytest.mark.parametrize("enable_bundle", ["false", "true"])
+def test_lambdarank_second_input_matches_jax(enable_bundle):
+    """200 queries of 30 rows (ROADMAP queue 3 N): the pair sums of a
+    query at that width are XLA's vectorized loop (``f32math.
+    xla_vec_sum``), so the gradients are bit-equal to the JAX package's
+    training step and the model text before its parameters is byte-equal,
+    with and without EFB bundles."""
+    from test_torch_efb import one_hot_data
+    X, _ = one_hot_data(6000, 5)
+    y = np.clip(np.round(1.5 * X[:, 0] + 1), 0, 3)
+    group = [30] * 200
+    params = {"objective": "lambdarank", "num_leaves": 15, "verbose": -1,
+              "enable_bundle": enable_bundle}
+    jt = lgb.train(dict(params), lgb.Dataset(X, label=y, group=group),
+                   4).model_to_string()
+    tt = lgt.train(dict(params), lgt.Dataset(X, label=y, group=group), 4,
+                   device="cpu").model_to_string()
+    assert tt.split("parameters:")[0] == jt.split("parameters:")[0]
+
+
+@pytest.mark.parametrize("width", [3, 9, 11, 16, 19, 24, 30, 31, 64, 100])
+def test_lambdarank_grads_bit_equal_at_measured_widths(width):
+    """The pair sums' order at the query widths where it was measured
+    (``f32math.LANE_WIDTHS``, in sequence below 12, windows of 32 beyond
+    32): lambdas and hessians bit-equal to the JAX package's jitted
+    ``get_gradients`` on random scores."""
+    X, y, group = _rank_set(width, max(2, 1500 // width), width)
+    jm, tm = _meta_pair(y, None, group)
+    jo = j_create_objective("lambdarank", JConfig().set(
+        {"objective": "lambdarank"}))
+    jo.init(jm, len(y))
+    to = create_objective("lambdarank", TConfig().set(
+        {"objective": "lambdarank"}))
+    to.init(tm, len(y))
+    s = np.random.default_rng(width + 1).normal(size=len(y)).astype(
+        np.float32)
+    gj, hj = jax.jit(jo.get_gradients)(jnp.asarray(s))
+    g, h = to.get_gradients(torch.from_numpy(s))
+    np.testing.assert_array_equal(g.numpy(), np.asarray(gj))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(hj))
 
 
 @pytest.mark.parametrize("objective", ["multiclass", "regression_l1",
