@@ -40,8 +40,8 @@ the entry points a user calls:
    a run of launches between one pair of CUDA events), its plain
    version and the nearest PyTorch library call; for the f32 histogram
    pass the share of rows it counts, its launch plan on this card
-   (features per group, slot classes, warps, blocks per SM, grid, row
-   ranges) and its slot, histogram and reduce kernels' card time (CUDA
+   (features per group, slot classes, slot parts, warps, blocks per SM,
+   grid, row ranges) and its slot, histogram and reduce kernels' card time (CUDA
    events at the pass boundaries); K3 and ``index_select`` timed alike
    over 200 launches, with the host's microseconds per call of each;
 9. card vs CPU: the LRB parameters at 100,000 rows trained on the card
@@ -279,7 +279,14 @@ the entry points a user calls:
    (a)'s wave width), 3 iterations: ms an iteration beside (a)'s, the
    first split where the two part, and the holdout AUC within 1e-3 of
    (a)'s at iteration 3 (the two f32 routes sum 10M rows over other row
-   ranges and part at a near tie in the first tree); (c) the int8 tier
+   ranges and may part at a near tie in the first tree); ROADMAP queue
+   3 P's float64 checks: the root K2 and the first two K1 launches,
+   every cell's g within 1e-5 x (sum |g| + 1) of the float64 sum of the
+   same rows' f32 g (h likewise), counts exact (``check_sums_f64``), and
+   tree 0's splits at the root and at the paths RLLL, LRL, RRLLLL, each
+   with an exact gain within 0.2% of the exact best over every feature
+   and bin and an f32 gain within 0.2% of its own exact gain
+   (``check_route_splits``); (c) the int8 tier
    with exact counts unbundled: the auto rule takes the sparse tier (no
    K1, no K2) and its model text equals ``tpu_sparse=0``'s, 3 iterations
    each; (d) (a)'s model through ``LGBM_BoosterPredictForCSR`` and
@@ -307,7 +314,33 @@ the entry points a user calls:
    (``ingest_child``; the two side by side) under a wrapper whose
    ``RUSAGE_CHILDREN`` is that child's peak host RSS: the load's phase timers, the RSS after the
    load, bins equal to each other and to (a)'s, and the two-round
-   child's 50 iterations giving phase 6's (phase 24's) model text.
+   child's 50 iterations giving phase 6's (phase 24's) model text;
+27. checkpoints and resume, the run report, the profiler window, the
+   metrics exporter and the flight recorder, right after phase 20 (the
+   profiler keeps its kernel records this early), in at most
+   ``PHASE27_BUDGET_S``: (a) phase 6's window through ``train`` with
+   ``TRAIN_PARAMS``, 50 iterations and a checkpoint every 10
+   (``obs_params``); the same call in a child process (``obs_child``)
+   with ``tpu_faults=train.iter@27:kill``: the child dies by SIGKILL,
+   leaving the bundles of iterations 10 and 20 and a flight bundle
+   naming the fault, written before the kill; resumed here from the
+   directory, the model text equals the uninterrupted call's byte for
+   byte but its ``[tpu_resume_from]`` line; (b) one more uninterrupted
+   run with ``tpu_run_report`` and ``tpu_profile_dir``,
+   ``tpu_profile_iters=5``: the trees (a)'s, the report's JAX schema and
+   version, 50 iteration records with the device memory in use and a
+   non-null peak, one Chrome trace whose K1, K2 and K3 kernel launches
+   (``partition_slots_kernel``, ``wave_slots_kernel``,
+   ``leaf_gather_add_kernel``) equal the port's counters over the
+   window's 5 iterations, and 5 ``lgbm/train/iteration`` ranges; its ms
+   an iteration printed beside (a)'s; (c) phase 19's trace, 2 windows at
+   its shape, through ``run_trace_file`` with ``tpu_metrics_export``,
+   ``tpu_metrics_port`` (an ephemeral port), ``tpu_slo`` and the flight
+   recorder, and ``lrb.window_train@2:transient``: at least two JSONL
+   snapshots, ``/metrics`` and ``/healthz`` 200, the SLO gauges in the
+   ``.prom`` text, no degraded window, and one flight bundle named by the
+   driver's ``flight_dumps`` holding span events, log lines, request-log
+   events and a registry snapshot; K1-K4 launched.
 
 The CPU halves of the card-vs-CPU checks of phases 9, 14, 18, 22 and 23
 train in a side process started after phase 20 (``CpuJobs``,
@@ -316,7 +349,8 @@ the checks read them back. The two processes run on disjoint halves of
 the cores until the side process ends; 20 iterations of
 ``TRAIN_PARAMS`` on 200,000 LRB rows (``contention_probe``) are timed
 alone before it starts, beside it, and alone after it, and printed. Phases 6-7, 10-12, 15-16 and 19-26 check that the main path
-launched each kernel (and each histogram variant) of its tier. Prints a JSON line
+launched each kernel (and each histogram variant) of its tier, and
+phase 27 each of K1-K4. Prints a JSON line
 of the kernels, then the last line ``{"ok": true, "device": {...}}``.
 Any failed check raises, and the script exits non-zero without that
 line. The model generators are importable (the body runs only under
@@ -463,6 +497,20 @@ EFB_FLAT_ITERS = 3              # (b), (c)
 # (K2 over 11 bundle columns against K1 over 674), and at 10M rows the
 # first tree parts at a near tie (PERF.md, PR 15): 6.5e-4 at iteration 3
 EFB_AUC_TOL = 1e-3
+# (b), ROADMAP queue 3 P: the f32 passes' cells within 1e-5 x (sum |g| +
+# 1) of float64; tree 0's splits at the root and at the frontier leaves
+# PR 16's float64 probe named within 0.2% of the exact best, their f32
+# gains within 0.2% of their exact gains
+EFB_F64_REL = 1e-5
+EFB_GAIN_TOL = 2e-3
+EFB_PROBE_PATHS = ("RLLL", "LRL", "RRLLLL")
+EFB_K1_KEPT = 2                 # K1 launches held against float64
+# phase 27: checkpoints, resume, the run report, the profiler window, the
+# armed LRB loop
+OBS_CKPT_FREQ = 10
+OBS_KILL_AT = 27                # the child's fault rule: train.iter@27:kill
+OBS_PROFILE_ITERS = 5
+PHASE27_BUDGET_S = 100.0        # 61.8 s alone on the card (PR 17)
 SHAP_ROWS = 256                 # (d): rows explained by TreeSHAP on the host
 LEAF_EDIT = (7, 3)              # (f): tree and leaf given a new value
 WRITE_LIMIT_S = 30.0            # the window's text file, written untimed
@@ -1702,14 +1750,15 @@ def pass_report(label: str, kid: str, fn, args, kw: dict,
     split = hw.pass_times(lambda: fn(*args), PASS_RUNS)
     print(f"  {label} {kid} f32 pass: counts {counted} of {n} rows "
           f"({counted / max(n, 1):.4f}); Fg {lp['fg']} of {F} features, "
-          f"{lp['classes']} slot classes, {lp['warps']} warps a block, "
+          f"{lp['classes']} slot classes, {lp['slot_parts']} slot parts, "
+          f"{lp['warps']} warps a block, "
           f"{lp['blocks_per_sm']} blocks/SM, grid {lp['grid']}, "
           f"{lp['ranges']} ranges of {lp['rows_per_range']} rows; card ms "
           "a launch: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     return {"counted_share": counted / max(n, 1), "split_ms": split,
-            "plan": {k: lp[k] for k in ("fg", "classes", "warps",
-                                         "blocks_per_sm", "grid", "ranges",
-                                         "rows_per_range")}}
+            "plan": {k: lp[k] for k in ("fg", "classes", "slot_parts",
+                                         "warps", "blocks_per_sm", "grid",
+                                         "ranges", "rows_per_range")}}
 
 
 def int_pass_report(kid: str, fn, args, kw: dict, counted: int) -> dict:
@@ -4829,6 +4878,482 @@ def ingest_phases(dev, smi: str, higgs: dict, tmp: str) -> dict:
     return out
 
 
+def obs_params(tmp: str) -> dict:
+    """Phase 27's training call: ``TRAIN_PARAMS`` with a checkpoint every
+    ``OBS_CKPT_FREQ`` iterations into ``tmp``/ckpt (kept whole)."""
+    return {**TRAIN_PARAMS,
+            "tpu_checkpoint_dir": os.path.join(tmp, "ckpt"),
+            "tpu_checkpoint_freq": str(OBS_CKPT_FREQ),
+            "tpu_snapshot_keep": "10"}
+
+
+def obs_rows() -> tuple:
+    """Phase 6's window (1,000,000 x 53) and its labels."""
+    X = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    return X, lrb_labels(X, seed=22)
+
+
+def obs_child(tmp: str) -> None:
+    """Phase 27(a)'s child process: phase 27's training call on cuda:0
+    with a ``tpu_faults`` rule that SIGKILLs it at the top of iteration
+    ``OBS_KILL_AT``, its flight bundles into ``tmp``/flight. Its
+    checkpoints are written on the training thread (``tpu_ckpt_async=0``,
+    a knob the resume fingerprint leaves out), so that every bundle due
+    before the kill is on disk; the background writer may still hold the
+    newest one when a kill comes."""
+    sys.path.insert(0, ROOT)
+    import lightgbm_tpu_torch as lgt
+    X, y = obs_rows()
+    lgt.train({**obs_params(tmp), "tpu_faults":
+               f"train.iter@{OBS_KILL_AT}:kill", "tpu_ckpt_async": "0",
+               "tpu_flight_dir": os.path.join(tmp, "flight")},
+              lgt.Dataset(X, label=y))
+    print("obs child: not killed")
+
+
+def trace_kernel_counts(events: list) -> dict:
+    """K1, K2 and K3 launches in a Chrome trace's kernel events: K1's
+    slot pass ``partition_slots_kernel``, K2's ``wave_slots_kernel``
+    (one each a launch), K3's ``leaf_gather_add_kernel``."""
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {"K1": sum("partition_slots_kernel" in k for k in kernels),
+            "K2": sum("wave_slots_kernel" in k for k in kernels),
+            "K3": sum("leaf_gather_add_kernel" in k for k in kernels)}
+
+
+def _without_resume(text: str) -> str:
+    return "\n".join(ln for ln in text.split("\n")
+                     if not ln.startswith("[tpu_resume_from:"))
+
+
+def obs_phases(dev, smi: str, tmp: str, loop_trace: str) -> dict:
+    """Phase 27 of the module docstring, in ``tmp``; ``loop_trace`` is
+    phase 19's trace file. Returns each kernel's launches in (b)'s run
+    and (c)'s loop, for the kernels line."""
+    import shutil
+    import socket
+    import urllib.request
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import lrb
+    from lightgbm_tpu_torch.obs import export, flight, recorder
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.utils import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    walls = {}
+    X, y = obs_rows()
+    params = obs_params(tmp)
+
+    def train(p, **kw):
+        ds = lgt.Dataset(X, label=y)
+        ds.construct()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lgt.train(p, ds, **kw)
+        torch.cuda.synchronize()
+        return bst, time.perf_counter() - t0
+
+    # (a) the uninterrupted call; then the same call in a child killed by
+    # a fault rule at iteration OBS_KILL_AT, resumed here
+    t0 = time.perf_counter()
+    bst, full_s = train(params)
+    full = bst.model_to_string()
+    iters = bst.current_iteration()
+    del bst
+    shutil.rmtree(params["tpu_checkpoint_dir"])
+    fdir = os.path.join(tmp, "flight")
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.obs_child(sys.argv[2])", ROOT, tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    walls["a"] = time.perf_counter() - t0
+
+    # (b) one uninterrupted run with the run report and a profiler window
+    # of OBS_PROFILE_ITERS iterations from iteration 2; the kernels'
+    # counters read where the window opens and closes
+    t0 = time.perf_counter()
+    report = os.path.join(tmp, "report.json")
+    prof_dir = os.path.join(tmp, "profile")
+    marks = {}
+
+    def counters():
+        torch.cuda.synchronize()
+        return {"K1": hw.k1_launches.value, "K2": hw.k2_launches.value,
+                "K3": pr.launches.value}
+
+    def before(env):
+        if env.iteration == 1:
+            marks["open"] = counters()
+    before.before_iteration = True
+
+    def after(env):
+        if env.iteration == OBS_PROFILE_ITERS:
+            marks["close"] = counters()
+    reset_counts()
+    bst, armed_s = train({**params, "tpu_checkpoint_dir": "",
+                          "tpu_checkpoint_freq": "0",
+                          "tpu_run_report": report,
+                          "tpu_profile_dir": prof_dir,
+                          "tpu_profile_iters": str(OBS_PROFILE_ITERS)},
+                         callbacks=[before, after])
+    counts_b = read_counts()
+    for k in ("K1", "K2", "K3"):
+        assert counts_b[k] > 0, f"phase 27(b): {k} never launched"
+    assert _body(bst.model_to_string()) == _body(full), \
+        "the armed run's trees differ from the uninterrupted run's"
+    del bst
+    rep = recorder.load_run_report(report)
+    assert rep["schema"] == "lightgbm-tpu/run-report" and \
+        rep["version"] == 1
+    assert len(rep["iterations"]) == iters == 50, len(rep["iterations"])
+    # the recorder's own spans outside the profiler window (iterations 1
+    # and 2 + OBS_PROFILE_ITERS on)
+    outside = [r["wall_s"] for r in rep["iterations"]
+               if not 2 <= r["it"] < 2 + OBS_PROFILE_ITERS]
+    peak = rep["meta"]["peak_device_bytes"]
+    assert peak and all(r.get("hbm_bytes_in_use") for r in
+                        rep["iterations"]), peak
+    files = os.listdir(prof_dir)
+    assert len(files) == 1, files
+    with open(os.path.join(prof_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    in_trace = trace_kernel_counts(events)
+    window = {k: marks["close"][k] - marks["open"][k] for k in in_trace}
+    assert in_trace == window and all(window.values()), (in_trace, window)
+    # the host's ranges (the card's copies are "gpu_user_annotation")
+    ranges = sum(e.get("name") == "lgbm/train/iteration"
+                 and e.get("cat") == "user_annotation" for e in events)
+    assert ranges == OBS_PROFILE_ITERS, ranges
+    walls["b"] = time.perf_counter() - t0
+    print(f"(b) run report: {report} schema {rep['schema']} v"
+          f"{rep['version']}, {len(rep['iterations'])} iteration records, "
+          f"peak device memory {peak / 1e9:.3f} GB; the profiler window of "
+          f"{OBS_PROFILE_ITERS} iterations from iteration 2: one Chrome "
+          f"trace ({files[0]}, {len(events)} events), its kernel launches "
+          f"{in_trace} equal to the counters' {window}, {ranges} "
+          f"lgbm/train/iteration ranges; the model's trees the "
+          f"uninterrupted run's; ms an iteration: uninterrupted "
+          f"{1e3 * full_s / iters:.2f}, with the recorder armed "
+          f"{1e3 * float(np.mean(outside)):.2f} (the report's spans outside "
+          f"the profiler window, {len(outside)} iterations), the whole "
+          f"armed run {1e3 * armed_s / iters:.2f} with the window and its "
+          f"trace's export (binning outside all); {smi}")
+
+    # (c) phase 19's loop at its shape, 2 windows, with the exporter
+    # (files and an ephemeral HTTP port), an SLO and the flight recorder;
+    # a transient fault in window 2's training
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ldir = os.path.join(tmp, "loop")
+    os.makedirs(ldir)
+    base = os.path.join(ldir, "metrics")
+    flight.configure(directory=ldir)
+    reset_counts()
+    drv = lrb.run_trace_file(
+        loop_trace, LOOP_CACHE, LOOP_WINDOW, LOOP_SAMPLE, LOOP_CUTOFF,
+        LOOP_SAMPLING, result_file=_Lines(), extra_params={
+            "tpu_metrics_export": base, "tpu_metrics_interval_s": "1",
+            "tpu_metrics_port": str(port),
+            "tpu_slo": "degraded_window_rate < 0.5; "
+                       "window_wall_p95_s < 600",
+            "tpu_faults": "lrb.window_train@2:transient"})
+    res = drv.results
+    drv.close()
+    counts_c = read_counts()
+    answers = {}
+    for route in ("/metrics", "/healthz"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=30) as r:
+            answers[route] = (r.status, r.read().decode())
+    export.shutdown()
+    from lightgbm_tpu_torch.utils import faults
+    faults.clear()
+    assert all(st == 200 for st, _ in answers.values()), answers
+    assert json.loads(answers["/healthz"][1])["alive"]
+    assert len(res) == LOOP_REQUESTS // LOOP_WINDOW and \
+        not any(r.get("degraded") for r in res), res
+    for k in ("K1/f32", "K2/f32", "K3", "K4"):
+        assert counts_c.get(k, 0) > 0, f"phase 27(c): {k} never launched"
+    with open(base + ".jsonl") as fh:
+        snaps = [json.loads(ln) for ln in fh]
+    prom = open(base + ".prom").read()
+    slo_lines = [ln for ln in prom.split("\n")
+                 if ln.startswith("lgbm_tpu_slo_")]
+    assert len(snaps) >= 2 and slo_lines, (len(snaps), prom[:400])
+    dumps = drv.flight_dumps
+    assert dumps and all(os.path.dirname(p) == ldir for p in dumps), dumps
+    with open(dumps[0]) as fh:
+        doc = json.load(fh)
+    assert doc["schema"] == flight.FLIGHT_SCHEMA and \
+        doc["reason"] == "fault", doc["reason"]
+    assert doc["context"]["point"] == "lrb.window_train"
+    assert doc["spans"] and doc["log_lines"] and doc["reqlog"] and \
+        doc["metrics"]["current"]["counters"], "an empty feed"
+    flight.shutdown()
+    walls["c"] = time.perf_counter() - t0
+    print(f"(c) armed loop: {len(res)} windows of {LOOP_WINDOW}, "
+          f"{len(snaps)} JSONL snapshots, {len(slo_lines)} SLO samples in "
+          f"the .prom text, /metrics and /healthz 200 on port {port}; a "
+          f"transient fault in window 2 retried (no degraded window) and "
+          f"flight bundle {os.path.basename(dumps[0])} named by "
+          f"flight_dumps ({len(doc['spans'])} spans, "
+          f"{len(doc['log_lines'])} log lines, {len(doc['reqlog'])} "
+          f"request-log events, a registry snapshot of "
+          f"{len(doc['metrics']['current']['counters'])} counters); "
+          f"launches {counts_c}; {smi}")
+
+    # (a) the child's end, its bundle, and the resume
+    t0 = time.perf_counter()
+    stdout, stderr = child.communicate(timeout=600)
+    assert child.returncode == -9 and "not killed" not in stdout, \
+        (child.returncode, stdout[-2000:], stderr[-2000:])
+    bundles = [f for f in os.listdir(fdir) if f.endswith("_fault.json")]
+    assert len(bundles) == 1, os.listdir(fdir)
+    with open(os.path.join(fdir, bundles[0])) as fh:
+        kill = json.load(fh)
+    assert kill["context"] == {"point": "train.iter",
+                               "occurrence": OBS_KILL_AT,
+                               "action": "kill",
+                               "context": str(OBS_KILL_AT)}, kill["context"]
+    left = sorted(i for i, _ in ckpt.list_checkpoints(
+        params["tpu_checkpoint_dir"]))
+    want = list(range(OBS_CKPT_FREQ, OBS_KILL_AT, OBS_CKPT_FREQ))
+    assert left == want, (left, want)
+    bst, resume_s = train({**params, "tpu_resume_from":
+                           params["tpu_checkpoint_dir"]})
+    resumed = bst.model_to_string()
+    del bst
+    assert _without_resume(resumed) == _without_resume(full), \
+        "the resumed model text differs from the uninterrupted run's"
+    walls["a"] += time.perf_counter() - t0
+    print(f"(a) kill and resume: the child SIGKILLed at the top of "
+          f"iteration {OBS_KILL_AT} by its fault rule (exit "
+          f"{child.returncode}) after writing checkpoints {left} and the "
+          f"flight bundle {bundles[0]} ({len(kill['log_lines'])} log "
+          f"lines); resumed from iteration {left[-1]} here in "
+          f"{resume_s:.2f} s: the model text equals the uninterrupted "
+          f"run's byte for byte but its [tpu_resume_from] line; {smi}")
+    total = time.perf_counter() - t_phase
+    print("phase 27 walls: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in sorted(walls.items()))
+          + f"; in all {total:.1f} s; {smi}")
+    assert total <= PHASE27_BUDGET_S, f"phase 27 took {total:.1f} s"
+    return {"b": {k: counts_b[k] for k in ("K1", "K2", "K3")},
+            "profile_window": window,
+            "c": {k: counts_c.get(k, 0) for k in ("K1", "K2", "K3", "K4")}}
+
+
+class RouteSpy:
+    """While installed, keeps the first K2 launch (the root pass) and the
+    first ``EFB_K1_KEPT`` K1 launches of the grower, inputs and outputs
+    (``k2``: (g, h, leaf ids, wave leaves, hist); ``k1``: (g, h, mask,
+    leaf ids, table, hist)); ``restore`` takes it out."""
+
+    def __init__(self):
+        from lightgbm_tpu_torch.ops import wave_grower as wg
+        self.wg = wg
+        self.fns = wg.wave_histogram, wg.fused_partition_histogram
+        self.k2, self.k1 = [], []
+        wg.wave_histogram = self._k2
+        wg.fused_partition_histogram = self._k1
+
+    def _k2(self, bins_t, g, h, leaf_ids, wl, *a, **kw):
+        out = self.fns[0](bins_t, g, h, leaf_ids, wl, *a, **kw)
+        if not self.k2:
+            self.k2.append((g.clone(), h.clone(), leaf_ids.clone(),
+                            wl.clone(), out.clone()))
+        return out
+
+    def _k1(self, bins_t, g, h, mask, leaf_ids, tbl, *a, **kw):
+        out = self.fns[1](bins_t, g, h, mask, leaf_ids, tbl, *a, **kw)
+        if len(self.k1) < EFB_K1_KEPT:
+            self.k1.append((g.clone(), h.clone(), mask.clone(),
+                            out[0].clone(), tbl.clone(), out[1].clone()))
+        return out
+
+    def restore(self) -> None:
+        self.wg.wave_histogram, self.wg.fused_partition_histogram = self.fns
+
+
+def f64_hist(bins, rows, slot, vals, n_slot: int, B: int,
+             block: int = 16):
+    """[n_slot, F, B, len(vals) + 1] float64 sums over the rows ``rows``
+    (indices) of each tensor of ``vals`` (float64, one value a row) and
+    the count, by each row's slot ``slot`` and its bin of each feature:
+    ``block`` features a bincount."""
+    import torch
+    F = bins.shape[0]
+    C = len(vals) + 1
+    cells = n_slot * B
+    out = torch.zeros((C, F, cells), dtype=torch.float64,
+                      device=bins.device)
+    for f0 in range(0, F, block):
+        fb = bins[f0:f0 + block][:, rows].to(torch.int64)
+        nb = fb.shape[0]
+        idx = (torch.arange(nb, device=bins.device)[:, None] * cells
+               + slot[None, :] * B + fb).reshape(-1)
+        for c, v in enumerate(vals):
+            out[c, f0:f0 + nb] = torch.bincount(
+                idx, weights=v.repeat(nb), minlength=nb * cells).view(
+                    nb, cells)
+        out[C - 1, f0:f0 + nb] = torch.bincount(
+            idx, minlength=nb * cells).view(nb, cells).double()
+    return out.view(C, F, n_slot, B).permute(2, 1, 3, 0)
+
+
+def check_sums_f64(bins, seen: RouteSpy) -> list:
+    """ROADMAP queue 3 P's bar on route (b)'s root K2 and first K1
+    launches: each cell's f32 g within ``EFB_F64_REL`` x (sum |g| + 1)
+    of the float64 sum of the same rows' f32 g (h likewise with sum h),
+    counts exact. Returns one reading a launch."""
+    import torch
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    n = bins.shape[1]
+    out = []
+    for name, recs in (("K2", seen.k2), ("K1", seen.k1)):
+        for r in recs:
+            if name == "K2":
+                g, h, ids, wl, hist = r
+                slot_ids, count = wl.to(torch.int64), ids >= 0
+            else:
+                g, h, mask, ids, tbl, hist = r
+                slot_ids = tbl[hw.TBL_SMALL].to(torch.int64)
+                count = mask > 0
+            W, _, B, _ = hist.shape
+            slot = torch.full((n,), -1, dtype=torch.int64,
+                              device=bins.device)
+            for w in range(W):
+                if int(slot_ids[w]) >= 0:
+                    slot[(ids.to(torch.int64) == slot_ids[w]) & count] = w
+            rows = torch.nonzero(slot >= 0).squeeze(1)
+            gk, hk = g[rows].double(), h[rows].double()
+            ref = f64_hist(bins, rows, slot[rows], [gk, hk, gk.abs()], W, B)
+            d = (hist[..., :3].double() - ref[..., [0, 1, 3]]).abs()
+            share = [float((d[..., 0] / (EFB_F64_REL
+                                         * (ref[..., 2] + 1))).max()),
+                     float((d[..., 1] / (EFB_F64_REL
+                                         * (ref[..., 1].abs() + 1))).max())]
+            assert max(share) <= 1.0 and float(d[..., 2].max()) == 0.0, (
+                name, share, float(d[..., 2].max()))
+            out.append({"launch": name, "W": W, "rows": int(rows.numel()),
+                        "max_abs_diff": [float(d[..., c].max())
+                                         for c in range(3)],
+                        "max_abs_sum": [float(ref[..., c].abs().max())
+                                        for c in (0, 1, 3)],
+                        "bar_share": share})
+    return out
+
+
+def path_nodes(tree, paths) -> dict:
+    """{path: node} of the internal nodes of ``tree`` at ``paths`` ("L"
+    and "R" steps from the root, "" the root); a path that ends at a
+    leaf is left out."""
+    out = {}
+    for path in paths:
+        node = 0
+        for step in path:
+            node = int(tree.left_child[node] if step == "L"
+                       else tree.right_child[node])
+            if node < 0:
+                break
+        if node >= 0:
+            out[path] = node
+    return out
+
+
+def check_route_splits(gbdt, root, tree_a) -> list:
+    """ROADMAP queue 3 P's split bar on route (b)'s tree 0: at the root
+    and at the frontier leaves ``EFB_PROBE_PATHS`` (the paths from the
+    root where PR 16's float64 probe found the f32 gains far from
+    exact), a split taken has an exact gain within ``EFB_GAIN_TOL`` of
+    the exact best over every feature and bin, and an f32 gain within
+    ``EFB_GAIN_TOL`` of its own exact gain; where (b) takes no split,
+    the bundled route (a)'s tree 0 (``tree_a``, whose sums were exact
+    before) takes none either. Exact: the nodes' rows' f32 g and h of
+    iteration 0 (the root pass's inputs) summed in float64, gain =
+    GL^2 / (HL + l2) + GR^2 / (HR + l2) - G^2 / (H + l2) over the
+    candidates the split search allows (missing type none: a row goes
+    left when its bin is at most the threshold's)."""
+    import torch
+    td, cfg = gbdt.train_data, gbdt.config
+    tree = gbdt.models[0]
+    meta = td.feature_meta()
+    assert (np.asarray(meta.missing_type) == 0).all()
+    bins = td.bins_t
+    F, n = bins.shape
+    dev = bins.device
+    g, h = root[0].double(), root[1].double()
+
+    def thr_bin(j, thr):
+        m = td.mappers[td.real_to_inner[j]]
+        return int(np.searchsorted(m.bin_upper_bound[:m.num_searched()],
+                                   thr, side="left"))
+
+    nodes = {}
+
+    def walk(node, path, sel):
+        if node < 0 or len(path) > max(map(len, EFB_PROBE_PATHS)):
+            return
+        nodes[path] = (node, sel)
+        j = int(tree.split_feature[node])
+        left = bins[td.real_to_inner[j]].to(torch.int64) <= thr_bin(
+            j, float(tree.threshold[node]))
+        for c, m in (("L", sel & left), ("R", sel & ~left)):
+            if any(p.startswith(path + c) for p in EFB_PROBE_PATHS):
+                walk(int(tree.left_child[node] if c == "L"
+                         else tree.right_child[node]), path + c, m)
+    walk(0, "", torch.ones(n, dtype=torch.bool, device=dev))
+    paths = [""] + list(EFB_PROBE_PATHS)
+    leaves = [p for p in paths if p not in nodes]
+    in_a = path_nodes(tree_a, leaves)
+    assert not in_a, f"(a) splits at {sorted(in_a)}, (b) does not"
+    paths = [p for p in paths if p in nodes]
+    B = int(np.asarray(meta.num_bin).max())
+    nb = torch.as_tensor(np.asarray(meta.num_bin), device=dev)
+    lam = float(cfg.lambda_l2)
+    out = []
+    for path in paths:
+        node, sel = nodes[path]
+        rows = torch.nonzero(sel).squeeze(1)
+        sums = f64_hist(bins, rows, torch.zeros_like(rows),
+                        [g[rows], h[rows]], 1, B)[0]
+        hg, hh, hc = sums[..., 0], sums[..., 1], sums[..., 2]
+        G, H, N = hg[0].sum(), hh[0].sum(), hc[0].sum()
+        # right of threshold t: bins > t
+        rg = hg.flip(-1).cumsum(-1).flip(-1)[:, 1:]
+        rh = hh.flip(-1).cumsum(-1).flip(-1)[:, 1:]
+        rc = hc.flip(-1).cumsum(-1).flip(-1)[:, 1:]
+        lg, lh, lc = G - rg, H - rh, N - rc
+        gain = (lg ** 2 / (lh + lam) + rg ** 2 / (rh + lam)
+                - G ** 2 / (H + lam))
+        t = torch.arange(B - 1, device=dev)
+        ok = ((t[None, :] <= (nb - 2)[:, None])
+              & (lc >= cfg.min_data_in_leaf) & (rc >= cfg.min_data_in_leaf)
+              & (lh >= cfg.min_sum_hessian_in_leaf)
+              & (rh >= cfg.min_sum_hessian_in_leaf))
+        gain = torch.where(ok, gain, float("-inf"))
+        best = int(torch.argmax(gain))
+        bf, bt = divmod(best, B - 1)
+        j = int(tree.split_feature[node])
+        tb = thr_bin(j, float(tree.threshold[node]))
+        exact = float(gain[td.real_to_inner[j], tb])
+        exact_best = float(gain[bf, bt])
+        f32_gain = float(tree.split_gain[node])
+        r = {"path": path, "rows": int(N), "feature": j, "bin": tb,
+             "f32_gain": f32_gain, "exact_gain": exact,
+             "exact_best": exact_best,
+             "best_feature": int(td.used_feature_map[bf]), "best_bin": bt,
+             "exact_gap": (exact_best - exact) / abs(exact_best),
+             "f32_gap": abs(f32_gain - exact) / abs(exact)}
+        assert r["exact_gap"] <= EFB_GAIN_TOL and \
+            r["f32_gap"] <= EFB_GAIN_TOL, r
+        out.append(r)
+    return out + [{"path": p, "leaf": True} for p in leaves]
+
+
 def efb_sparse_phases(dev, smi: str) -> dict:
     """Phase 25 of the module docstring: EFB and the sparse route on the
     one-hot airline rows. Returns the kernels-line entry of K2 over the
@@ -4927,9 +5452,13 @@ def efb_sparse_phases(dev, smi: str) -> dict:
     ds_b = lgt.Dataset(csr, label=y, params=flat).construct()
     torch.cuda.synchronize()
     bin_b = time.perf_counter() - tb
+    seen = RouteSpy()
     tb = time.perf_counter()
-    bst_b = lgt.train(flat, ds_b, num_boost_round=EFB_FLAT_ITERS)
-    torch.cuda.synchronize()
+    try:
+        bst_b = lgt.train(flat, ds_b, num_boost_round=EFB_FLAT_ITERS)
+        torch.cuda.synchronize()
+    finally:
+        seen.restore()
     train_b = time.perf_counter() - tb
     counts_b = read_counts()
     assert bst_b._gbdt.train_data.bundles is None
@@ -4940,9 +5469,16 @@ def efb_sparse_phases(dev, smi: str) -> dict:
                            bst_b._gbdt.models)
     assert abs(auc_b - auc_a) <= EFB_AUC_TOL, (auc_b, auc_a)
     cfg_b = bst_b._gbdt._grower_cfg
-    del bst_b, ds_b
+    # ROADMAP queue 3 P: the f32 passes' cells against float64, and tree
+    # 0's splits at the frontier leaves against the exact best
+    tp = time.perf_counter()
+    sums = check_sums_f64(bst_b._gbdt.train_data.bins_t, seen)
+    splits = check_route_splits(bst_b._gbdt, seen.k2[0],
+                                lgt.Booster(model_str=dump)._gbdt.models[0])
+    walls["b float64"] = time.perf_counter() - tp
+    del bst_b, ds_b, seen
     torch.cuda.empty_cache()
-    walls["b"] = time.perf_counter() - t0
+    walls["b"] = time.perf_counter() - t0 - walls["b float64"]
     print(f"(b) unbundled ({nf} columns, K1 at W={cfg_b.wave_size}, "
           f"B={cfg_b.num_bins}): binning {bin_b:.2f} s, {EFB_FLAT_ITERS} "
           f"iterations at {1e3 * train_b / EFB_FLAT_ITERS:.1f} ms/iteration "
@@ -4950,6 +5486,26 @@ def efb_sparse_phases(dev, smi: str) -> dict:
           f"against (a)'s {auc_a:.5f} at iteration {EFB_FLAT_ITERS} (within "
           f"{EFB_AUC_TOL}); the first split where (a) and (b) part (tree, "
           f"split, gain in (a), in (b)): {first_diff}; launches {counts_b}")
+    for r in sums:
+        print(f"(b) {r['launch']} at W={r['W']} ({r['rows']} rows counted) "
+              f"against float64: largest |f32 - f64| g {r['max_abs_diff'][0]:.4g}, "
+              f"h {r['max_abs_diff'][1]:.4g}, count {r['max_abs_diff'][2]:.4g} "
+              f"(largest sums {r['max_abs_sum'][0]:.1f}, "
+              f"{r['max_abs_sum'][1]:.1f}); largest share of the bar "
+              f"{EFB_F64_REL:g} x (sum |g| + 1): g {r['bar_share'][0]:.4f}, "
+              f"h {r['bar_share'][1]:.4f}; {smi}")
+    for r in splits:
+        if r.get("leaf"):
+            print(f"(b) tree 0 at {r['path']}: a leaf in (b), as in (a)")
+            continue
+        print(f"(b) tree 0 at {r['path'] or 'the root'} ({r['rows']} rows): "
+              f"feature {r['feature']} at bin {r['bin']}, f32 gain "
+              f"{r['f32_gain']:.1f}, its exact gain {r['exact_gain']:.1f}, "
+              f"the exact best {r['exact_best']:.1f} (feature "
+              f"{r['best_feature']} at bin {r['best_bin']}); within "
+              f"{EFB_GAIN_TOL:g}: {r['exact_gap']:.2e} below the best, "
+              f"{r['f32_gap']:.2e} from its own; {smi}")
+    print(f"(b) float64 checks in {walls['b float64']:.1f} s")
 
     # (c) int8 with exact counts: the auto rule takes the sparse tier
     t0 = time.perf_counter()
@@ -5250,6 +5806,10 @@ def main() -> None:
         mark("19")
         fleet = fleet_phase(dev, smi, loop, text, X, tmp)
         mark("20")
+        # 27: checkpoints and resume, the run report and the profiler
+        # window, the armed loop on phase 19's trace
+        obs = obs_phases(dev, smi, tmp, loop["trace"])
+        mark("27")
 
     # 6-9: training on the exact tier; 10-14: the int8 tiers, packed bins;
     # 21: valid sets, against phases 6, 7 and 11. The CPU halves of
@@ -5351,6 +5911,10 @@ def main() -> None:
             "max_abs_err")} for name in ("dart", "rf")}}
     for e in train:
         kid = kid_of[e["name"]]
+        # phase 27: (b)'s run, its profiler window, (c)'s armed loop
+        e["obs"] = {"launches": obs["b"][kid],
+                    "profile_window_launches": obs["profile_window"][kid],
+                    "armed_loop_launches": obs["c"][kid]}
         e["lrb_loop"] = {
             "launches": loop["counts"][kid if kid == "K3" else f"{kid}/f32"],
             "launches_per_window": loop["per_window"][kid]}

@@ -672,6 +672,14 @@ class Booster:
         imp = self._gbdt.feature_importance(importance_type, iteration)
         return imp.astype(np.int32) if importance_type == "split" else imp
 
+    def save_checkpoint(self, directory: str) -> Optional[str]:
+        """Write a resumable checkpoint bundle (utils/checkpoint.py):
+        the model text plus the training state a restart needs to
+        continue bit-identically. Returns the path, or None on a failure
+        (which warns and never raises: ``engine.train``'s periodic
+        checkpoints call this mid-run)."""
+        return self._gbdt.write_checkpoint(directory)
+
     def free_dataset(self) -> "Booster":
         self.train_set = None
         self.valid_sets = []

@@ -77,10 +77,17 @@ def record_evaluation(eval_result):
 
 
 def record_run(recorder):
-    """The run report's callback (the JAX package's, which feeds
-    obs/recorder.py); the recorder is not ported yet."""
-    raise NotImplementedError("record_run: the run recorder "
-                              "(obs/recorder.py) is not ported yet")
+    """Feed per-iteration spans and eval results into a RunRecorder
+    (obs/recorder.py): the ``engine.train`` telemetry seam, installed
+    when ``tpu_run_report`` is set. Each span is the time since the
+    previous iteration's callback (or the recorder's start); the port's
+    loop evaluates every iteration before the next starts, so a span is
+    one update and its evaluation."""
+    def _callback(env):
+        recorder.tick(env.iteration + 1,
+                      [x[:4] for x in (env.evaluation_result_list or [])])
+    _callback.order = 25
+    return _callback
 
 
 def reset_parameter(**kwargs):

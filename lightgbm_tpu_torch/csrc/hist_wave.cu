@@ -49,9 +49,10 @@
 //      it lies in the slot's smaller child and in bag;
 //   2. the f32 histogram pass, group_histogram_kernel. A block walks
 //      work items (feature group, row range): Fg features, whose Fg
-//      [W, B, 3] tiles sit in shared memory, over one range of rows (the
-//      ranges of ops/hist_wave.py row_ranges). It takes its range one
-//      tile of kTileRows rows at a time:
+//      [W, B] tiles (g and h in double, a count) sit in shared memory,
+//      over one range of rows (the ranges of ops/hist_wave.py
+//      row_ranges). It takes its range one tile of kTileRows rows at a
+//      time:
 //        a. stage: every thread loads its rows' slot, g and h into
 //           registers and their Fg bins into shared memory, all loads of
 //           the tile at once; __match_any_sync on each row's slot class
@@ -79,12 +80,21 @@
 //   ops/hist_wave.py launch_plan); the work items outnumber it (about
 //   four a block) and each block loops over them.
 //
-// Order of addition: a cell's partial starts at 0.0f and takes its
+// Order of addition: a cell's partial starts at 0.0 and takes its
 // range's rows in row order (tiles in order; a class list keeps row
 // order; a warp's 32-row steps run in order; a group adds in lane
-// order), and the reduction adds the partials in range order from 0.0f.
-// The plain version run on the CPU one range at a time (ops/hist_wave.py
-// ``kernel_order``, ``scatter_in_ranges``) gives the same bits.
+// order), g and h in double, rounded once to f32 at the end of the
+// range; the count is an integer. The reduction adds the f32 partials in
+// range order from 0.0 in double and rounds once. A range holds up to
+// ~10^5 rows of a cell: summed in f32 one after another, their rounding
+// errors lean one way where g takes few values (binary logloss's first
+// iteration) and a cell's sum drifted by 1.5e-3 of itself on a one-hot
+// column's zero bin; in double each cell stays within about 2^-24 of
+// its sum of |g| (two f32 roundings). The shared-memory tile is 20 bytes
+// a cell (two doubles and a count) against 12 for three f32 sums. The
+// plain version run on the CPU one range at a time in float64
+// (ops/hist_wave.py ``kernel_order``, ``scatter_in_ranges``) gives the
+// same bits.
 //
 // The int8 tier needs no fixed order: integer adds give the same bits in
 // any order, so its pass adds with shared atomics. What bounds it is
@@ -271,9 +281,12 @@ __global__ void partition_slots_kernel(const uint8_t* __restrict__ bins,
 }
 
 // part[r][f][w][b][c] = sums over rows of range r in slot w with bin b,
-// each cell in row order from 0.0f. Work item q is (range q / G, feature
-// group q % G) with G = ceil(F / Fg); K slot classes (a power of two,
-// K <= WARPS). A thread keeps kTileRows / (32 WARPS) rows of a tile in
+// each cell's g and h in row order from 0.0 in double and rounded once to
+// f32, its count an integer. Work item q is (range q / (G S), slot part
+// (q / G) % S, feature group q % G) with G = ceil(F / Fg): a part holds
+// Wp = ceil(W / S) consecutive slots, S > 1 only where Fg = 1 of all W
+// slots overflows shared memory; K slot classes of a part's slots (a
+// power of two, K <= WARPS). A thread keeps kTileRows / (32 WARPS) rows of a tile in
 // registers; the launch bounds let two (16 warps), four (8 warps) or six
 // (4 warps: 8 rows a thread, 80 registers) blocks share an SM's
 // registers (ops/hist_wave.py THREAD_REGISTERS).
@@ -283,14 +296,16 @@ group_histogram_kernel(const uint8_t* __restrict__ bins,
                        const float* __restrict__ g,
                        const float* __restrict__ h,
                        const uint8_t* __restrict__ slot, int64_t n, int F,
-                       int B, int W, int Fg, int K, int R,
+                       int B, int W, int Fg, int K, int S, int R,
                        int64_t rows_per_range, float* __restrict__ part) {
-  extern __shared__ float smem[];
-  const int cells = W * B * 3;                          // one feature's tile
-  float* tile = smem;                                   // [Fg][W][B][3]
-  float* s_g = tile + Fg * cells;                       // [kTileRows]
-  float* s_h = s_g + kTileRows;                         // [kTileRows]
-  int* s_cnt = reinterpret_cast<int*>(s_h + kTileRows); // [kChunks][K]
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Wp = (W + S - 1) / S;                       // slots a part
+  const int cells = Wp * B;                             // one feature's
+  double2* tile = reinterpret_cast<double2*>(smem);     // [Fg][W][B] g, h
+  double* s_g = reinterpret_cast<double*>(tile + Fg * cells);  // [kTileRows]
+  double* s_h = s_g + kTileRows;                        // [kTileRows]
+  unsigned* tile_n = reinterpret_cast<unsigned*>(s_h + kTileRows);
+  int* s_cnt = reinterpret_cast<int*>(tile_n + Fg * cells);  // [kChunks][K]
   int* s_tot = s_cnt + kChunks * K;                     // [K]
   uint16_t* s_idx = reinterpret_cast<uint16_t*>(s_tot + K);
   uint8_t* s_slot = reinterpret_cast<uint8_t*>(s_idx + kTileRows);
@@ -302,14 +317,20 @@ group_histogram_kernel(const uint8_t* __restrict__ bins,
   const int G = (F + Fg - 1) / Fg;
   const unsigned lanes_below = (1u << lane) - 1u;
   for (int e = threadIdx.x; e < kChunks * K; e += kThreads) s_cnt[e] = 0;
-  for (int q = blockIdx.x; q < G * R; q += gridDim.x) {
-    const int r = q / G;
-    const int f0 = (q - r * G) * Fg;
+  for (int q = blockIdx.x; q < G * S * R; q += gridDim.x) {
+    const int r = q / (G * S);
+    const int sp = (q / G) % S;
+    const int f0 = (q % G) * Fg;
     const int nf = min(Fg, F - f0);
+    const int s0 = sp * Wp;                              // the part's slots
+    const int wn = min(Wp, W - s0);                      // s0 .. s0 + wn - 1
     const int64_t r0 = (int64_t)r * rows_per_range;
     const int64_t r1 = i64min(n, r0 + rows_per_range);
     __syncthreads();  // the previous item's tiles are flushed
-    for (int e = threadIdx.x; e < nf * cells; e += kThreads) tile[e] = 0.0f;
+    for (int e = threadIdx.x; e < nf * cells; e += kThreads) {
+      tile[e] = make_double2(0.0, 0.0);
+      tile_n[e] = 0u;
+    }
     for (int64_t t0 = r0; t0 < r1; t0 += kTileRows) {
       const int cnt = (int)i64min(kTileRows, r1 - t0);
       const int rows = ((cnt + 31) >> 5) << 5;          // whole chunks
@@ -323,18 +344,19 @@ group_histogram_kernel(const uint8_t* __restrict__ bins,
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         const int j = threadIdx.x + u * kThreads;
-        rs[u] = W;
+        rs[u] = wn;                                     // not counted
         if (j < rows) {
           if (j < cnt) {
             const int64_t i = t0 + j;
-            rs[u] = slot[i];
+            const int ls = (int)slot[i] - s0;          // the part's slot
+            rs[u] = ls >= 0 && ls < wn ? ls : wn;
             rg[u] = g[i];
             rh[u] = h[i];
             for (int fl = 0; fl < nf; ++fl)
               s_bin[fl * kTileRows + j] =
                   (uint8_t)read_bin<PACKED>(bins, f0 + fl, n, i);
           }
-          const int cls = rs[u] < W ? (rs[u] & (K - 1)) : K;
+          const int cls = rs[u] < wn ? (rs[u] & (K - 1)) : K;
           const unsigned same = __match_any_sync(0xFFFFFFFFu, cls);
           rk[u] = __popc(same & lanes_below);
           if (cls < K && rk[u] == 0) s_cnt[(j >> 5) * K + cls] = __popc(same);
@@ -355,16 +377,17 @@ group_histogram_kernel(const uint8_t* __restrict__ bins,
         if (lane == 31) s_tot[warp] = incl;
       }
       __syncthreads();
-      // a. each counted row's g, h, slot and index to its place
+      // a. each counted row's g, h (widened to double once), slot and
+      // index to its place
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         const int j = threadIdx.x + u * kThreads;
-        if (j < rows && rs[u] < W) {
+        if (j < rows && rs[u] < wn) {
           const int cls = rs[u] & (K - 1);
           int p = s_cnt[(j >> 5) * K + cls] + rk[u];
           for (int c = 0; c < cls; ++c) p += s_tot[c];
-          s_g[p] = rg[u];
-          s_h[p] = rh[u];
+          s_g[p] = (double)rg[u];
+          s_h[p] = (double)rh[u];
           s_slot[p] = (uint8_t)rs[u];
           s_idx[p] = (uint16_t)j;
         }
@@ -379,7 +402,8 @@ group_histogram_kernel(const uint8_t* __restrict__ bins,
         int beg = 0;
         for (int cc = 0; cc < c; ++cc) beg += s_tot[cc];
         const int end = beg + s_tot[c];
-        float* t = tile + fl * cells;
+        double2* t = tile + fl * cells;
+        unsigned* tn = tile_n + fl * cells;
         const uint8_t* bn = s_bin + fl * kTileRows;
         for (int base = beg; base < end; base += 32) {
           const int p = base + lane;
@@ -387,30 +411,33 @@ group_histogram_kernel(const uint8_t* __restrict__ bins,
           const unsigned same = __match_any_sync(0xFFFFFFFFu, code);
           if (code >= 0 && lane == __ffs(same) - 1) {
             // this lane leads the rows of one cell: add them in row order
-            float* cell = t + code * 3;
-            float sg = cell[0], sh = cell[1], sc = cell[2];
+            double2 sum = t[code];
             for (unsigned m = same; m; m &= m - 1) {
               const int pp = base + __ffs(m) - 1;
-              sg += s_g[pp];
-              sh += s_h[pp];
-              sc += 1.0f;
+              sum.x += s_g[pp];
+              sum.y += s_h[pp];
             }
-            cell[0] = sg;
-            cell[1] = sh;
-            cell[2] = sc;
+            t[code] = sum;
+            tn[code] += (unsigned)__popc(same);
           }
           __syncwarp();
         }
       }
     }
     __syncthreads();
-    float* dst = part + ((int64_t)r * F + f0) * cells;
-    for (int e = threadIdx.x; e < nf * cells; e += kThreads) dst[e] = tile[e];
+    const int per_f = wn * B * 3;              // one feature's part cells
+    for (int e = threadIdx.x; e < nf * per_f; e += kThreads) {
+      const int fl = e / per_f, k = e - fl * per_f;
+      const int cell = fl * cells + k / 3, ch = k % 3;
+      const double2 v = tile[cell];
+      part[(((int64_t)r * F + f0 + fl) * W + s0) * B * 3 + k] =
+          ch == 0 ? (float)v.x : ch == 1 ? (float)v.y : (float)tile_n[cell];
+    }
   }
 }
 
-// out[w][f][b][c] = sum over r, in range order from 0.0f, of
-// part[r][f][w][b][c]
+// out[w][f][b][c] = sum over r, in range order from 0.0 in double,
+// of part[r][f][w][b][c], rounded once to f32
 __global__ void reduce_partials_kernel(const float* __restrict__ part,
                                        int R, int F, int B, int W,
                                        float* __restrict__ out) {
@@ -424,10 +451,10 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part,
     const int f = (int)(q % F);
     const int w = (int)(q / F);
     const int64_t src = (((int64_t)f * W + w) * B + bb) * 3 + c;
-    float acc = 0.0f;
+    double acc = 0.0;
 #pragma unroll 8
-    for (int r = 0; r < R; ++r) acc += part[r * per + src];
-    out[e] = acc;
+    for (int r = 0; r < R; ++r) acc += (double)part[r * per + src];
+    out[e] = (float)acc;
   }
 }
 
@@ -654,7 +681,7 @@ void record_pass(int k, cudaStream_t stream) {
 
 using GroupKernel = void (*)(const uint8_t*, const float*, const float*,
                              const uint8_t*, int64_t, int, int, int, int,
-                             int, int, int64_t, float*);
+                             int, int, int, int64_t, float*);
 
 // the f32 histogram kernel of a launch: warps is 4, 8 or 16
 template <bool PACKED>
@@ -673,8 +700,8 @@ cudaError_t allow_group_smem(bool packed, int warps) {
 }
 
 int group_smem_bytes(int W, int B, int Fg, int K) {
-  return Fg * W * B * 3 * (int)sizeof(float) +
-         kTileRows * 2 * (int)sizeof(float) +
+  return Fg * W * B * (2 * (int)sizeof(double) + (int)sizeof(unsigned)) +
+         kTileRows * 2 * (int)sizeof(double) +
          (kChunks + 1) * K * (int)sizeof(int) +
          kTileRows * ((int)sizeof(uint16_t) + 1) + Fg * kTileRows;
 }
@@ -683,25 +710,30 @@ int row_blocks(int64_t n) {
   return (int)i64min((n + 255) / 256, 132 * 16);
 }
 
-bool bad_plan(int F, int W, int B, int Fg, int K, int warps, int grid) {
+// a slot part's slots: ceil(W / S)
+int part_slots(int W, int S) { return (W + S - 1) / S; }
+
+bool bad_plan(int F, int W, int B, int Fg, int K, int S, int warps,
+              int grid) {
   return Fg < 1 || Fg > F || K < 1 || K > kMaxClasses || (K & (K - 1)) ||
-         !good_warps(warps) || warps < K || grid < 1 ||
-         group_smem_bytes(W, B, Fg, K) > kSmemMax;
+         S < 1 || S > W || !good_warps(warps) || warps < K || grid < 1 ||
+         group_smem_bytes(part_slots(W, S), B, Fg, K) > kSmemMax;
 }
 
 int launch_histogram(bool packed, const uint8_t* bins, const float* g,
                      const float* h, const uint8_t* slot, int64_t n, int F,
-                     int B, int W, int Fg, int K, int warps, int grid, int R,
-                     int64_t rows_per_range, float* part, float* out,
-                     cudaStream_t stream) {
-  const int smem = group_smem_bytes(W, B, Fg, K);
+                     int B, int W, int Fg, int K, int S, int warps,
+                     int grid, int R, int64_t rows_per_range, float* part,
+                     float* out, cudaStream_t stream) {
+  const int smem = group_smem_bytes(part_slots(W, S), B, Fg, K);
   cudaError_t err = allow_group_smem(packed, warps);
   if (err != cudaSuccess) return (int)err;
   const GroupKernel kernel =
       packed ? group_kernel<true>(warps) : group_kernel<false>(warps);
   record_pass(1, stream);
   kernel<<<grid, warps * 32, smem, stream>>>(bins, g, h, slot, n, F, B, W,
-                                             Fg, K, R, rows_per_range, part);
+                                             Fg, K, S, R, rows_per_range,
+                                             part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   record_pass(2, stream);
@@ -845,14 +877,15 @@ bool bad_shape(int W, int B, bool packed) {
 extern "C" {
 
 // Bytes of dynamic shared memory one f32 histogram block asks for, with
-// Fg features of [W, B, 3] tiles and K slot classes.
+// Fg features of [W, B] tiles (W the slots of a slot part) and K slot
+// classes.
 int hist_wave_smem_bytes(int W, int B, int Fg, int K) {
   return group_smem_bytes(W, B, Fg, K);
 }
 
 // Blocks of the f32 histogram pass resident on one SM with ``warps``
-// warps and the shared memory of (W, B, Fg, K); 0 when none fit, -1 on
-// an error.
+// warps and the shared memory of (W, B, Fg, K), W the slots of a part;
+// 0 when none fit, -1 on an error.
 int hist_wave_resident_blocks(int packed, int W, int B, int Fg, int K,
                               int warps) {
   if (!good_warps(warps) ||
@@ -904,22 +937,24 @@ void hist_wave_pass_events(void* const* events) {
 // K2: [W, F, B, 3] histograms of the rows whose leaf id is wl[k].
 // bins: [F, n], or [ceil(F/2), n] when packed; slot: [n] scratch;
 // part: [R, F, W, B, 3] scratch; out: [W, F, B, 3]. The histogram pass
-// runs ``grid`` blocks of ``warps`` warps over groups of Fg features and
-// K slot classes (ops/hist_wave.py hist_plan).
+// runs ``grid`` blocks of ``warps`` warps over groups of Fg features, S
+// parts of the slots and K slot classes (ops/hist_wave.py hist_plan).
 int wave_histogram_launch(const uint8_t* bins, const float* g,
                           const float* h, const int* leaf, const int* wl,
                           int W, long long n, int F, int B, int packed,
-                          int Fg, int K, int warps, int grid, uint8_t* slot,
-                          float* part, int R, long long rows_per_range,
-                          float* out, void* stream) {
-  if (bad_shape(W, B, packed) || bad_plan(F, W, B, Fg, K, warps, grid))
+                          int Fg, int K, int S, int warps, int grid,
+                          uint8_t* slot, float* part, int R,
+                          long long rows_per_range, float* out,
+                          void* stream) {
+  if (bad_shape(W, B, packed) ||
+      bad_plan(F, W, B, Fg, K, S, warps, grid))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   record_pass(0, s);
   wave_slots_kernel<<<row_blocks(n), 256, 0, s>>>(leaf, wl, W, n, slot);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_histogram(packed, bins, g, h, slot, n, F, B, W, Fg, K,
+  return launch_histogram(packed, bins, g, h, slot, n, F, B, W, Fg, K, S,
                           warps, grid, R, rows_per_range, part, out, s);
 }
 
@@ -929,17 +964,18 @@ int wave_histogram_launch(const uint8_t* bins, const float* g,
 int fused_partition_histogram_launch(
     const uint8_t* bins, const float* g, const float* h, const float* mask,
     const int* leaf, const int* tbl, int W, long long n, int F, int B,
-    int packed, int any_cat, int Fg, int K, int warps, int grid,
+    int packed, int any_cat, int Fg, int K, int S, int warps, int grid,
     int* leaf_out, uint8_t* slot, float* part, int R,
     long long rows_per_range, float* out, void* stream) {
-  if (bad_shape(W, B, packed) || bad_plan(F, W, B, Fg, K, warps, grid))
+  if (bad_shape(W, B, packed) ||
+      bad_plan(F, W, B, Fg, K, S, warps, grid))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   record_pass(0, s);
   const int err = launch_partition(packed, any_cat, bins, mask, leaf, tbl,
                                    W, n, leaf_out, slot, nullptr, s);
   if (err != 0) return err;
-  return launch_histogram(packed, bins, g, h, slot, n, F, B, W, Fg, K,
+  return launch_histogram(packed, bins, g, h, slot, n, F, B, W, Fg, K, S,
                           warps, grid, R, rows_per_range, part, out, s);
 }
 

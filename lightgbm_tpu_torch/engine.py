@@ -3,8 +3,11 @@ python-package engine.py:19-498): training with valid sets, callbacks,
 custom objectives (``fobj``) and evaluation functions and early
 stopping, continued training from an init model (``init_model``, a
 model file or a Booster: its raw scores start the scores), and k-fold
-cross-validation (query-aware for ranking). Run reports, checkpoints
-and profiles are not ported and raise."""
+cross-validation (query-aware for ranking). ``train`` also writes the
+run report (``tpu_run_report``, obs/recorder.py), the profiler window
+(``tpu_profile_dir``/``tpu_profile_iters``, obs/profiler.py) and
+resumable checkpoints (``tpu_checkpoint_dir``/``tpu_checkpoint_freq``,
+utils/checkpoint.py), and resumes from one (``tpu_resume_from``)."""
 from __future__ import annotations
 
 import collections
@@ -25,10 +28,6 @@ _NUM_BOOST_ROUND_ALIASES = [
     "num_round", "num_rounds", "num_boost_round", "n_estimators"]
 _EARLY_STOP_ALIASES = [
     "early_stopping_round", "early_stopping_rounds", "early_stopping"]
-# parameters of modules not ported yet (obs/recorder.py,
-# utils/checkpoint.py, obs/profiler.py)
-_UNPORTED_PARAMS = ("tpu_run_report", "tpu_checkpoint_dir",
-                    "tpu_profile_dir")
 
 
 def _pop_rounds(params: Dict, num_boost_round: int,
@@ -56,12 +55,6 @@ def _predictor(init_model, device):
     if isinstance(init_model, Booster):
         return init_model._to_predictor()
     return None
-
-
-def _refuse_unported(params: Dict) -> None:
-    for key in _UNPORTED_PARAMS:
-        if params.get(key):
-            raise NotImplementedError(f"{key} is not ported yet")
 
 
 def _ordered(callbacks) -> tuple:
@@ -99,11 +92,35 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     the new trees. Training stops at the first iteration
     that could not split (``Booster.update`` returns True), or when the
     early-stopping callback ends it: then ``best_iteration`` is set, and
-    the model text and predictions use it."""
+    the model text and predictions use it.
+
+    Telemetry and fault tolerance, from ``params``:
+
+    - ``tpu_run_report``: a RunRecorder (obs/recorder.py) spans the
+      iterations through ``callback.record_run`` and writes the
+      versioned run report at the end, as the JAX package's
+      engine.py:107-185 does. Left out of its meta until their modules
+      are ported: the ``step_cache`` (ROADMAP item 16) and
+      ``predict_cache`` (item 18(a)) statistics;
+    - ``tpu_profile_dir``/``tpu_profile_iters``: a torch.profiler window
+      over the iterations (obs/profiler.py), the update and evaluation
+      of each inside ``train/iteration`` and ``train/eval`` phase ranges;
+    - ``tpu_checkpoint_dir``/``tpu_checkpoint_freq``: a checkpoint
+      bundle every that many iterations, after the iteration's
+      evaluation and callbacks (``Booster.save_checkpoint``);
+    - ``tpu_resume_from`` (a bundle, or a directory's newest valid one):
+      the booster is restored from it (utils/checkpoint.py restore) and
+      the loop goes on at the next iteration, so a killed run resumed
+      with the same call writes the uninterrupted run's model. The
+      bundle holds the booster's state, not the callbacks': an
+      early-stopping or ``evals_result`` callback starts afresh at the
+      resumed iteration (the CLI driver, ``GBDT.train``, keeps its
+      early-stopping bookkeeping in the bundle);
+    - ``tpu_faults``: the ``train.iter`` fault point sits at the top of
+      each iteration (the kill-and-resume drills)."""
     params = copy.deepcopy(params) if params else {}
     num_boost_round, early_stopping_rounds = _pop_rounds(
         params, num_boost_round, early_stopping_rounds)
-    _refuse_unported(params)
     predictor = _predictor(init_model, device)
     init_iteration = predictor.num_total_iteration if predictor else 0
     if not isinstance(train_set, Dataset):
@@ -148,17 +165,66 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         callbacks.add(callback.reset_parameter(learning_rate=learning_rates))
     if evals_result is not None:
         callbacks.add(callback.record_evaluation(evals_result))
+    recorder = None
+    run_report = str(params.get("tpu_run_report", "") or "")
+    if run_report:
+        from .obs.recorder import RunRecorder
+        recorder = RunRecorder(
+            path=run_report,
+            watchdog_factor=float(
+                params.get("tpu_watchdog_factor", 8.0) or 0.0),
+            meta={"driver": "engine.train",
+                  "num_boost_round": num_boost_round,
+                  "init_iteration": init_iteration})
+        callbacks.add(callback.record_run(recorder))
     before, after = _ordered(callbacks)
 
     booster = Booster(params=params, train_set=train_set, device=device)
+    dev = booster._gbdt.device
+    if recorder is not None:
+        recorder.device = dev
+        recorder.meta["mesh_devices"] = 1
+        recorder.meta["tree_learner"] = "serial"
     if is_valid_contain_train:
         booster.set_train_data_name(train_data_name)
     for valid_set, name in zip(reduced_valid_sets, name_valid_sets):
         booster.add_valid(valid_set, name)
     booster.best_iteration = 0
-    results = _train_loop(booster, params, init_iteration, num_boost_round,
-                          before, after, fobj, feval, valid_sets is not None,
-                          is_valid_contain_train)
+    resumed = 0
+    resume_from = str(params.get("tpu_resume_from", "") or "")
+    if resume_from:
+        from .utils import checkpoint as ckpt
+        resumed = ckpt.restore(booster._gbdt,
+                               ckpt.resolve_resume(resume_from))
+        if recorder is not None:
+            recorder.meta["resumed_from_iteration"] = resumed
+    from .obs.profiler import ProfileWindow
+    profile = ProfileWindow(str(params.get("tpu_profile_dir", "") or ""),
+                            int(params.get("tpu_profile_iters", 0) or 0),
+                            device=dev)
+    if recorder is not None:
+        # started here, not at construction, so an exception in the
+        # booster's or the valid sets' setup cannot leak the log prefix
+        recorder.start()
+    try:
+        results = _train_loop(
+            booster, params, init_iteration, num_boost_round, before,
+            after, fobj, feval, valid_sets is not None,
+            is_valid_contain_train, profile, resumed,
+            ckpt_dir=str(params.get("tpu_checkpoint_dir", "") or ""),
+            ckpt_freq=int(params.get("tpu_checkpoint_freq", 0) or 0))
+    finally:
+        booster._gbdt._drain_checkpoints()
+        profile.close()
+        if recorder is not None:
+            leaves = waves = None
+            if init_iteration == 0 and not resumed:
+                # the recorder's iteration keys start at 1 only then
+                leaves, waves = booster._gbdt.leaves_and_waves()
+            recorder.finish(
+                leaves_per_iteration=leaves or None,
+                waves_per_iteration=waves or None,
+                extra={"best_iteration": booster.best_iteration})
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for dataset_name, eval_name, score, _ in results:
         booster.best_score[dataset_name][eval_name] = score
@@ -169,27 +235,40 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
 
 def _train_loop(booster: Booster, params: Dict, init_iteration: int,
                 num_boost_round: int, before: list, after: list, fobj, feval,
-                has_valid: bool, is_valid_contain_train: bool) -> list:
+                has_valid: bool, is_valid_contain_train: bool, profile,
+                resumed: int = 0, ckpt_dir: str = "",
+                ckpt_freq: int = 0) -> list:
     """The boosting loop (the JAX package's engine.py:197-293, its
     synchronous route): each iteration is evaluated, with one readback
     a set, before the next starts; the callbacks see iterations from
-    ``init_iteration`` on. Returns the last evaluation result list, or
-    the best one on an early stop."""
+    ``init_iteration`` on, and a resumed run starts ``resumed``
+    iterations in. A checkpoint is written after an iteration's
+    callbacks, so a bundle never holds a tree an early stop is about to
+    drop. Returns the last evaluation result list, or the best one on an
+    early stop."""
+    from .utils import faults, timing
     results = []
     end_iteration = init_iteration + num_boost_round
-    for i in range(init_iteration, end_iteration):
+    for i in range(init_iteration + resumed, end_iteration):
+        if faults.active():
+            faults.check("train.iter", context=i + 1)
         for cb in before:
             cb(callback.CallbackEnv(
                 model=booster, params=params, iteration=i,
                 begin_iteration=init_iteration, end_iteration=end_iteration,
                 evaluation_result_list=None))
-        if booster.update(fobj=fobj):
+        profile.iter_begin(i - init_iteration + 1)
+        with timing.phase("train/iteration"):
+            finished = booster.update(fobj=fobj)
+        profile.iter_end(i - init_iteration + 1)
+        if finished:
             break
         results = []
         if has_valid or feval is not None:
-            if is_valid_contain_train:
-                results.extend(booster.eval_train(feval))
-            results.extend(booster.eval_valid(feval))
+            with timing.phase("train/eval"):
+                if is_valid_contain_train:
+                    results.extend(booster.eval_train(feval))
+                results.extend(booster.eval_valid(feval))
         try:
             for cb in after:
                 cb(callback.CallbackEnv(
@@ -200,6 +279,9 @@ def _train_loop(booster: Booster, params: Dict, init_iteration: int,
         except callback.EarlyStopException as early_stop:
             booster.best_iteration = early_stop.best_iteration + 1
             return early_stop.best_score
+        if ckpt_freq > 0 and ckpt_dir \
+                and (i + 1 - init_iteration) % ckpt_freq == 0:
+            booster.save_checkpoint(ckpt_dir)
     return results
 
 
@@ -326,7 +408,6 @@ def cv(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     params = copy.deepcopy(params) if params else {}
     num_boost_round, early_stopping_rounds = _pop_rounds(
         params, num_boost_round, early_stopping_rounds)
-    _refuse_unported(params)
     if metrics is not None:
         params["metric"] = metrics
     if train_set.get_label() is None:

@@ -54,9 +54,6 @@ Where the port differs from the JAX driver:
   the record has no ``step_cache_hits``, and ``compile_s`` is
   the nvcc time the window paid building the kernels
   (``utils/cuda_build.py``), 0 once they are built.
-- No metrics exporter or flight recorder (ROADMAP item 20):
-  ``flight_dumps`` is empty, and the SLO engine that ``tpu_slo`` arms
-  (obs/slo.py) has no exporter thread to evaluate it.
 - ``serve_daemon=True`` (``--serve-daemon``) scores every window
   through the fleet scoring daemon (serve/) over localhost HTTP, as the
   JAX driver does; the daemon runs on the driver's ``device``. The
@@ -83,6 +80,8 @@ import numpy as np
 
 from . import capi
 from .analysis import lockorder
+from .obs import export as obs_export
+from .obs import flight as obs_flight
 from .obs import registry as obs
 from .obs import reqlog
 from .obs import slo as obs_slo
@@ -175,18 +174,22 @@ class LrbDriver:
         self.out = result_file
         self.rng = np.random.default_rng(seed)
         # per-window training params: the reference's fixed set plus
-        # operator overrides (telemetry knobs for tests); the tracer
-        # starts HERE so window spans cover the whole loop
+        # operator overrides (telemetry knobs, tests); the telemetry
+        # daemons start HERE so window spans and live metrics cover the
+        # whole loop, not just the boosters
         self.params = dict(TRAIN_PARAMS)
         self.params.update({k: str(v) for k, v in
                             (extra_params or {}).items()})
         trace.ensure_from_config(self.params)
-        # request-scoped wide events, armed HERE so window 1's requests
-        # already carry ids
+        obs_export.ensure_from_config(self.params)
+        # serving observability: request-scoped wide events, the
+        # SLO/error-budget engine the exporter evaluates, and the
+        # always-on flight recorder, armed HERE so window 1's requests
+        # already carry ids and a window-1 failure already dumps a
+        # postmortem bundle
         reqlog.ensure_from_config(self.params)
-        # the SLO/error-budget engine (idempotent for the same specs;
-        # the port has no exporter to evaluate it, ROADMAP item 20)
         obs_slo.ensure_from_config(self.params)
+        obs_flight.ensure_from_config(self.params)
         # fault-injection drills (idempotent for the same spec)
         if self.params.get("tpu_faults"):
             faults.configure(self.params["tpu_faults"],
@@ -253,6 +256,10 @@ class LrbDriver:
         self.window_index = 0
         self._results: List[dict] = []
         self.trace_lines_skipped = 0
+        # flight-recorder bundles are process-global; remember where the
+        # dump list stood at init so ``flight_dumps`` reports only THIS
+        # run's bundles
+        self._flight_dumps_at_init = len(obs_flight.dump_paths())
         # --serve-daemon: score every window's requests through the
         # fleet scoring daemon (serve/) over localhost HTTP instead of
         # in-process capi predict — each published model is registered
@@ -768,6 +775,13 @@ class LrbDriver:
                 "degraded_window", window=rec["window"], label=label,
                 reason=rec["degrade_reason"],
                 staleness_windows=self._windows_since_train)
+            # the flight dump captures the failing window's spans and
+            # requests NOW
+            obs_flight.trigger(
+                "degraded_window",
+                {"window": rec["window"], "label": label,
+                 "reason": rec["degrade_reason"],
+                 "staleness_windows": self._windows_since_train})
         obs.gauge("lrb/model_staleness_windows").set(
             self._windows_since_train)
         rec["staleness_windows"] = self._windows_since_train
@@ -997,9 +1011,11 @@ class LrbDriver:
 
     @property
     def flight_dumps(self) -> List[str]:
-        """Flight-recorder bundles dumped since this driver started:
-        none, the port has no flight recorder yet (ROADMAP item 20)."""
-        return []
+        """Flight-recorder bundles dumped since this driver started (the
+        fault trigger's and the degraded-window trigger's; the rate
+        limiter coalesces one incident into one bundle): the postmortem
+        evidence, printed by ``main`` next to the result summary."""
+        return obs_flight.dump_paths()[self._flight_dumps_at_init:]
 
     def _train_model(self, labels: np.ndarray, X: np.ndarray,
                      widx: int,
@@ -1232,6 +1248,8 @@ def _run_main(argv, out, serve_daemon: bool = False, device=None) -> None:
         print(f"degraded_windows={dw} "
               f"model_staleness_windows={driver._windows_since_train}",
               file=out)
+    if driver.flight_dumps:
+        print("flight_dumps " + " ".join(driver.flight_dumps), file=out)
 
 
 def main(argv=None, device=None):

@@ -116,6 +116,23 @@ class GBDT:
              training_metrics: Sequence = ()) -> "GBDT":
         """Set up training on ``train_data`` (io/dataset.py
         BinnedDataset) on its device (gbdt.cpp:47-117)."""
+        # the process-global telemetry daemons (obs/): the first booster
+        # with the knobs set starts them, every later one (each LRB
+        # window's fresh booster) joins; the flight recorder is on by
+        # default (tpu_flight_buffer); the tpu_faults knob arms the
+        # recovery drills' injection points (utils/faults.py)
+        from ..obs import export as obs_export
+        from ..obs import flight as obs_flight
+        from ..obs import reqlog as obs_reqlog
+        from ..obs import slo as obs_slo
+        from ..obs import trace as obs_trace
+        from ..utils import faults
+        obs_trace.ensure_from_config(config)
+        obs_export.ensure_from_config(config)
+        obs_reqlog.ensure_from_config(config)
+        obs_slo.ensure_from_config(config)
+        obs_flight.ensure_from_config(config)
+        faults.configure_from_config(config)
         self.config = config
         self.train_data = train_data
         self.device = train_data.device
@@ -1196,40 +1213,166 @@ class GBDT:
         when its work is dispatched, not the metric lines, the stop
         iteration or the model it writes. A splitless iteration ends the
         loop and is dropped by ``train_one_iter`` itself, so no trim is
-        left for the end. Checkpoints, run reports and the profiler
-        window are not ported yet (ROADMAP item 20)."""
+        left for the end.
+
+        Fault tolerance (utils/checkpoint.py): with
+        ``tpu_checkpoint_dir``/``tpu_checkpoint_freq`` set, the loop
+        writes a resumable checkpoint bundle every that many iterations,
+        after the iteration's evaluation (a bundle never holds a tree an
+        early stop is about to drop); ``resume_from`` (a bundle or a
+        checkpoint directory, the newest valid bundle) restores a killed
+        run and continues it bit-identically, in the same iteration
+        numbering. The ``train.iter`` fault point sits at the top of each
+        iteration.
+
+        Telemetry (obs/): a RunRecorder spans every iteration (wall
+        time, device memory, host-to-device bytes, eval values; the leaf
+        counts at the end) and writes ``tpu_run_report``; the
+        slow-iteration watchdog (``tpu_watchdog_factor``) warns with the
+        phase table; ``tpu_profile_dir``/``tpu_profile_iters`` bracket an
+        iteration window with torch.profiler (obs/profiler.py). Left out
+        of the report's meta until their modules are ported: the JAX
+        driver's ``step_cache`` (ROADMAP item 16), ``predict_cache``
+        (item 18(a)) and ``wire`` (item 19)."""
         import time
-        from ..utils import timing
+        from ..obs.profiler import ProfileWindow
+        from ..obs.recorder import RunRecorder
+        from ..utils import faults, timing
         cfg = self.config
-        for key, on in (("tpu_run_report", cfg.tpu_run_report),
-                        ("tpu_checkpoint_dir", cfg.tpu_checkpoint_dir),
-                        ("tpu_resume_from", resume_from),
-                        ("tpu_profile_dir", cfg.tpu_profile_dir)):
-            if on:
-                raise NotImplementedError(f"{key} is not ported yet")
         self._best_score = [[-np.inf] * len(ms) for ms in self.valid_metrics]
         self._best_iter = [[0] * len(ms) for ms in self.valid_metrics]
         self._best_msg = [[""] * len(ms) for ms in self.valid_metrics]
+        start_iter = 0
+        if resume_from:
+            # restore overwrites the best-score lists above, the RNG
+            # streams, the bagging mask and the scores; the checkpoint
+            # counts TOTAL tree groups and the loop ADDITIONAL rounds on
+            # top of a loaded input_model (gbdt.cpp:248)
+            from ..utils import checkpoint as ckpt
+            pre_groups = (len(self.records)
+                          // max(self.num_tree_per_iteration, 1))
+            restored = ckpt.restore(self, ckpt.resolve_resume(resume_from))
+            start_iter = restored - pre_groups
+            if start_iter < 0:
+                log.fatal(f"checkpoint at iteration {restored} predates "
+                          f"the loaded input_model ({pre_groups} "
+                          f"iterations) — it belongs to a different run")
+        base_groups = len(self.records) // self.num_tree_per_iteration
+        recorder = RunRecorder(
+            path=cfg.tpu_run_report,
+            watchdog_factor=cfg.tpu_watchdog_factor, device=self.device,
+            meta={"driver": "gbdt.train", "objective": cfg.objective,
+                  "tree_learner": "serial", "mesh_devices": 1,
+                  "num_iterations": cfg.num_iterations,
+                  "num_leaves": cfg.num_leaves,
+                  "wave_size": self._grower_cfg.wave_size,
+                  "num_data": self._n,
+                  "num_features": self.train_data.num_features,
+                  "num_class": self.num_class,
+                  **({"resumed_from_iteration": start_iter}
+                     if start_iter else {})}).start()
+        profile = ProfileWindow(cfg.tpu_profile_dir, cfg.tpu_profile_iters,
+                                device=self.device)
         start_time = time.monotonic()
-        for add in range(cfg.num_iterations):
-            with timing.phase("train/iteration"):
-                is_finished = self.train_one_iter()
-            if not is_finished:
-                with timing.phase("train/eval"):
-                    is_finished = self._eval_and_check_early_stopping(
-                        add + 1)
-            log.info("%f seconds elapsed, finished iteration %d",
-                     time.monotonic() - start_time, add + 1)
-            if snapshot_freq > 0 and (add + 1) % snapshot_freq == 0:
-                self._write_snapshot(output_model, add + 1)
-            if is_finished:
-                break
-        if output_model:
-            with timing.phase("io/save_model"):
-                self.save_model_to_file(output_model)
-            log.info("Finished training; model saved to %s", output_model)
+        stopped = False             # a splitless iteration ended the loop
+        try:
+            for add in range(start_iter, cfg.num_iterations):
+                if faults.active():
+                    faults.check("train.iter", context=add + 1)
+                profile.iter_begin(add + 1)
+                recorder.begin_iteration(add + 1)
+                with timing.phase("train/iteration"):
+                    is_finished = stopped = self.train_one_iter()
+                recorder.end_iteration(add + 1)
+                profile.iter_end(add + 1)
+                if not is_finished:
+                    with timing.phase("train/eval"):
+                        is_finished = self._eval_and_check_early_stopping(
+                            add + 1, recorder)
+                log.info("%f seconds elapsed, finished iteration %d",
+                         time.monotonic() - start_time, add + 1)
+                if snapshot_freq > 0 and (add + 1) % snapshot_freq == 0:
+                    self._write_snapshot(output_model, add + 1)
+                if (cfg.tpu_checkpoint_freq > 0 and cfg.tpu_checkpoint_dir
+                        and (add + 1) % cfg.tpu_checkpoint_freq == 0):
+                    self.write_checkpoint(cfg.tpu_checkpoint_dir)
+                if is_finished:
+                    break
+            profile.close()
+            if output_model:
+                with timing.phase("io/save_model"):
+                    self.save_model_to_file(output_model)
+                log.info("Finished training; model saved to %s",
+                         output_model)
+            leaves = waves = None
+            if cfg.tpu_run_report and start_iter == 0 \
+                    and len(self.records) > base_groups * \
+                    self.num_tree_per_iteration:
+                leaves, waves = self.leaves_and_waves(base_groups)
+            recorder.finish(
+                leaves_per_iteration=leaves, waves_per_iteration=waves,
+                extra={"trained_iterations": self.iter_,
+                       "stopped_early": stopped})
+        finally:
+            # background checkpoint writes drain before train() returns:
+            # a caller may read the directory (or kill the process) the
+            # moment control comes back; on an exception the trace is
+            # closed and the partial report written (finish() is
+            # idempotent)
+            self._drain_checkpoints()
+            profile.close()
+            recorder.finish(extra={"aborted": True})
         timing.log_report("training phase timings "
                           "(serial_tree_learner.cpp:14-41 analog)")
+
+    def leaves_and_waves(self, start_group: int = 0):
+        """Per-iteration [class tree] leaf counts and wave-pass counts of
+        the stored records from ``start_group`` on (the run report's
+        ``leaves`` and ``waves``; a W-slot wave pass grows up to W leaves
+        a tree)."""
+        K = self.num_tree_per_iteration
+        recs = self.records[start_group * K:]
+        leaves = [[int(r.num_leaves) for r in recs[i:i + K]]
+                  for i in range(0, len(recs), K)]
+        W = max(self._grower_cfg.wave_size, 1)
+        waves = [sum(max(-(-(int(n) - 1) // W), 1) for n in grp)
+                 for grp in leaves]
+        return leaves, waves
+
+    def write_checkpoint(self, directory: str) -> Optional[str]:
+        """Write a resumable checkpoint bundle (utils/checkpoint.py);
+        returns the path, or None on a failure. Failures (a full disk,
+        an injected ``checkpoint.write`` fault) warn and NEVER stop or
+        corrupt training: the atomic write leaves the previous complete
+        bundle intact. With ``tpu_ckpt_async`` (-1, the default, or 1)
+        the file writes ride a background writer thread; the queue
+        drains at train end and before any resume read."""
+        from ..utils import checkpoint as ckpt
+        writer = None
+        if self.config.tpu_ckpt_async != 0:
+            writer = getattr(self, "_ckpt_writer", None)
+            if writer is None:
+                writer = self._ckpt_writer = ckpt.new_writer()
+        try:
+            return ckpt.save_checkpoint(
+                self, directory, keep=max(self.config.tpu_snapshot_keep,
+                                          1), writer=writer)
+        except Exception as e:      # noqa: BLE001 — durability aid: a
+            # checkpoint is insurance, never the failure itself
+            from ..obs import registry as obs
+            obs.counter("checkpoint/write_failures").add(1)
+            log.warning("checkpoint write to %s failed at iteration %d "
+                        "(%s: %s); training continues — the previous "
+                        "checkpoint is intact", directory,
+                        self.current_iteration, type(e).__name__, e)
+            return None
+
+    def _drain_checkpoints(self) -> None:
+        """Block until this booster's background checkpoint writer has
+        committed every queued bundle."""
+        writer = getattr(self, "_ckpt_writer", None)
+        if writer is not None:
+            writer.drain()
 
     def _write_snapshot(self, output_model: str, it: int) -> None:
         """A model snapshot (save_period): written atomically, the newest
@@ -1248,11 +1391,13 @@ class GBDT:
                        r"\.snapshot_iter_(\d+)$",
                        self.config.tpu_snapshot_keep)
 
-    def _eval_and_check_early_stopping(self, it: int) -> bool:
+    def _eval_and_check_early_stopping(self, it: int,
+                                       recorder=None) -> bool:
         """``it`` counts the rounds of this loop, as the reference's
         iter_. True when early stopping fired (its iterations are
-        dropped)."""
-        best_msg = self._output_metric(it)
+        dropped). ``recorder``: the run's RunRecorder, given each
+        evaluated value."""
+        best_msg = self._output_metric(it, recorder)
         if not best_msg:
             return False
         es = self.config.early_stopping_round
@@ -1262,18 +1407,29 @@ class GBDT:
         self._drop_last_iterations(es)
         return True
 
-    def _output_metric(self, it: int) -> str:
+    def _output_metric(self, it: int, recorder=None) -> str:
         """OutputMetric (gbdt.cpp:466-534): the metric lines every
         ``metric_freq`` iterations and the early-stopping bookkeeping;
         returns the best round's message when the stop condition is
-        met."""
+        met. ``recorder``: the run's RunRecorder, given every value
+        evaluated."""
         cfg = self.config
         need_output = cfg.metric_freq > 0 and (it % cfg.metric_freq) == 0
         es_round = cfg.early_stopping_round
+
+        def evals(idx):
+            out = self.get_eval_at(idx)
+            if recorder is not None:
+                dname = ("training" if idx == 0
+                         else self.valid_names[idx - 1])
+                for name, val, _ in out:
+                    recorder.record_eval(it, dname, name, val)
+            return out
+
         ret = ""
         msg_lines: List[str] = []
         if need_output:
-            for name, val, _ in self.get_eval_at(0):
+            for name, val, _ in evals(0):
                 line = f"Iteration:{it}, training {name} : {val:g}"
                 log.info("%s", line)
                 if es_round > 0:
@@ -1281,8 +1437,7 @@ class GBDT:
         met_best: List[tuple] = []
         if need_output or es_round > 0:
             for i in range(len(self.valid_sets)):
-                for j, (name, val, bigger) in enumerate(
-                        self.get_eval_at(i + 1)):
+                for j, (name, val, bigger) in enumerate(evals(i + 1)):
                     line = (f"Iteration:{it}, valid_{i + 1} {name}"
                             f" : {val:g}")
                     if need_output:

@@ -1,5 +1,5 @@
-"""Observability of the port (the JAX package's ``obs/``, the parts the
-LRB loop calls; standard library only):
+"""Observability of the port (the JAX package's ``obs/``; standard library
+only, but for the profiler window, which runs torch.profiler):
 
 - ``obs.registry``: thread-safe counters, gauges and log-bucketed
   latency histograms with quantile readout;
@@ -12,8 +12,24 @@ LRB loop calls; standard library only):
 - ``obs.identity``: the (rank, world, incarnation) record artifacts
   carry;
 - ``obs.slo``: the SLO / error-budget engine (``tpu_slo``), evaluated by
-  the scoring daemon's admission controller (serve/daemon.py).
+  the metrics exporter's thread and by the scoring daemon's admission
+  controller (serve/daemon.py);
+- ``obs.recorder``: the per-iteration run recorder and the versioned
+  run report (``tpu_run_report``);
+- ``obs.profiler``: the torch.profiler window over training iterations
+  (``tpu_profile_dir``/``tpu_profile_iters``);
+- ``obs.export``: the live metrics exporter, ``<base>.prom`` and
+  ``<base>.jsonl`` snapshots and ``GET /metrics``, ``/metrics.json``,
+  ``/healthz``, ``/slo`` (``tpu_metrics_export``/``tpu_metrics_port``);
+- ``obs.flight``: the always-on flight recorder and its postmortem
+  bundles (``tpu_flight_buffer``/``tpu_flight_dir``).
 
-The exporter and flight recorder (``obs/export.py``, ``flight.py``) are
-ROADMAP item 20.
+Left out until ROADMAP item 19 (distributed): ``obs/clusterobs.py`` and
+``obs/incident.py``, the cluster rollups and the many-rank incident
+bundles.
 """
+from . import export, flight, identity, profiler, recorder, registry
+from . import reqlog, slo, trace
+
+__all__ = ["export", "flight", "identity", "profiler", "recorder",
+           "registry", "reqlog", "slo", "trace"]

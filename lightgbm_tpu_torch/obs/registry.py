@@ -6,7 +6,8 @@ model swaps here and keeps its window-wall and serving-latency
 quantiles in log-bucketed latency histograms; retries and injected
 faults are counted here (utils/retry.py, utils/faults.py); the phase
 clocks of ``utils/timing.py`` (the file loader's parse and binning, the
-CLI driver's phase report) are its timers.
+CLI driver's phase report) are its timers; ``snapshot`` is the body of
+the run report, the exporter's snapshots and the flight bundles.
 
 Design constraints:
 
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..analysis import lockorder
 
@@ -328,6 +329,27 @@ class MetricsRegistry:
         with self._lock:
             return [(n, t._total, t._count, t._max)
                     for n, t in self._timers.items()]
+
+    def counter_items(self) -> Dict[str, int]:
+        with self._lock:
+            return {n: c._value for n, c in self._counters.items()}
+
+    def snapshot(self) -> dict:
+        """JSON-able state of every instrument: the body of the run
+        report (obs/recorder.py), the exporter's snapshots
+        (obs/export.py) and the flight recorder's bundles."""
+        with self._lock:
+            counters = {n: c._value for n, c in self._counters.items()}
+            gauges = {n: g._value for n, g in self._gauges.items()
+                      if g._value is not None}
+            hists = list(self._histograms.items())
+            phases = {n: {"total_s": round(t._total, 6),
+                          "calls": t._count,
+                          "max_s": round(t._max, 6)}
+                      for n, t in self._timers.items()}
+        return {"counters": counters, "gauges": gauges,
+                "histograms": {n: h.snapshot() for n, h in hists},
+                "phases": phases}
 
     def reset_timers(self) -> None:
         """Clear the timer domain only (each phase report covers one

@@ -27,9 +27,8 @@ identity:
   sampled out: there are few and they are the ones postmortems start
   from.
 
-Standard library only, like the registry and tracer. The JAX package's
-flight recorder dumps the ring; the port has none yet (ROADMAP item 20),
-and ``recent`` reads it.
+Standard library only, like the registry and tracer. The flight
+recorder (obs/flight.py) dumps the ring, which ``recent`` reads.
 """
 from __future__ import annotations
 
@@ -217,7 +216,8 @@ class RequestLog:
                             "ring keeps recording", self.path, e)
 
     def recent(self, n: Optional[int] = None) -> list:
-        """The newest ``n`` (default: all ringed) wide events."""
+        """The newest ``n`` (default: all ringed) wide events: the
+        flight recorder pulls these into its postmortem bundle."""
         out = list(self._ring)
         return out if n is None else out[-int(n):]
 

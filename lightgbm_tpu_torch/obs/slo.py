@@ -1,30 +1,24 @@
 """SLO / error-budget engine: declarative objectives evaluated live
 against the metrics registry.
 
-The JAX package's ``obs/slo.py``, whole but for the two pieces below.
-An **SLO spec** names an indicator and a threshold, the engine
-evaluates the specs on demand, and the results are first-class gauges —
+The JAX package's ``obs/slo.py``, whole but for the piece below. An
+**SLO spec** names an indicator and a threshold, the engine evaluates
+the specs continuously, and the results are first-class gauges —
 current value, compliance, **remaining error budget** and **burn
-rate** — and the body of the scoring daemon's ``GET /slo``.
+rate** — that ride the exporter's Prometheus text and JSONL time series
+(obs/export.py) and the bodies of ``GET /healthz`` / ``GET /slo``.
 
-Who evaluates it: the fleet scoring daemon's admission controller
-(serve/daemon.py ``shed_check``) is its own evaluation clock, as in the
-JAX package. The JAX package's metrics exporter also evaluates the
+Who evaluates it: the metrics exporter's thread evaluates the
 process-global engine (``configure`` / ``ensure_from_config``, armed by
-``tpu_slo``) every snapshot interval; the port has no exporter until
-ROADMAP item 20, so an engine armed through ``tpu_slo`` is evaluated
-only when a caller asks (``report``/``evaluate``).
+``tpu_slo``) every snapshot interval, as in the JAX package; the fleet
+scoring daemon's admission controller (serve/daemon.py ``shed_check``)
+is its own engine's evaluation clock, and with an exporter running the
+exporter evaluates the global engine too.
 
-Left out, and why:
-
-- the ``cluster/`` branch of ``_registry_for``: there it reads the
-  rank-0 rollup registry of the cluster view (``obs/clusterobs.py``),
-  which the port does not have until ROADMAP item 11; every
-  instrument, ``cluster/`` names included, is read from the engine's
-  own registry;
-- the flight-recorder dump on budget exhaustion: the port has no flight
-  recorder until ROADMAP item 20, so exhaustion is latched and logged
-  only.
+Left out: the ``cluster/`` branch of ``_registry_for``. There it reads
+the rank-0 rollup registry of the cluster view (``obs/clusterobs.py``),
+which the port does not have until ROADMAP item 19; every instrument,
+``cluster/`` names included, is read from the engine's own registry.
 
 Neither package's predict path records ``predict/latency_s``: in the
 repo only the JAX package's bench script (``bench.py``) writes that
@@ -64,11 +58,12 @@ event fraction):
   the comparison. Ticks are budgeted at the default objective
   ``GAUGE_OBJECTIVE`` (99% of ticks must comply).
 
-Budget exhaustion (remaining <= 0) latches once per spec and logs one
-warning (the JAX package also dumps its flight recorder there).
+Budget exhaustion (remaining <= 0) latches once per spec, logs one
+warning and triggers the flight recorder (obs/flight.py): the postmortem
+bundle lands at the moment the budget ran out.
 
-Standard library only; evaluation never raises (the daemon's request
-threads must survive any spec/registry state).
+Standard library only; evaluation never raises (the exporter thread and
+the daemon's request threads must survive any spec/registry state).
 """
 from __future__ import annotations
 
@@ -266,7 +261,7 @@ class SloEngine:
         self._lock = lockorder.named_lock("obs.slo._lock")
         # per-spec accounting: cumulative (total, bad) at the last
         # evaluation (burn deltas), tick counts for gauge specs, and
-        # the exhaustion latch (one warning per spec)
+        # the exhaustion latch (one warning and flight trigger per spec)
         self._last = [(0, 0)] * len(self.specs)
         self._ticks = [0] * len(self.specs)
         self._bad_ticks = [0] * len(self.specs)
@@ -327,8 +322,8 @@ class SloEngine:
     def evaluate(self) -> dict:
         """One evaluation pass: per-spec compliance, budget and burn,
         published as ``slo/*`` gauges; returns (and stores) the full
-        report. Never raises — the daemon's request threads call this
-        on the admission path."""
+        report. Never raises — the exporter thread calls this every
+        interval, the daemon's request threads on the admission path."""
         try:
             return self._evaluate()
         except Exception as e:          # noqa: BLE001 — the caller's
@@ -426,27 +421,34 @@ class SloEngine:
             self._reg.gauge("slo/budget_remaining_min").set(
                 report["budget_remaining_min"])
         self._reg.counter("slo/evaluations").add(1)
-        # latched per spec: a burned budget warns once (the JAX package
-        # dumps its flight recorder here; the port has none yet)
+        # budget exhaustion is a postmortem moment: dump the black box
+        # NOW (latched per spec so a burned budget does not re-dump
+        # every interval)
         for row in exhausted_now:
             from ..utils import log
             log.warning("SLO budget EXHAUSTED: %s (current=%s, "
                         "threshold=%s, bad %d of %d events)",
                         row["spec"], row["current"], row["threshold"],
                         row["bad_events"], row["events"])
+            from . import flight
+            flight.trigger("slo_budget_exhausted",
+                           {"slo": row["name"], "spec": row["spec"],
+                            "current": row["current"],
+                            "bad_events": row["bad_events"],
+                            "events": row["events"]}, force=True)
         return report
 
     def report(self, fresh: bool = True) -> dict:
         """The budget report (the ``GET /slo`` body). ``fresh=False``
-        returns the last evaluation without re-evaluating (the daemon's
-        rate-limited admission reads)."""
+        returns the last evaluation without re-evaluating (the flight
+        recorder's non-reentrant read, the daemon's rate-limited
+        admission reads)."""
         if fresh or self._last_report is None:
             return self.evaluate()
         return self._last_report
 
     def summary(self) -> dict:
-        """The compact budget state (the JAX exporter's ``GET /healthz``
-        body)."""
+        """The compact budget state for ``GET /healthz``."""
         rep = self._last_report or self.evaluate()
         return {
             "specs": len(rep.get("specs", [])),

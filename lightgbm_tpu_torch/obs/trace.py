@@ -36,8 +36,9 @@ The module-global tracer is installed by ``configure`` (the LRB driver
 calls ``ensure_from_config`` with its params) and the buffer is flushed
 to disk by ``write()``: after every LRB window (so a live loop always
 has a current trace on disk), and at interpreter exit as a safety net.
-The JAX package also feeds every event to sinks (its flight recorder's
-span ring); the port has no flight recorder yet (ROADMAP item 20).
+Every event also reaches the registered sinks (``add_sink``), with or
+without a tracer installed: the flight recorder's span ring
+(obs/flight.py) keeps span evidence even when ``tpu_trace`` is off.
 """
 from __future__ import annotations
 
@@ -57,23 +58,84 @@ from . import identity
 __all__ = [
     "Tracer", "configure", "ensure_from_config", "stop", "active",
     "enabled", "span", "instant", "write", "config_get",
+    "add_sink", "remove_sink",
 ]
 
 
 def config_get(config, key: str, default=None):
     """Read a knob off a Config object (attribute) or a raw params
     dict (key): the one accessor behind the ``ensure_from_config``
-    seams (this module and obs/reqlog.py). Returns ``default`` for
-    missing OR explicitly-None values."""
+    seams (this module, obs/reqlog.py, obs/export.py and obs/flight.py).
+    Returns ``default`` for missing OR explicitly-None values."""
     if isinstance(config, dict):
         v = config.get(key, default)
     else:
         v = getattr(config, key, default)
     return default if v is None else v
 
-
 DEFAULT_BUFFER_EVENTS = 65536
 MIN_BUFFER_EVENTS = 1024
+
+# event sinks: callables fed EVERY recorded event dict, tracer or not
+# (the flight recorder's always-on span ring, obs/flight.py). Fed
+# outside the tracer's lock; a sink must be cheap and never raise.
+_sinks: list = []
+# fallback clock for sink-only events (no tracer installed): same
+# perf_counter µs convention as Tracer.now_us, epoch at module import
+_sink_t0_ns = time.perf_counter_ns()
+
+
+def add_sink(fn) -> None:
+    """Register an event sink (idempotent — re-registration of the
+    same callable is a no-op)."""
+    if fn not in _sinks:
+        _sinks.append(fn)
+
+
+def remove_sink(fn) -> None:
+    if fn in _sinks:
+        _sinks.remove(fn)
+
+
+def sink_clock() -> Optional[float]:
+    """The sinks' clock (µs) when sinks are registered and no tracer is
+    installed, else None: the start of a span that ``sink_span`` ends
+    (utils/timing.py's phases reach the flight ring this way)."""
+    if _tracer is not None or not _sinks:
+        return None
+    return _sink_now_us()
+
+
+def sink_span(name: str, cat: str, t0_us: float,
+              args: Optional[dict] = None) -> None:
+    """End a span started at ``sink_clock()``: the sinks get it."""
+    _sink_only_event(name, cat, "X", t0_us, dur_us=_sink_now_us() - t0_us,
+                     args=args)
+
+
+def _feed_sinks(ev: dict) -> None:
+    for s in tuple(_sinks):
+        try:
+            s(ev)
+        except Exception:               # noqa: BLE001 — a sink must
+            pass                        # never break the traced path
+
+
+def _sink_only_event(name: str, cat: str, ph: str, ts_us: float,
+                     dur_us: Optional[float] = None,
+                     args: Optional[dict] = None) -> None:
+    """Record an event for the sinks when NO tracer is installed (the
+    flight ring keeps span evidence even with tpu_trace off)."""
+    ev = {"name": name, "cat": cat, "ph": ph, "ts": round(ts_us, 3),
+          "pid": os.getpid(), "tid": _native_tid()}
+    if ph == "X":
+        ev["dur"] = round(max(dur_us or 0.0, 0.0), 3)
+    elif ph == "i":
+        ev["s"] = "t"
+    if args:
+        ev["args"] = args
+    _stamp_rank(ev)
+    _feed_sinks(ev)
 
 
 def _stamp_rank(ev: dict) -> None:
@@ -90,8 +152,15 @@ def _stamp_rank(ev: dict) -> None:
         args.setdefault("inc", inc)
 
 
+def _sink_now_us() -> float:
+    return (time.perf_counter_ns() - _sink_t0_ns) / 1000.0
+
+
 def _native_tid() -> int:
-    return threading.get_native_id()
+    try:
+        return threading.get_native_id()
+    except Exception:                   # noqa: BLE001 — pre-3.8 fallback
+        return threading.get_ident() & 0x7FFFFFFF
 
 
 class Tracer:
@@ -135,6 +204,7 @@ class Tracer:
             if len(self._events) == self.capacity:
                 self._dropped += 1
             self._events.append(ev)
+        _feed_sinks(ev)                 # outside the ring lock
 
     def _register_thread(self, tid: int) -> None:
         if tid not in self._threads:
@@ -179,7 +249,16 @@ class Tracer:
         finally:
             self.complete(name, cat, t0, args)
 
-    # -- serialization -------------------------------------------------------
+    # -- stats / serialization ----------------------------------------------
+
+    @property
+    def dropped_events(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def event_count(self) -> int:
+        with self._lock:
+            return len(self._events)
 
     def trace_document(self) -> dict:
         """The Perfetto-loadable JSON document for the current buffer:
@@ -237,7 +316,8 @@ _atexit_installed = False
 
 def configure(path: str, capacity: int = DEFAULT_BUFFER_EVENTS) -> Tracer:
     """Install (or re-target) the process-global tracer. Idempotent for
-    the same path — the running buffer is kept so early spans survive. Re-targeting to a NEW
+    the same path — the running buffer is kept so early spans survive.
+    Re-targeting to a NEW
     path flushes the old tracer's buffer to its own file first, so
     spans recorded after its last write are not silently dropped."""
     global _tracer, _atexit_installed
@@ -291,10 +371,20 @@ def enabled() -> bool:
 @contextmanager
 def span(name: str, cat: str = "phase", args: Optional[dict] = None):
     """Record a span on the global tracer; free no-op when tracing is
-    off."""
+    off. With no tracer but registered sinks (the always-on flight ring), the event
+    still reaches the sinks — the black box keeps span evidence even
+    when ``tpu_trace`` is off."""
     tr = _tracer
     if tr is None:
-        yield
+        if not _sinks:
+            yield
+            return
+        t0 = _sink_now_us()
+        try:
+            yield
+        finally:
+            _sink_only_event(name, cat, "X", t0,
+                             dur_us=_sink_now_us() - t0, args=args)
         return
     t0 = tr.now_us()
     try:
@@ -308,6 +398,8 @@ def instant(name: str, cat: str = "event",
     tr = _tracer
     if tr is not None:
         tr.instant(name, cat, args)
+    elif _sinks:
+        _sink_only_event(name, cat, "i", _sink_now_us(), args=args)
 
 
 _write_warned = False
@@ -318,7 +410,7 @@ def write() -> Optional[str]:
     Never raises — tracing is an observability aid, not a failure
     mode (the atexit hook runs this) — but the FIRST failure logs a
     warning so an unwritable tpu_trace path is not a silent no-trace
-    run."""
+    run (the run-report 'could not write' pattern)."""
     global _write_warned
     tr = _tracer
     if tr is None:

@@ -35,9 +35,9 @@ the JAX package's XLA formulations (``wave_histogram_xla``,
 ``fused_partition_histogram_xla``): one ``index_add_`` of the three
 channels, which on the CPU adds each cell's values in row order, bit-equal
 to the JAX package's scatter. The f32 kernel adds each cell in row order
-within a row range (``row_ranges``) and the ranges in order: the same
-bits on every run, and the bits of the plain version run on the CPU with
-``kernel_order=True`` (``scatter_in_ranges``: one range at a time, the
+within a row range (``row_ranges``), in float64, and the ranges' f32
+partials in order, in float64: the same bits on every run, and the bits
+of the plain version run on the CPU with ``kernel_order=True`` (``scatter_in_ranges``: one range at a time, the
 partials added in range order; ``plain_in_kernel_order``), which the
 card tests and chip_smoke.py hold it to. ``hist_plan`` is the f32 pass's
 launch plan (feature groups, slot classes, warps, ranges); it and
@@ -84,6 +84,7 @@ TILE_ROWS = 1024         # rows an f32 histogram block stages at a time
 WARP_COUNTS = (4, 8, 16)  # warps per f32 histogram block
 MAX_WARPS = WARP_COUNTS[-1]
 MAX_CLASSES = 16         # slot classes per feature
+SLOT_PARTS = (1, 2, 4)   # parts a wave's slots may be cut into
 SMEM_MAX = 232_448       # dynamic shared memory a block may use
 SMEM_PER_SM = 233_472    # shared memory of one SM
 SMEM_RESERVED = 1024     # taken per resident block
@@ -126,9 +127,9 @@ _SIGNATURES = {
     "hist_wave_smem_bytes": [_I, _I, _I, _I],
     "hist_wave_resident_blocks": [_I, _I, _I, _I, _I, _I],
     "wave_histogram_launch": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
-                              _I, _I, _I, _P, _P, _I, _LL, _P, _P],
+                              _I, _I, _I, _I, _P, _P, _I, _LL, _P, _P],
     "fused_partition_histogram_launch": [
-        _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P, _I, _LL, _P, _P],
     "hist_wave_int_smem_bytes": [_I, _I, _I, _I, _I, _I],
     "hist_wave_int_resident_blocks": [_I] * 10,
@@ -157,11 +158,12 @@ def _fn(name: str):
 
 
 def hist_smem_bytes(W: int, B: int, fg: int, classes: int) -> int:
-    """Dynamic shared memory of one f32 histogram block: ``fg`` [W, B, 3]
-    f32 tiles and the staging of a TILE_ROWS tile (the counted rows' g,
-    h, slot and row index, each slot class's count per 32-row chunk, fg
-    bin rows); the library's ``hist_wave_smem_bytes``."""
-    return (fg * W * B * 12 + TILE_ROWS * 8
+    """Dynamic shared memory of one f32 histogram block: ``fg`` [W, B]
+    tiles of 20 bytes a cell (g and h in double, a count) and the staging
+    of a TILE_ROWS tile (the counted rows' g and h in double, slot and
+    row index, each slot class's count per 32-row chunk, fg bin rows);
+    the library's ``hist_wave_smem_bytes``."""
+    return (fg * W * B * 20 + TILE_ROWS * 16
             + (TILE_ROWS // 32 + 1) * classes * 4 + TILE_ROWS * 3
             + fg * TILE_ROWS)
 
@@ -175,29 +177,45 @@ def _blocks_per_sm(smem: int, warps: int) -> int:
                REGISTERS_PER_SM // (THREAD_REGISTERS[warps] * 32 * warps))
 
 
-def _group_plan(F: int, W: int, B: int):
-    """(features per group Fg, slot classes K, warps) of the f32 pass,
-    a warp per job (feature, class), 4, 8 or 16 warps: the most resident
-    warps per SM (up to TARGET_WARPS), then the fewest classes (classes
-    split the rows unevenly), then the fewest warps without a job, then
-    the fewest idle feature slots in the last group, then the largest
-    groups (each group stages the rows again)."""
+def _group_plan_for(F: int, W: int, B: int, S: int):
+    """(key, (Fg, K, warps, S)) of the best plan whose blocks hold
+    ceil(W / S) slots (see ``_group_plan``), None when none fits."""
+    Wp = -(-W // S)
     best = None
     K = 1
-    while K <= min(W, MAX_CLASSES):
+    while K <= min(Wp, MAX_CLASSES):
         for fg in range(1, min(F, MAX_WARPS // K) + 1):
-            smem = hist_smem_bytes(W, B, fg, K)
+            smem = hist_smem_bytes(Wp, B, fg, K)
             if smem > SMEM_MAX:
                 break
             warps = next(w for w in WARP_COUNTS if w >= fg * K)
             resident = min(_blocks_per_sm(smem, warps) * warps,
                            TARGET_WARPS)
             idle = -(-F // fg) * fg - F
-            key = (resident, -K, fg * K - warps, -idle, fg)
+            key = (resident, -K, -S, fg * K - warps, -idle, fg)
             if best is None or key > best[0]:
-                best = (key, (fg, K, warps))
+                best = (key, (fg, K, warps, S))
         K *= 2
-    return best[1]
+    return best
+
+
+def _group_plan(F: int, W: int, B: int):
+    """(features per group Fg, slot classes K, warps, slot parts S) of
+    the f32 pass, a warp per job (feature, class), 4, 8 or 16 warps: the
+    most resident warps per SM (up to TARGET_WARPS), then the fewest
+    classes (classes split a tile's counted rows into short lists, whose
+    32-row steps run part empty), then the fewest slot parts (each part
+    stages the rows again), then the fewest warps without a job, then the
+    fewest idle feature slots in the last group, then the largest groups
+    (each group stages the rows again). A block holds the slots of one
+    part, ceil(W / S) of them, S 1, 2 or 4: more parts make a feature's
+    tile smaller (20 bytes a cell), so that a block takes more features
+    in fewer classes or more blocks fit an SM, or, where one feature's
+    tile of all W slots overflows shared memory, one fits. On the H100
+    this rule's plans timed within 6% of the best of S = 1-4 at the main
+    path's f32 shapes (PERF.md)."""
+    plans = [_group_plan_for(F, W, B, S) for S in SLOT_PARTS if S <= W]
+    return max(p for p in plans if p is not None)[1]
 
 
 class HistPlan(NamedTuple):
@@ -208,6 +226,7 @@ class HistPlan(NamedTuple):
     ranges: int          # row ranges R
     rows_per_range: int
     smem: int            # dynamic shared memory per block
+    slot_parts: int      # S: a block's slots are ceil(W / S) of the W
 
 
 @functools.lru_cache(maxsize=4096)
@@ -215,20 +234,21 @@ def hist_plan(n: int, num_features: int, num_slots: int,
               num_bins: int) -> HistPlan:
     """The f32 histogram pass's launch plan for n rows of F features
     into W slots of B bins: a block walks work items (feature group,
-    row range); about ITEM_WAVES items per block resident on the card,
-    unless the ranges' partial tiles (R * F * W * B * 12 bytes, written
-    and read again by the reduction) would outweigh the rows' own bytes
-    (n * (F + 12)): then fewer, longer ranges."""
+    slot part, row range); about ITEM_WAVES items per block resident on
+    the card, unless the ranges' partial tiles (R * F * W * B * 12 bytes,
+    written and read again by the reduction) would outweigh the rows' own
+    bytes (n * (F + 12)): then fewer, longer ranges."""
     F, W, B = max(num_features, 1), num_slots, num_bins
-    fg, K, warps = _group_plan(F, W, B)
-    smem = hist_smem_bytes(W, B, fg, K)
+    fg, K, warps, S = _group_plan(F, W, B)
+    smem = hist_smem_bytes(-(-W // S), B, fg, K)
     groups = -(-F // fg)
     want = ITEM_WAVES * NUM_SMS * _blocks_per_sm(smem, warps)
     tiles = max(-(-n // TILE_ROWS), 1)
     by_bytes = n * (F + 12) // (F * W * B * 12)
-    R = max(min(-(-want // groups), tiles, by_bytes), 1)
+    R = max(min(-(-want // (groups * S)), tiles, by_bytes), 1)
     per = -(-tiles // R) * TILE_ROWS
-    return HistPlan(fg, K, warps, groups, max(-(-n // per), 1), per, smem)
+    return HistPlan(fg, K, warps, groups, max(-(-n // per), 1), per, smem,
+                    S)
 
 
 def row_ranges(n: int, num_features: int, num_slots: int, num_bins: int,
@@ -427,10 +447,11 @@ def launch_plan(n: int, F: int, W: int, B: int, packed4: bool,
     (``utils.device.card_plan``); its ranges are ``row_ranges``'."""
     p = hist_plan(n if counted is None else counted, F, W, B)._replace(
         ranges=row_ranges(n, F, W, B, counted)[0])
-    return card_plan(p, p.groups * p.ranges, dev,
-                     (_fn("hist_wave_smem_bytes"), W, B, p.fg, p.classes),
-                     (_fn("hist_wave_resident_blocks"), int(packed4), W, B,
-                      p.fg, p.classes, p.warps))
+    Wp = -(-W // p.slot_parts)
+    return card_plan(p, p.groups * p.slot_parts * p.ranges, dev,
+                     (_fn("hist_wave_smem_bytes"), Wp, B, p.fg, p.classes),
+                     (_fn("hist_wave_resident_blocks"), int(packed4), Wp,
+                      B, p.fg, p.classes, p.warps))
 
 
 def launch_int_plan(n: int, F: int, W: int, B: int, C: int, packed4: bool,
@@ -521,19 +542,26 @@ def _scatter_hist_int(bins_t, gq, hq, base, num_bins: int, num_slots: int,
 def scatter_in_ranges(bins_t, g, h, base, num_bins: int, num_slots: int,
                       ranges):
     """``_scatter_hist3`` in the f32 kernel's order of addition: each
-    row range of ``ranges`` = (R, rows per range) on its own, each cell
-    in row order, then the ranges' partial sums added in range order.
-    ``index_add_`` on the CPU adds in index order, so on CPU tensors
-    this is the kernel's sum bit for bit."""
+    row range of ``ranges`` = (R, rows per range) on its own, each cell's
+    f32 g and h added in row order from 0.0 in float64 and rounded once
+    to f32; then the ranges' f32 partials added in range order from 0.0
+    in float64 and rounded once. ``index_add_`` on the CPU adds in index
+    order, so on CPU tensors this is the kernel's sum bit for bit. In
+    float64 a range's rows cannot drift the way a long f32 running sum
+    does (ROADMAP queue 3 P, tests/test_torch_hist_order.py)."""
     n = bins_t.shape[1]
     R, per = ranges
+    g64, h64 = g.double(), h.double()
     out = None
     for r in range(R):
         rows = slice(r * per, min(n, (r + 1) * per))
-        part = _scatter_hist3(bins_t[:, rows], g[rows], h[rows], base[rows],
-                              num_bins, num_slots)
-        out = part if out is None else out + part
-    return out
+        part = _scatter_hist3(bins_t[:, rows], g64[rows], h64[rows],
+                              base[rows], num_bins, num_slots).float()
+        if out is None:
+            out = torch.zeros(part.shape, dtype=torch.float64,
+                              device=part.device)
+        out += part.double()
+    return out.float()
 
 
 def _scatter(bins_t, g, h, base, num_bins, num_slots, count_proxy,
@@ -864,7 +892,8 @@ def wave_histogram(bins_t, g, h, leaf_ids, wave_leaves, num_bins: int, *,
                                dtype=torch.float32, device=dev)
             err = _fn("wave_histogram_launch")(
                 *ptrs, W, n, F, num_bins, int(packed4), lp["fg"],
-                lp["classes"], lp["warps"], lp["grid"], slot.data_ptr(),
+                lp["classes"], lp["slot_parts"], lp["warps"], lp["grid"],
+                slot.data_ptr(),
                 part.data_ptr(), lp["ranges"], lp["rows_per_range"],
                 out.data_ptr(), stream)
     if err != 0:
@@ -945,8 +974,9 @@ def fused_partition_histogram(bins_t, g, h, sample_mask, leaf_ids, tbl,
                                    dtype=torch.float32, device=dev)
                 err = _fn("fused_partition_histogram_launch")(
                     *ptrs, W, n, F, num_bins, int(packed4), int(any_cat),
-                    lp["fg"], lp["classes"], lp["warps"], lp["grid"],
-                    leaf_out.data_ptr(), slot.data_ptr(), part.data_ptr(),
+                    lp["fg"], lp["classes"], lp["slot_parts"], lp["warps"],
+                    lp["grid"], leaf_out.data_ptr(), slot.data_ptr(),
+                    part.data_ptr(),
                     lp["ranges"], lp["rows_per_range"], out.data_ptr(),
                     stream)
         if err != 0:

@@ -48,8 +48,12 @@ Where the port differs from the JAX daemon:
   is one kernel that takes any row count and model geometry at launch
   (ops/predict_cache.py says why).
 - The SLO engine here is the daemon's own, evaluated by its admission
-  clock as in the JAX package; the port has no metrics exporter, so
-  nothing else evaluates it (ROADMAP item 20).
+  clock as in the JAX package. ``from_params`` also arms the
+  process-global metrics exporter and SLO engine from the params'
+  ``tpu_metrics_export``/``tpu_metrics_port`` and ``tpu_slo`` (the JAX
+  package arms them in its boosters' init): the exporter's thread is
+  then the global engine's clock, and the admission engine's gauges
+  ride its snapshots.
 """
 from __future__ import annotations
 
@@ -126,6 +130,9 @@ class ScoringDaemon:
                 params, "tpu_fleet_shed_budget", 0.25)),
         )
         kw.update(overrides)
+        from ..obs import export as obs_export
+        obs_slo.ensure_from_config(params)
+        obs_export.ensure_from_config(params)
         return cls(**kw)
 
     # -- lifecycle -----------------------------------------------------------

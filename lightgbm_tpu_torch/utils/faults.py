@@ -7,18 +7,22 @@ seed-keyed and counted, so a failing drill reproduces exactly: the same
 occurrence of the same point fails on every run with the same spec.
 
 The port wires these points (grep ``faults.check``):
-``lrb.window_train``, one sliding window's training in the LRB loop
-(lrb.py, the degrade-don't-die path), and ``fleet.predict`` /
-``fleet.predict.<tenant>``, one coalesced dispatch of the scoring
+``train.iter``, the top of each boosting iteration of ``engine.train``
+and the CLI driver (``GBDT.train``; the kill-and-resume drills aim
+here); ``checkpoint.write``, a checkpoint bundle's serialization
+(utils/checkpoint.py); ``export.write``, a metrics exporter snapshot
+(obs/export.py); ``lrb.window_train``, one sliding window's training in
+the LRB loop (lrb.py, the degrade-don't-die path); and ``fleet.predict``
+/ ``fleet.predict.<tenant>``, one coalesced dispatch of the scoring
 daemon (serve/coalescer.py, the latency seam of the shed drills). The
-JAX package's other points (ingest, checkpoint, training iterations,
-the exporter) wait for the modules they sit in.
+JAX package's ingest points wait for its ingest retry path.
 
 Spec grammar (``configure(spec)`` / the ``tpu_faults`` config knob /
 the ``LGBM_TPU_FAULTS`` env var for subprocess drills)::
 
     point@N[,N...][:action] [; more points]
 
+    train.iter@17:kill            SIGKILL self on the 17th iteration
     lrb.window_train@2            raise a persistent fault on call 2
     lrb.window_train@1:transient  raise a RETRYABLE fault on call 1
     lrb.window_train@1:kill       SIGKILL self on call 1
@@ -32,9 +36,9 @@ retryable), ``kill`` (``SIGKILL`` to self, the crash drills), and
 ``sleep<ms>`` (e.g. ``sleep50``: stall the call for that many
 milliseconds and then RETURN normally, a pure latency fault).
 
-Where the JAX package dumps a flight-recorder bundle before the blast
-(its ``faults.py:258``), the port does nothing: it has no flight
-recorder until ROADMAP item 20.
+Every fired rule but ``sleep`` triggers the flight recorder
+(obs/flight.py) before the blast: a ``kill`` SIGKILLs the process, so
+the bundle written just before it is the only evidence there will be.
 
 Stdlib + obs only.
 """
@@ -174,6 +178,15 @@ def configure(spec, seed: int = 0) -> None:
                     ", ".join(sorted(rules)))
 
 
+def configure_from_config(config) -> None:
+    """Arm from the ``tpu_faults`` config knob (idempotent no-op when
+    the knob is empty: a plan armed by a test or the environment stays
+    armed)."""
+    spec = str(getattr(config, "tpu_faults", "") or "")
+    if spec:
+        configure(spec, int(getattr(config, "tpu_fault_seed", 0) or 0))
+
+
 def clear() -> None:
     configure(None)
 
@@ -226,8 +239,15 @@ def check(point: str, context=None) -> None:
         import time
         time.sleep(rule.sleep_ms / 1000.0)
         return
-    # the JAX package dumps its flight recorder here, before the blast;
-    # the port has none until ROADMAP item 20
+    # black box BEFORE the blast: a kill action SIGKILLs the process —
+    # this dump is the only evidence that will ever exist for it
+    # (forced: the moment cannot recur; obs/flight.py)
+    from ..obs import flight
+    flight.trigger("fault", {"point": point, "occurrence": count,
+                             "action": rule.action,
+                             **({"context": str(context)}
+                                if context is not None else {})},
+                   force=rule.action == "kill")
     if rule.action == "kill":
         import signal
         os.kill(os.getpid(), signal.SIGKILL)

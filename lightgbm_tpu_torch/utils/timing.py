@@ -8,10 +8,12 @@ asynchronous, so a phase's bucket holds the host time it spent issuing
 work; a device phase ``.watch(out)``es its output, and the phase waits
 for the card at exit so that the queued work lands in it. When the
 span tracer is active (obs/trace.py), each phase is also a span on the
-calling thread's row.
-
-Left out until obs/profiler.py is ported (ROADMAP item 20): the profiler
-annotations around each phase.
+calling thread's row; without a tracer, a span for the trace's sinks
+(the flight recorder's ring, obs/flight.py). While a profiler window is
+open (obs/profiler.py
+ProfileWindow), each phase also wraps its block in a
+``torch.profiler.record_function("lgbm/<name>")`` range, so the phase
+names appear in the profiler's Chrome trace beside the kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +23,15 @@ from contextlib import contextmanager
 from ..obs import registry as _obs
 from ..obs import trace as _trace
 from . import log
+
+# wrap phases in torch.profiler ranges (toggled by the profiler window;
+# off by default: most runs are not being profiled)
+_annotate = False
+
+
+def set_trace_annotations(on: bool) -> None:
+    global _annotate
+    _annotate = bool(on)
 
 
 class _PhaseHandle:
@@ -42,8 +53,15 @@ class _PhaseHandle:
 @contextmanager
 def phase(name: str):
     """Accumulate the wall time spent inside the block under ``name``."""
+    ann = None
+    if _annotate:
+        import torch
+        ann = torch.profiler.record_function(f"lgbm/{name}")
+        ann.__enter__()
     tracer = _trace.active()
-    span_t0 = tracer.now_us() if tracer is not None else 0.0
+    # no tracer: the span still reaches the trace's sinks (the flight
+    # recorder's ring), when any are registered
+    span_t0 = tracer.now_us() if tracer is not None else _trace.sink_clock()
     t0 = time.monotonic()
     h = _PhaseHandle()
     try:
@@ -52,8 +70,12 @@ def phase(name: str):
         if h.out is not None:
             _sync(h.out)
         _obs.timer(name).add(time.monotonic() - t0)
+        if ann is not None:
+            ann.__exit__(None, None, None)
         if tracer is not None:
             tracer.complete(name, "phase", span_t0)
+        elif span_t0 is not None:
+            _trace.sink_span(name, "phase", span_t0)
 
 
 def add(name: str, seconds: float) -> None:

@@ -207,12 +207,13 @@ def test_hist_plan_at_the_main_path_shapes(n, F, W, B):
 def test_hist_plan_fits_shared_memory(F):
     """Every (W, B) the wrappers accept (1 <= W <= 64, 1 <= B <= 256;
     packed bins take B <= 16 and the same plan): the block's shared
-    memory fits the card's 232,448 bytes and at least one block fits an
-    SM."""
+    memory, for its part of the slots, fits the card's 232,448 bytes and
+    at least one block fits an SM."""
     for W in range(1, hw.MAX_WAVE + 1):
         for B in range(1, hw.MAX_BINS + 1):
             p = hw.hist_plan(1_000_000, F, W, B)
-            assert p.smem == hw.hist_smem_bytes(W, B, p.fg, p.classes) \
+            Wp = -(-W // p.slot_parts)
+            assert p.smem == hw.hist_smem_bytes(Wp, B, p.fg, p.classes) \
                 <= hw.SMEM_MAX
             assert hw._blocks_per_sm(p.smem, p.warps) >= 1
             assert 1 <= p.fg <= F and p.classes <= W

@@ -13,6 +13,7 @@ quantiles, retry backoff, fault specs) answer as their JAX twins.
 """
 import io
 import json
+import os
 import sys
 import threading
 
@@ -31,7 +32,7 @@ from lightgbm_tpu_torch import capi as tcapi
 from lightgbm_tpu_torch import lrb
 from lightgbm_tpu_torch.analysis import lockorder
 from lightgbm_tpu_torch.obs import registry as obs
-from lightgbm_tpu_torch.obs import reqlog, trace
+from lightgbm_tpu_torch.obs import flight, reqlog, trace
 from lightgbm_tpu_torch.ops import predict_cache
 from lightgbm_tpu_torch.utils import faults, retry
 from lightgbm_tpu_torch.utils import log as tlog
@@ -389,12 +390,24 @@ def test_window_budget_degrades_not_dies():
     assert drv.booster is None
 
 
-def test_every_window_failing_degrades_not_deadlocks():
-    drv, res = _drive_degraded("lrb.window_train@1+")
+def test_every_window_failing_degrades_not_deadlocks(tmp_path):
+    """Every window's training fails: each degrades, none deadlocks, and
+    the flight recorder (obs/flight.py, a fresh one in ``tmp_path``)
+    leaves the run's postmortem bundles, which ``flight_dumps`` names."""
+    flight.configure(directory=str(tmp_path))
+    try:
+        drv, res = _drive_degraded("lrb.window_train@1+")
+        dumps = drv.flight_dumps
+    finally:
+        flight.shutdown()
     assert len(res) == 3 and all(r.get("degraded") for r in res)
     assert drv.booster is None
     assert [r["staleness_windows"] for r in res] == [0, 0, 0]
-    assert drv.flight_dumps == []
+    assert dumps
+    for path in dumps:
+        assert os.path.dirname(path) == str(tmp_path)
+        with open(path) as fh:
+            assert json.load(fh)["schema"] == flight.FLIGHT_SCHEMA
 
 
 # -- (f) the CLI and the trace reader -------------------------------------------

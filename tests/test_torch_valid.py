@@ -31,6 +31,8 @@ gbdt.py:1165). Bars:
 The JAX package lowers its own log level under ``verbose=-1`` and never
 puts it back, so each test restores both packages' levels.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -619,7 +621,15 @@ def test_binary_error_metric_and_names_match_jax():
             _resolve_metric_names(JConfig().set(params))
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """What stays refused, and the options that once were: a missing
+    init model raises as the JAX package's does; GOSS's legacy sampler
+    (``tpu_goss_hash=0``, ROADMAP item 23) is refused; the run report,
+    checkpoints and the profiler window (obs/recorder.py,
+    utils/checkpoint.py, obs/profiler.py) now train and leave their
+    artifacts, and ``callback.record_run`` gives the report's callback
+    (tests/test_torch_checkpoint.py, test_torch_obs_run.py hold them
+    against the JAX package)."""
     X, y, Xv, yv = _lrb_sets(400, 100)
     params = _lrb_params()
     ds = lgt.Dataset(X, label=y)
@@ -627,11 +637,18 @@ def test_unported_options_raise():
     # model file raises as the JAX package's does
     with pytest.raises(FileNotFoundError):
         lgt.train(params, ds, 2, device="cpu", init_model="m.txt")
-    for key in ("tpu_run_report", "tpu_checkpoint_dir", "tpu_profile_dir"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            lgt.train({**params, key: "x"}, ds, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lgt.callback.record_run(None)
+    with pytest.raises(NotImplementedError, match="tpu_goss_hash"):
+        lgt.train({**params, "boosting": "goss", "tpu_goss_hash": 0,
+                   "bagging_fraction": 1.0, "bagging_freq": 0},
+                  lgt.Dataset(X, label=y), 2, device="cpu")
+    for key, extra in (("tpu_run_report", {}),
+                       ("tpu_checkpoint_dir", {"tpu_checkpoint_freq": 1}),
+                       ("tpu_profile_dir", {})):
+        out = str(tmp_path / key)
+        lgt.train({**params, key: out, **extra}, lgt.Dataset(X, label=y),
+                  2, device="cpu")
+        assert os.path.exists(out), key
+    assert callable(lgt.callback.record_run(None))
 
 
 def test_valid_sets_default_to_the_card():
