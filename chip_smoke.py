@@ -340,7 +340,34 @@ the entry points a user calls:
    snapshots, ``/metrics`` and ``/healthz`` 200, the SLO gauges in the
    ``.prom`` text, no degraded window, and one flight bundle named by the
    driver's ``flight_dumps`` holding span events, log lines, request-log
-   events and a registry snapshot; K1-K4 launched.
+   events and a registry snapshot; K1-K4 launched;
+28. the predict registry and the step cache (ops/predict_cache.py,
+   ops/step_cache.py), after phase 26 in at most 150 s: (a) K4 from rows
+   (``forest_predict_from_x``, the rows binned in the kernel's tile
+   staging) against its plain version (``codes_from_x`` then the plain
+   walk) and against the two launches it replaces, bit for bit, scores
+   and leaf indices, at 1, 64, 4,096 and 262,144 rows of phase 5's LRB
+   model (1-byte codes) and phase 4's HIGGS model (2-byte codes), with
+   its time, the two steps' and its bound; 1,000 64-row
+   ``LGBM_BoosterPredictForMat`` calls of the LRB model through its
+   registry entry's CUDA graph, f64 and f32 input, ms a call and busy
+   share; a second model of the geometry hits the registry, continued
+   training extends the stack (equal to a full stack) and a rollback
+   stacks nothing, and after the rollback the booster's scores at every
+   tree range (num_iteration 5, 8, 12 and all 14; each range a graph,
+   captured and then replayed) equal a fresh stack's. Phases 4, 5, 15, 19, 20 and 25(d) score through the
+   same path, held to the plain version there. (b) the LRB window (50
+   iterations), its int8 tier, HIGGS (10) and the categorical airline
+   cut to 1,000,000 rows (10): the model text with ``tpu_step_cache``
+   -1 equal to 0; for each, ms an iteration uncached and then cached
+   from an empty registry, the graphs captured and their seconds, the
+   peak device memory of each run above its start and the bytes the
+   cached run's state holds, and over 2 more cached iterations
+   under torch.profiler the K1, K2, K3 launches equal to the counters,
+   the kernels in the trace and the busy share; the categorical kernel (``categorical_gains``,
+   csrc/categorical.cu) against its plain version on the airline run's
+   widest launch; then the next LRB window's fresh booster reports
+   step-cache hits (it captures only wave widths the first never took).
 
 The CPU halves of the card-vs-CPU checks of phases 9, 14, 18, 22 and 23
 train in a side process started after phase 20 (``CpuJobs``,
@@ -357,6 +384,7 @@ line. The model generators are importable (the body runs only under
 ``__main__``).
 """
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -1107,6 +1135,11 @@ class Capture:
         self.hits = 0          # calls whose key is >= 0
 
     def __call__(self, *args, **kw):
+        import torch
+        if torch.cuda.is_current_stream_capturing():
+            # a wave graph records this call (ops/step_cache.py): nothing
+            # runs, so there is nothing to keep or read back
+            return self.fn(*args, **kw)
         k = None if self.key is None else self.key(args)
         self.hits += k is not None and k >= 0
         if self.args is None or (k is not None and k > self.best):
@@ -1132,10 +1165,15 @@ def capturing():
     """While active, the grower's K1 and K2 calls and the boosting loop's
     K3 call go through Captures: K2's first call (the first root pass),
     K1's first, its widest and its widest with a categorical slot ("K1c",
-    whose ``hits`` count the waves with categorical slots), K3's first.
-    Yields them by name."""
+    whose ``hits`` count the waves with categorical slots among those
+    that run eagerly), K3's first. Yields them by name. The step cache
+    starts empty (ops/step_cache.py): a wave width's first wave then runs
+    eagerly through the Captures before its graph is recorded, whatever
+    an earlier phase captured."""
     from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+    from lightgbm_tpu_torch.ops import step_cache
     from lightgbm_tpu_torch.ops import wave_grower as wg
+    step_cache.clear()
     k1 = Capture(wg.fused_partition_histogram)
     caps = {"K1": k1, "K2": Capture(wg.wave_histogram),
             "K3": Capture(gbdt_mod.add_leaf_outputs),
@@ -1881,8 +1919,11 @@ def _counters() -> dict:
     from lightgbm_tpu_torch.ops import forest as forest_ops
     from lightgbm_tpu_torch.ops import hist_wave as hw
     from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.ops import split as split_mod
     out = {"K2": hw.k2_launches, "K1": hw.k1_launches, "K3": pr.launches,
-           "K4": forest_ops.launches, "K1/cat": hw.k1_cat_launches}
+           "K4": forest_ops.launches, "K1/cat": hw.k1_cat_launches,
+           "K4/rows": forest_ops.from_x_launches,
+           "Kcat/tables": split_mod.gains_launches}
     for v in hw.VARIANTS:
         out[f"K2/{v}"] = hw.k2_variant_launches[v]
         out[f"K1/{v}"] = hw.k1_variant_launches[v]
@@ -2479,7 +2520,8 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float,
               f"{cfg.precision}, count-proxy {cfg.count_proxy}; binning "
               f"{bin_s:.2f} s; {1e3 * train_s / iters:.1f} ms/iteration; "
               f"K1 {counts['K1'] / iters:.1f} launches/iteration, "
-              f"{cat_waves / iters:.1f} of them with categorical slots; "
+              f"{cat_waves} waves with categorical slots among the "
+              f"uncaptured ones (a wave width's first); "
               f"holdout auc {auc:.5f} (predict: {k4} forest launches, "
               f"{fallbacks} fallbacks); profile of 2 iterations: wall "
               f"{wall:.1f} ms, device busy {busy:.2f} ms "
@@ -2606,7 +2648,9 @@ def cat_phases(dev, k1_ms_phase7: float, power_limit_w: float,
             **{k: t[k] for k in ("counted_share", "split_ms", "plan",
                                  "host_us", "k2_root") if k in t},
             "launches_per_iteration": launches / it,
-            "categorical_waves_per_iteration": runs[label]["cat_waves"] / it,
+            # the waves that ran eagerly, a wave width's first; the
+            # others replay its graph (ops/step_cache.py)
+            "uncaptured_categorical_waves": runs[label]["cat_waves"],
             "vs_plain": ("bitwise against the plain version run in the "
                          "kernels' order of addition" if variant == "f32"
                          else "bitwise against the plain version on the "
@@ -2667,14 +2711,19 @@ def loop_probes():
     kernel's launches on the calling thread), the serving call the loop
     makes (``lrb.capi.LGBM_BoosterPredictForMat``: rows and host-clock
     ms of each call, and the last window's batches and scores with the
-    handle that scored them) and ``forest.forest_predict`` (one launch a
-    call for CUDA tensors, counted per thread). Yields the records."""
+    handle that scored them) and the forest kernel's launches, counted
+    per thread: ``forest.forest_predict`` and ``forest_predict_from_x``
+    (one launch a call for CUDA tensors, none while a serving graph
+    records) and ``utils.device.Captured.replay`` (the K4 launches its
+    graph holds). Yields the records."""
     import threading
+    import torch
     from lightgbm_tpu_torch import lrb
     from lightgbm_tpu_torch.obs import reqlog
     from lightgbm_tpu_torch.ops import forest as forest_ops
     from lightgbm_tpu_torch.ops import hist_wave as hw
     from lightgbm_tpu_torch.ops import predict as pr
+    from lightgbm_tpu_torch.utils import device as device_mod
     rec = {"train": {}, "eval": {}, "calls": {}, "window3": [],
            "handle3": None}
     tls = threading.local()
@@ -2717,16 +2766,30 @@ def loop_probes():
         tls.k4 = getattr(tls, "k4", 0) + 1
         return orig[3](*a, **kw)
 
+    def from_rows(*a, **kw):
+        # a serving graph's recording launches nothing
+        if not torch.cuda.is_current_stream_capturing():
+            tls.k4 = getattr(tls, "k4", 0) + 1
+        return orig[4](*a, **kw)
+
+    def replay(graph):
+        tls.k4 = getattr(tls, "k4", 0) + sum(
+            k for c, k in graph.tally if c is forest_ops.launches)
+        return orig[5](graph)
+
+    orig += (forest_ops.forest_predict_from_x, device_mod.Captured.replay)
     lrb.LrbDriver._train_model = train_model
     lrb.LrbDriver._score_window = score_window
     lrb.capi.LGBM_BoosterPredictForMat = predict_for_mat
     forest_ops.forest_predict = forest_predict
+    forest_ops.forest_predict_from_x = from_rows
+    device_mod.Captured.replay = replay
     try:
         yield rec
     finally:
         (lrb.LrbDriver._train_model, lrb.LrbDriver._score_window,
-         lrb.capi.LGBM_BoosterPredictForMat,
-         forest_ops.forest_predict) = orig
+         lrb.capi.LGBM_BoosterPredictForMat, forest_ops.forest_predict,
+         forest_ops.forest_predict_from_x, device_mod.Captured.replay) = orig
 
 
 def request_quantiles(calls) -> dict:
@@ -3360,6 +3423,7 @@ def valid_phases(dev, smi: str, earlier: dict, phase8: dict) -> dict:
     import lightgbm_tpu_torch as lgt
     from lightgbm_tpu_torch import capi
     from lightgbm_tpu_torch.ops import hist_wave as hw
+    from lightgbm_tpu_torch.ops import step_cache
     t_phase = time.perf_counter()
     out = {}
 
@@ -3459,7 +3523,9 @@ def valid_phases(dev, smi: str, earlier: dict, phase8: dict) -> dict:
              lambda o: o[0])):
         args, kw = caps[key].args, caps[key].kw
         assert kw["counted_rows"] == LRB_TRAIN_ROWS, kw
-        assert args[0].shape[1] == LRB_TRAIN_ROWS + LRB_NEXT_ROWS
+        # the valid rows, then the step cache's pad columns (bucket_rows)
+        assert args[0].shape[1] == step_cache.bucket_rows(
+            LRB_TRAIN_ROWS + LRB_NEXT_ROWS), args[0].shape
 
         def kern(*a, fn=fn, kw=kw):
             return fn(*a, **kw)
@@ -3473,7 +3539,8 @@ def valid_phases(dev, smi: str, earlier: dict, phase8: dict) -> dict:
                 args[-1])
         cnt = st["rows_counted"]
         kernels[kid] = dict(
-            shape=f"F={F}, N={n} ({LRB_NEXT_ROWS} passengers), W={W}, "
+            shape=f"F={F}, N={n} ({LRB_NEXT_ROWS} passengers, "
+                  f"{n - LRB_TRAIN_ROWS - LRB_NEXT_ROWS} pad columns), W={W}, "
                   f"B={B}",
             ms=cuda_ms(lambda: kern(*args), 5),
             plain_ms=cuda_ms(lambda: ref(*args), 3),
@@ -5153,7 +5220,9 @@ class RouteSpy:
     leaf ids, table, hist)); ``restore`` takes it out."""
 
     def __init__(self):
+        from lightgbm_tpu_torch.ops import step_cache
         from lightgbm_tpu_torch.ops import wave_grower as wg
+        step_cache.clear()      # tree 0's first waves run eagerly
         self.wg = wg
         self.fns = wg.wave_histogram, wg.fused_partition_histogram
         self.k2, self.k1 = [], []
@@ -5161,15 +5230,19 @@ class RouteSpy:
         wg.fused_partition_histogram = self._k1
 
     def _k2(self, bins_t, g, h, leaf_ids, wl, *a, **kw):
+        import torch
         out = self.fns[0](bins_t, g, h, leaf_ids, wl, *a, **kw)
-        if not self.k2:
+        # a wave graph's recording runs nothing: only launches are kept
+        if not self.k2 and not torch.cuda.is_current_stream_capturing():
             self.k2.append((g.clone(), h.clone(), leaf_ids.clone(),
                             wl.clone(), out.clone()))
         return out
 
     def _k1(self, bins_t, g, h, mask, leaf_ids, tbl, *a, **kw):
+        import torch
         out = self.fns[1](bins_t, g, h, mask, leaf_ids, tbl, *a, **kw)
-        if len(self.k1) < EFB_K1_KEPT:
+        if len(self.k1) < EFB_K1_KEPT and \
+                not torch.cuda.is_current_stream_capturing():
             self.k1.append((g.clone(), h.clone(), mask.clone(),
                             out[0].clone(), tbl.clone(), out[1].clone()))
         return out
@@ -5223,6 +5296,9 @@ def check_sums_f64(bins, seen: RouteSpy) -> list:
                 slot_ids = tbl[hw.TBL_SMALL].to(torch.int64)
                 count = mask > 0
             W, _, B, _ = hist.shape
+            # the step cache's pad columns past the set's n rows are
+            # uncounted (mask 0, leaf id -1 at the root)
+            g, h, ids, count = g[:n], h[:n], ids[:n], count[:n]
             slot = torch.full((n,), -1, dtype=torch.int64,
                               device=bins.device)
             for w in range(W):
@@ -5364,6 +5440,7 @@ def efb_sparse_phases(dev, smi: str) -> dict:
     from lightgbm_tpu_torch.io.sparse import predict_chunk_rows
     from lightgbm_tpu_torch.ops import forest as forest_ops
     from lightgbm_tpu_torch.ops import hist_wave as hw
+    from lightgbm_tpu_torch.ops import stacked_predict as sp
     from lightgbm_tpu_torch.ops import wave_grower as wg
     walls = {}
     t0 = time.perf_counter()
@@ -5541,7 +5618,7 @@ def efb_sparse_phases(dev, smi: str) -> dict:
     h = capi.LGBM_BoosterLoadModelFromString(dump)
     fcd = h.gbdt._stacked_model().forest.to(dev)
     checked = [0]
-    k4 = forest_ops.forest_predict
+    k4, k4_replay = forest_ops.forest_predict, sp.StackedModel._replay
 
     def held(codes, forest, first, last, leaf_mode=False):
         out = k4(codes, forest, first, last, leaf_mode)
@@ -5550,7 +5627,21 @@ def efb_sparse_phases(dev, smi: str) -> dict:
         assert torch.equal(out, want), "K4 != plain on a CSR chunk"
         checked[0] += 1
         return out
+
+    def held_replay(model, memo, rows, first, last):
+        # a serving entry's launches (K4 from rows): every row of the
+        # call against the plain version on the same rows
+        n0 = forest_ops.launches.value
+        out = k4_replay(model, memo, rows, first, last)
+        x = torch.from_numpy(rows).to(dev)
+        want = forest_ops.forest_predict_plain(
+            sp.codes_from_x(x, *model.edges), fcd, first, last)
+        assert torch.equal(torch.from_numpy(out), want.cpu()), \
+            "K4 from rows != plain on a CSR chunk"
+        checked[0] += forest_ops.launches.value - n0
+        return out
     forest_ops.forest_predict = held
+    sp.StackedModel._replay = held_replay
     try:
         reset_counts()
         p_csr = np.asarray(capi.LGBM_BoosterPredictForCSR(
@@ -5563,6 +5654,7 @@ def efb_sparse_phases(dev, smi: str) -> dict:
         k4_launches = read_counts()["K4"]
     finally:
         forest_ops.forest_predict = k4
+        sp.StackedModel._replay = k4_replay
     assert k4_launches > 0 and checked[0] == k4_launches, (k4_launches,
                                                           checked)
     assert np.array_equal(p_csr, p_csc), "CSR != CSC"
@@ -5623,6 +5715,398 @@ def efb_sparse_phases(dev, smi: str) -> dict:
     assert total <= PHASE25_BUDGET_S, f"phase 25 took {total:.1f} s"
     entry["walls"] = walls
     return entry
+
+
+REG_ROWS = (1, 64, 4_096, 262_144)   # K4 from rows against its plain version
+REG_CALLS = 1_000                    # 64-row PredictForMat calls a dtype
+REG_AIRLINE_ROWS = 1_000_000         # (b)'s airline rows: phase 15's cut
+REG_PROFILED = 2                     # iterations in each profiler window
+
+
+def _trace_counts(fn, tmp: str) -> tuple:
+    """(kernel launches in a torch.profiler trace of ``fn``, the launch
+    counters over the same call, wall ms, device-busy ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    path = os.path.join(tmp, "reg_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    traced = trace_kernel_counts(events)
+    traced["K4"] = sum("forest_kernel" in e["name"] for e in events
+                       if e.get("cat") == "kernel")
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    return traced, counts, wall, busy, kernels
+
+
+def registry_phases(dev, smi: str, higgs_text: str, higgs_X: np.ndarray,
+                    lrb_text: str, higgs: dict, tmp: str) -> dict:
+    """Phase 28 of the module docstring: the predict registry and K4 from
+    rows (a), the step cache's wave graphs (b). ``higgs_text``/``higgs_X``
+    are phase 4's model and rows, ``lrb_text`` phase 5's model, ``higgs``
+    phase 7's dict (its rows and the LRB window's text). Returns the
+    kernels-line entry of K4 from rows and the readings."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch import Booster, capi
+    from lightgbm_tpu_torch.ops import forest as forest_ops
+    from lightgbm_tpu_torch.ops import predict_cache, step_cache
+    from lightgbm_tpu_torch.ops import split as split_mod
+    from lightgbm_tpu_torch.ops import stacked_predict as sp
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) K4 from rows, bit for bit, both code widths, at the serving and
+    # the chunk widths; its time against the two steps it replaces
+    widths, readings = set(), {}
+    for label, text, Xs in (
+            ("lrb", lrb_text, make_lrb_rows(REG_ROWS[-1], seed=81)),
+            ("higgs", higgs_text, higgs_X[:REG_ROWS[-1]])):
+        bst = Booster(model_str=text)
+        sm = bst._gbdt._stacked_model()
+        assert sm is not None and sm.edges is not None, label
+        fc = sm.forest
+        fcd = fc.to(dev)
+        T = len(fc.root_host)
+        widths.add(fc.walk.code_bytes)
+        # the plain walk once a mode over the widest rows: rows are scored
+        # one by one, so its first n rows are the plain answer on Xs[:n]
+        x_all = torch.from_numpy(np.ascontiguousarray(
+            Xs[:REG_ROWS[-1]], np.float32)).to(dev)
+        plain = [forest_ops.forest_predict_plain(
+            sp.codes_from_x(x_all, *sm.edges), fcd, 0, T, leaf)
+            for leaf in (False, True)]
+        for n in REG_ROWS:
+            x = x_all[:n].contiguous()
+            codes = sp.codes_from_x(x, *sm.edges)
+            for leaf in (False, True):
+                got = forest_ops.forest_predict_from_x(x, sm.edges, fc, 0,
+                                                       T, leaf_mode=leaf)
+                two = forest_ops.forest_predict(codes, fc, 0, T, leaf)
+                assert torch.equal(got, two), (label, n, leaf, "two steps")
+                assert torch.equal(got, plain[leaf][:n]), (label, n, leaf,
+                                                           "plain")
+        del plain
+        r = {}
+        for n in (64, REG_ROWS[-1]):
+            x = torch.from_numpy(np.ascontiguousarray(Xs[:n], np.float32)
+                                 ).to(dev)
+            codes = sp.codes_from_x(x, *sm.edges)
+            leaves = forest_ops.forest_predict_from_x(x, sm.edges, fc, 0, T,
+                                                      leaf_mode=True)
+            depth = torch.from_numpy(leaf_depths(bst._gbdt, fc.leaf.shape[1])
+                                     ).to(dev)
+            visits = int(depth[torch.arange(T, device=dev)[None, :],
+                               leaves.long()].sum())
+            compact = sum(t.numel() * t.element_size() for t in fc.walk[:6])
+            edges = sum(t.numel() * t.element_size() for t in sm.edges)
+            K = fc.num_class
+            b = bound(4 * x.shape[1] * n + compact + edges + 4 * K * n,
+                      visits + n * T)
+            r[n] = {
+                "rows": n, "features": x.shape[1],
+                "code_bytes": fc.walk.code_bytes,
+                "ms": cuda_ms(lambda: forest_ops.forest_predict_from_x(
+                    x, sm.edges, fc, 0, T), 10),
+                "two_step_ms": cuda_ms(lambda: forest_ops.forest_predict(
+                    sp.codes_from_x(x, *sm.edges), fc, 0, T), 10),
+                # the plain walk's time is its tree loop's, about the same
+                # at any row count: timed at the chunk width alone
+                "plain_ms": (cuda_ms(lambda: forest_ops.forest_predict_plain(
+                    sp.codes_from_x(x, *sm.edges), fcd, 0, T), 1, 0)
+                    if n == REG_ROWS[-1] else None),
+                "max_abs_err": 0.0, **b}
+        readings[label] = r
+        del fcd, bst
+    assert widths == {1, 2}, widths
+    for label, r in readings.items():
+        for n, v in r.items():
+            print(f"(a) K4 from rows, {label} model ({v['code_bytes']}-byte "
+                  f"codes), {n} rows x {v['features']}: {v['ms']:.4f} ms, "
+                  f"the two steps it replaces (codes_from_x, K4) "
+                  f"{v['two_step_ms']:.4f} ms, plain "
+                  + (f"{v['plain_ms']:.3f} ms" if v["plain_ms"] is not None
+                     else "not timed") +
+                  f", bound {v['bound_ms']:.5f} ms ({v['bound_by']}); "
+                  f"bit-equal "
+                  f"to both at {', '.join(map(str, REG_ROWS))} rows, scores "
+                  f"and leaf indices; {smi}")
+
+    # (a) 64-row calls through the registry, f32 and f64 input
+    handle = capi.LGBM_BoosterLoadModelFromString(lrb_text)
+    plain = Booster(model_str=lrb_text, device="cpu")
+    X64 = make_lrb_rows(64, seed=82)
+    X32 = X64.astype(np.float32)
+    assert np.array_equal(X32.astype(np.float64), X64)
+    want = plain.predict(X64)
+    calls = {}
+    for name, Xc, dtype in (("f64", X64, capi.C_API_DTYPE_FLOAT64),
+                            ("f32", X32, capi.C_API_DTYPE_FLOAT32)):
+        def call(Xc=Xc, dtype=dtype):
+            return np.asarray(capi.LGBM_BoosterPredictForMat(
+                handle, Xc, data_type=dtype))
+        assert np.array_equal(call(), want), name
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(REG_CALLS):
+            call()
+        ms = (time.perf_counter() - t0) * 1e3 / REG_CALLS
+        counts = read_counts()
+        wall, busy = device_busy(call, 200)
+        calls[name] = {"ms": ms, "busy": busy / wall,
+                       "launches_per_call": counts["K4"] / REG_CALLS,
+                       "from_rows_per_call": counts.get("K4/rows", 0)
+                       / REG_CALLS}
+        assert counts["K4"] == counts.get("K4/rows", 0) == REG_CALLS, counts
+    out["calls"] = calls
+    print(f"(a) {REG_CALLS} LGBM_BoosterPredictForMat calls of 64 rows "
+          f"through the registry's graph, equal to the CPU's: "
+          + "; ".join(f"{k} input {v['ms']:.3f} ms a call, device busy "
+                      f"{100 * v['busy']:.1f}%, {v['launches_per_call']:.0f} "
+                      f"K4 a call" for k, v in calls.items()) + f"; {smi}")
+
+    # (a) the registry: a second model of one geometry hits, a continued
+    # booster extends, a rollback rebuilds nothing
+    s0 = predict_cache.stats()
+    second = capi.LGBM_BoosterLoadModelFromString(lrb_text)
+    assert np.array_equal(np.asarray(capi.LGBM_BoosterPredictForMat(
+        second, X64)), want)
+    s1 = predict_cache.stats()
+    assert s1["hits"] - s0["hits"] >= 1 and s1["misses"] == s0["misses"], \
+        (s0, s1)
+    Xr = make_lrb_rows(100_000, seed=83)
+    yr = lrb_labels(Xr, seed=84)
+    params = {**TRAIN_PARAMS, "num_iterations": 10}
+    b = lgt.train(params, lgt.Dataset(Xr, label=yr), num_boost_round=10)
+    b.predict(Xr[:4096])
+    s2 = predict_cache.stats()
+    for _ in range(5):
+        b.update()
+    got = b.predict(Xr[:4096], raw_score=True)
+    s3 = predict_cache.stats()
+    assert s3["extends"] - s2["extends"] == 1, (s2, s3)
+    assert s3["stacks"] == s2["stacks"], (s2, s3)
+    fresh = sp.StackedModel(b._gbdt.models, b._gbdt.max_feature_idx + 1, 1,
+                            dev)
+    assert np.array_equal(got, fresh.predict(Xr[:4096])[0]), "extend"
+    b.rollback_one_iter()
+    # every tree range of the rolled-back booster, twice (its graph
+    # captured, then replayed): the scores of a fresh stack of its trees
+    n_live = b.current_iteration()
+    ranges = (5, 8, 12, n_live)
+    got = {k: [b.predict(Xr[:4096], raw_score=True, num_iteration=k)
+               for _ in range(2)] for k in ranges}
+    s4 = predict_cache.stats()
+    assert (s4["stacks"], s4["extends"]) == (s3["stacks"] + 1,
+                                              s3["extends"]), (s3, s4)
+    fresh = sp.StackedModel(b._gbdt.models, b._gbdt.max_feature_idx + 1, 1,
+                            dev)
+    for k in ranges:
+        want_k = fresh.predict(Xr[:4096], 0, k)[0]
+        for g in got[k]:
+            assert np.array_equal(g, want_k), ("tree range", k)
+    capi.LGBM_BoosterFree(handle)
+    capi.LGBM_BoosterFree(second)
+    del b, fresh
+    out["predict_cache_bytes"] = predict_cache.held_bytes()
+    print(f"(a) registry: a second model of the LRB geometry "
+          f"+{s1['hits'] - s0['hits']} hit, +0 misses; continued training "
+          f"+1 extend, +0 stacks, equal to a full stack; a rollback +0 "
+          f"stacks, +0 extends (the one stack counted is the check's own), "
+          f"and its scores at num_iteration {ranges} (each captured, then "
+          f"replayed) equal to a fresh stack's; {predict_cache.stats()}; "
+          f"staging held {out['predict_cache_bytes'] / 1e9:.3f} GB")
+
+    # (b) training on the step cache: the model text with the cache on
+    # equals the text with it off, launches an iteration from the
+    # profiler against the counters, ms an iteration, busy share
+    Xa = make_airline_like(REG_AIRLINE_ROWS, seed=85)
+    ya = airline_labels(Xa, seed=86)
+    Xl = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    yl = lrb_labels(Xl, seed=22)
+    cases = (
+        ("lrb", TRAIN_PARAMS, Xl, yl, int(TRAIN_PARAMS["num_iterations"]),
+         None),
+        ("lrb int8", {**TRAIN_PARAMS, "tpu_quantized_hist": True,
+                      "tpu_count_proxy": 0}, Xl, yl,
+         int(TRAIN_PARAMS["num_iterations"]), None),
+        ("higgs", HIGGS_PARAMS, higgs["X"], higgs["y"], HIGGS_ITERS, None),
+        ("airline categorical", AIRLINE_PARAMS, Xa, ya, AIRLINE_ITERS,
+         AIRLINE_CAT_COLUMNS))
+    train = {}
+    cat_in, cat_fn = [], split_mod.categorical_gains
+
+    def cat_kept(hist, srt, *a):
+        # the widest launch's inputs (the most leaves), kept outside any
+        # graph's recording
+        if not torch.cuda.is_current_stream_capturing() and (
+                not cat_in or hist.numel() > cat_in[0][0].numel()):
+            cat_in[:] = [tuple(x.clone() if torch.is_tensor(x) else x
+                               for x in (hist, srt, *a))]
+        return cat_fn(hist, srt, *a)
+    # from an empty registry: each cached run builds its geometry's state
+    # and captures its graphs, so its peak holds them
+    step_cache.clear()
+    gc.collect()
+    for label, params, X, y, iters, cats in cases:
+        ds = lgt.Dataset(X, label=y, params=params,
+                         categorical_feature=cats or "auto").construct()
+        run = {}
+        for sc in (0, -1):
+            p = {**params, "tpu_step_cache": sc}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            s0 = step_cache.stats()
+            t0 = time.perf_counter()
+            split_mod.categorical_gains = cat_kept
+            try:
+                bst = lgt.train(p, ds, num_boost_round=iters)
+            finally:
+                split_mod.categorical_gains = cat_fn
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            if sc == -1:
+                run["cat_launches"] = read_counts().get("Kcat/tables", 0)
+            s1 = step_cache.stats()
+            n_it = bst.current_iteration()
+            run[sc] = {"text": _body(bst.model_to_string()),
+                       "ms": 1e3 * secs / n_it, "capture_s":
+                       s1["compile_s"] - s0["compile_s"],
+                       "graphs": s1["compiles"] - s0["compiles"],
+                       "lookups": (s1["hits"] - s0["hits"]
+                                   + s1["misses"] - s0["misses"]),
+                       "peak_bytes": peak,
+                       "held_bytes": (bst._gbdt._step_pool().nbytes()
+                                      if sc == -1 else 0)}
+            if sc == -1:
+                # the main path's launches under the profiler: the trace
+                # sees every kernel a graph replays
+                traced, counts, wall, busy, kernels = _trace_counts(
+                    lambda: [bst.update() for _ in range(REG_PROFILED)],
+                    tmp)
+                for k in ("K1", "K2", "K3"):
+                    assert traced[k] == counts[k], (label, traced, counts)
+                run[sc].update(
+                    launches={k: counts[k] / REG_PROFILED
+                              for k in ("K1", "K2", "K3")},
+                    kernels=kernels / REG_PROFILED,
+                    profiled_ms=wall / REG_PROFILED, busy=busy / wall)
+            del bst
+        assert run[-1]["text"] == run[0]["text"], f"{label}: cache on != off"
+        # the cached run leases a state (its graphs captured here, or by
+        # an earlier phase of the geometry); the uncached one none
+        assert run[-1]["lookups"] == 1 and run[0]["lookups"] == 0, \
+            (label, run)
+        assert run[0]["graphs"] == 0 and run[-1]["graphs"] > 0, (label, run)
+        for v in (run[-1], run[0]):
+            v.pop("text")
+        train[label] = run
+        v = run[-1]
+        print(f"(b) {label}: {X.shape[0]} x {X.shape[1]}, {iters} "
+              f"iterations; model text with tpu_step_cache -1 equal to 0; "
+              f"cached {v['ms']:.1f} ms/iteration ({v['graphs']} graphs "
+              f"captured in {v['capture_s']:.2f} s), uncached "
+              f"{run[0]['ms']:.1f}; peak device memory above the run's "
+              f"start cached {v['peak_bytes'] / 1e9:.3f} GB, uncached "
+              f"{run[0]['peak_bytes'] / 1e9:.3f} GB; the cached run's state "
+              f"holds {v['held_bytes'] / 1e9:.3f} GB; "
+              f"cached under the profiler "
+              f"{v['profiled_ms']:.1f} ms an iteration, {v['kernels']:.0f} "
+              f"kernels an iteration in the trace, busy "
+              f"{100 * v['busy']:.1f}%, K1/K2/K3 an iteration "
+              f"{v['launches']} (trace == counters); {smi}")
+        del ds
+    out["train"] = train
+    del Xa, ya
+
+    # (b) the categorical kernel against its plain version, on the
+    # airline run's widest launch
+    assert cat_in and train["airline categorical"]["cat_launches"] > 0
+    got = split_mod.categorical_gains(*cat_in[0])
+    want = split_mod.categorical_gains_plain(*cat_in[0])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), "categorical kernel != plain"
+    hist, srt = cat_in[0][:2]
+    rows, P = srt.numel() // (3 * srt.shape[-2]), srt.shape[-2]
+    bins = hist.numel() // 3
+    cat_k = {
+        "name": "categorical_gains", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/categorical.cu",
+        "replaces": "none (XLA in lightgbm_tpu/ops/split.py:256)",
+        "launches": train["airline categorical"]["cat_launches"],
+        "max_abs_err": 0.0, "hist": list(hist.shape),
+        "sorted": list(srt.shape),
+        "ms": cuda_ms(lambda: split_mod.categorical_gains(*cat_in[0]), 50),
+        "plain_ms": cuda_ms(
+            lambda: split_mod.categorical_gains_plain(*cat_in[0]), 10),
+        "library_ms": None,
+        # hist and srt read, the prefix sums and both gain tables
+        # written; about 30 f32 operations a position or bin (the sides,
+        # two leaf gains)
+        **bound(4 * (hist.numel() + 2 * srt.numel() + rows * P + bins),
+                30 * (rows * P + bins))}
+    out["categorical"] = cat_k
+    print(f"(b) categorical kernel, hist {cat_k['hist']}, sorted "
+          f"{cat_k['sorted']}: bit-equal to plain; {cat_k['ms']:.4f} ms a "
+          f"launch, plain {cat_k['plain_ms']:.3f} ms, bound "
+          f"{cat_k['bound_ms']:.5f} ms ({cat_k['bound_by']}); "
+          f"{cat_k['launches']} launches in the cached airline run; {smi}")
+
+    # (b) the next LRB window: a fresh booster of the same geometry
+    # replays the graphs the first window's booster captured
+    Xn = make_lrb_rows(LRB_TRAIN_ROWS, seed=87)
+    yn = lrb_labels(Xn, seed=88)
+    s0 = step_cache.stats()
+    t0 = time.perf_counter()
+    ds = capi.LGBM_DatasetCreateFromMat(Xn, parameters=TRAIN_PARAMS)
+    capi.LGBM_DatasetSetField(ds, "label", yn)
+    bst = capi.LGBM_BoosterCreate(ds, TRAIN_PARAMS)
+    for _ in range(int(TRAIN_PARAMS["num_iterations"])):
+        if capi.LGBM_BoosterUpdateOneIter(bst):
+            break
+    torch.cuda.synchronize()
+    s1 = step_cache.stats()
+    hits = s1["hits"] - s0["hits"]
+    assert hits > 0, (s0, s1)
+    capi.LGBM_BoosterFree(bst)
+    out["next_window"] = {"step_cache_hits": hits,
+                          "captures": s1["compiles"] - s0["compiles"],
+                          "seconds": time.perf_counter() - t0}
+    print(f"(b) the next LRB window ({LRB_TRAIN_ROWS} rows): "
+          f"step_cache_hits {hits}, {out['next_window']['captures']} new "
+          f"captures (wave widths the first window never took), trained "
+          f"in {out['next_window']['seconds']:.2f} s; {step_cache.stats()}")
+    del Xl, yl, Xn, yn, ds
+
+    r = readings["higgs"][REG_ROWS[-1]]
+    out["kernel"] = {
+        "name": "forest_predict_from_x", "route": "cuda",
+        "source": "lightgbm_tpu_torch/csrc/forest_predict.cu",
+        "replaces": "lightgbm_tpu/ops/stacked_predict.py:906",
+        "launches": None, "max_abs_err": 0.0, "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "two_step_ms": r["two_step_ms"], "rows": r["rows"],
+        "at_64_rows": readings["higgs"][64],
+        "lrb": readings["lrb"], "calls_64_rows": calls}
+    wall = time.perf_counter() - t_phase
+    print(f"phase 28: {wall:.1f} s (budget 150 s)")
+    assert wall <= 150.0, f"phase 28 took {wall:.1f} s"
+    return out
 
 
 def main() -> None:
@@ -5725,6 +6209,7 @@ def main() -> None:
           f"host, compact tables {compact / 1e6:.2f} MB on the device")
     torch.cuda.synchronize()
     forest_ops.launches.reset()
+    forest_ops.from_x_launches.reset()
     sp.fallbacks.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5733,6 +6218,8 @@ def main() -> None:
     e2e = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = forest_ops.launches.value
+    rows_launches = forest_ops.from_x_launches.value
+    assert rows_launches == launches, (rows_launches, launches)
     fallbacks = sp.fallbacks.value
     assert launches > 0 and fallbacks == 0, (launches, fallbacks)
     assert prob.shape == (HOLDOUT_ROWS,) and np.isfinite(prob).all()
@@ -5865,6 +6352,10 @@ def main() -> None:
         mark("24")
         ingest_phases(dev, smi, higgs_data, tmp)
         mark("26")
+        # 28: the predict registry and K4 from rows, the step cache's
+        # wave graphs
+        reg = registry_phases(dev, smi, text, X, ltext, higgs_data, tmp)
+        mark("28")
     del higgs_data
     # 25: EFB and the sparse route on the one-hot airline rows
     efb = efb_sparse_phases(dev, smi)
@@ -5958,7 +6449,9 @@ def main() -> None:
                             "lrb_launches": valid["lrb"]["k3_launches"]})
     print("chip_smoke walls (s), phases in run order: "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_walls))
-    print(json.dumps({"kernels": [forest] + train + quant + cat + [efb]}))
+    reg["kernel"]["launches"] = rows_launches
+    print(json.dumps({"kernels": [forest, reg["kernel"]] + train + quant
+                      + cat + [efb, reg["categorical"]]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

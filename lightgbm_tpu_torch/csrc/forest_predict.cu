@@ -56,6 +56,21 @@
 //     the f32 sums have exactly ops/forest.py forest_predict_plain's
 //     order, and its bits.
 //
+// K4 from rows (forest_predict_from_x_launch; the JAX package's
+// forest_predict_from_x, lightgbm_tpu/ops/stacked_predict.py:906, and its
+// Pallas-Triton twin forest_predict_from_x_gpu, :1204): the same walk,
+// whose tile staging bins f32 rows [n, x_cols] itself instead of loading
+// global codes. Per (row, feature) it takes the global code the device
+// binning of ops/stacked_predict.py ``codes_from_x`` gives: NaN to the
+// feature's nan_slot, else off32 plus the count of the feature's f32
+// edges below the value (a binary search over its inf-padded sorted row
+// of edges [F, m_edges], read through the read-only data cache), then the
+// same local code as the codes path. One launch replaces the transpose,
+// searchsorted, where and K4 launches, and the [F, n] int32 codes never
+// reach device memory: a row's bytes are 4 x_cols read once. Threads
+// stage row-major (consecutive threads on one row's features), so the
+// loads of a warp fall on a row's few cache lines.
+//
 // The launch plan (rows a tile, warps, batch, chunk slots, grid) is
 // ops/forest.py ``forest_plan``; this library takes it as given, checks
 // it (cudaErrorInvalidValue), and reports the plan's shared memory and
@@ -114,7 +129,12 @@ __host__ __device__ inline Layout layout(int s, int l, int fu, int k,
 }
 
 struct Args {
-  const int* codes;            // [F, n] global bin codes
+  const int* codes;            // [F, n] global bin codes (codes launches)
+  const float* x;              // [n, x_cols] f32 rows (from-rows launches)
+  const float* edges;          // [F, m_edges] f32 edges, sorted, inf-padded
+  const int* off32;            // [F] a feature's first global code
+  const int* nan_slot;         // [F] a feature's NaN code
+  int x_cols, m_edges;
   const int4* feat;            // [Fu]
   const unsigned char* rec;    // [C, S, 32] records
   const float* leafv;          // [C, L, 32]
@@ -312,6 +332,101 @@ __device__ __forceinline__ void walk_chunk(
   }
 }
 
+// A global code of feature f (row of ``feat``) as the staged local code:
+// the last code kNan, the zero band kBand, every other code itself; a row
+// past the end (INT_MIN) is walked and never written out.
+template <typename Code>
+__device__ __forceinline__ Code local_code(const Args& a, int f, int global) {
+  if (global == INT_MIN) return (Code)0;
+  const int4 ft = __ldg(a.feat + f);
+  const int c = min(max(global - ft.y, 0), ft.z - 1);
+  return (Code)(c == ft.z - 1 ? Reserved<Code>::kNan
+                : ft.w >= 0 && c >= (ft.w & 0xFFFF) && c <= (ft.w >> 16)
+                    ? Reserved<Code>::kBand
+                    : (unsigned)c);
+}
+
+// stage the tile's codes from global codes: feature-major loads (a warp
+// reads 32 consecutive rows of a feature), eight in flight a thread;
+// row-major local codes
+template <typename Code>
+__device__ __forceinline__ void stage_codes(const Args& a,
+                                            unsigned char* codes, int stride,
+                                            long long row0) {
+  for (int base = threadIdx.x; base < a.fu * a.rows;
+       base += kStageLoads * blockDim.x) {
+    int got[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int idx = base + u * blockDim.x;
+      const int f = idx / a.rows;
+      const long long row = row0 + (idx - f * a.rows);
+      got[u] = idx < a.fu * a.rows && row < a.n
+                   ? __ldg(a.codes + (long long)__ldg(&a.feat[f].x) * a.n +
+                           row)
+                   : INT_MIN;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx >= a.fu * a.rows) break;
+      const int f = idx / a.rows, r = idx - f * a.rows;
+      reinterpret_cast<Code*>(codes + r * stride)[f] =
+          local_code<Code>(a, f, got[u]);
+    }
+  }
+}
+
+// stage the tile's codes from f32 rows, binned here (codes_from_x's
+// codes): row-major loads, eight in flight a thread
+template <typename Code>
+__device__ __forceinline__ void stage_rows(const Args& a,
+                                           unsigned char* codes, int stride,
+                                           long long row0) {
+  for (int base = threadIdx.x; base < a.fu * a.rows;
+       base += kStageLoads * blockDim.x) {
+    float got[kStageLoads];
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int idx = base + u * blockDim.x;
+      const int r = idx / max(a.fu, 1);
+      const long long row = row0 + r;
+      got[u] = idx < a.fu * a.rows && row < a.n
+                   ? __ldg(a.x + row * a.x_cols +
+                           __ldg(&a.feat[idx - r * a.fu].x))
+                   : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageLoads; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx >= a.fu * a.rows) break;
+      const int r = idx / a.fu, f = idx - r * a.fu;
+      int global = INT_MIN;
+      if (row0 + r < a.n) {
+        const int g = __ldg(&a.feat[f].x);
+        const float v = got[u];
+        if (isnan(v)) {
+          global = __ldg(a.nan_slot + g);
+        } else {
+          // edges below v: the left insertion point in the sorted row
+          const float* e = a.edges + (long long)g * a.m_edges;
+          int lo = 0, hi = a.m_edges;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (__ldg(e + mid) < v)
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+          global = __ldg(a.off32 + g) + lo;
+        }
+      }
+      reinterpret_cast<Code*>(codes + r * stride)[f] =
+          local_code<Code>(a, f, global);
+    }
+  }
+}
+
 template <typename Code, typename Rec, bool STAGED>
 __device__ void run(const Args& a, unsigned char* smem) {
   using Raw = typename Rec::Raw;
@@ -349,39 +464,10 @@ __device__ void run(const Args& a, unsigned char* smem) {
     const long long row0 =
         ((long long)blockIdx.x + (long long)it * gridDim.x) * a.rows;
     __syncthreads();   // the last tile's codes and sums are read no more
-    // stage the tile's codes: feature-major loads (a warp reads 32
-    // consecutive rows of a feature), eight in flight a thread; row-major
-    // local codes
-    for (int base = threadIdx.x; base < a.fu * a.rows;
-         base += kStageLoads * blockDim.x) {
-      int got[kStageLoads];
-#pragma unroll
-      for (int u = 0; u < kStageLoads; ++u) {
-        const int idx = base + u * blockDim.x;
-        const int f = idx / a.rows;
-        const long long row = row0 + (idx - f * a.rows);
-        got[u] = idx < a.fu * a.rows && row < a.n
-                     ? __ldg(a.codes + (long long)__ldg(&a.feat[f].x) * a.n +
-                             row)
-                     : INT_MIN;
-      }
-#pragma unroll
-      for (int u = 0; u < kStageLoads; ++u) {
-        const int idx = base + u * blockDim.x;
-        if (idx >= a.fu * a.rows) break;
-        const int f = idx / a.rows, r = idx - f * a.rows;
-        unsigned v = 0;   // a row past the end: walked, never written out
-        if (got[u] != INT_MIN) {
-          const int4 ft = __ldg(a.feat + f);
-          const int c = min(max(got[u] - ft.y, 0), ft.z - 1);
-          v = c == ft.z - 1 ? Reserved<Code>::kNan
-              : ft.w >= 0 && c >= (ft.w & 0xFFFF) && c <= (ft.w >> 16)
-                  ? Reserved<Code>::kBand
-                  : (unsigned)c;
-        }
-        reinterpret_cast<Code*>(codes + r * stride)[f] = (Code)v;
-      }
-    }
+    if (a.x)
+      stage_rows<Code>(a, codes, stride, row0);
+    else
+      stage_codes<Code>(a, codes, stride, row0);
     if (a.score)
       for (int i = threadIdx.x; i < a.rows * a.k; i += blockDim.x) acc[i] = 0.f;
     __syncthreads();
@@ -510,18 +596,18 @@ int forest_resident_blocks(int code_bytes, int warps, int smem) {
   return err == cudaSuccess ? blocks : -1;
 }
 
-// Trees [first, last) over n rows of codes: [n, K] f32 scores (score
-// != 0) or [n, last - first] int32 leaf indices into ``out``, by the
-// plan (code_bytes, warps, batch, rows, buffers, grid) of ops/forest.py
-// forest_plan.
-int forest_predict_launch(const void* codes, const void* feat,
-                          const void* rec, const void* leafv,
-                          const void* bits, const void* bits_base,
-                          const void* root, void* out, long long n,
-                          int first, int last, int k, int s, int l, int fu,
-                          int tail, int trees, int score, int code_bytes,
-                          int rec_bytes, int warps, int batch, int rows,
-                          int buffers, int grid, void* stream) {
+}  // extern "C"
+
+namespace {
+
+// The launch shared by both entries: ``a`` holds the inputs (codes, or
+// rows and their binning tables); the rest is the plan.
+int launch(Args a, const void* feat, const void* rec, const void* leafv,
+           const void* bits, const void* bits_base, const void* root,
+           void* out, long long n, int first, int last, int k, int s, int l,
+           int fu, int tail, int trees, int score, int code_bytes,
+           int rec_bytes, int warps, int batch, int rows, int buffers,
+           int grid, void* stream) {
   if (n < 1 || first < 0 || last <= first || last > trees || tail < 0 ||
       tail > kLanes / 2 || (tail && (trees - 1) % kLanes + 1 != tail) ||
       bad_shape(s, l, fu, k, code_bytes, rec_bytes, score != 0, warps, batch,
@@ -532,8 +618,6 @@ int forest_predict_launch(const void* codes, const void* feat,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = allow_smem(code_bytes);
   if (err != cudaSuccess) return (int)err;
-  Args a;
-  a.codes = static_cast<const int*>(codes);
   a.feat = static_cast<const int4*>(feat);
   a.rec = static_cast<const unsigned char*>(rec);
   a.leafv = static_cast<const float*>(leafv);
@@ -565,6 +649,53 @@ int forest_predict_launch(const void* codes, const void* feat,
   kernel_for(code_bytes)<<<grid, warps * kLanes, smem,
                            (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Trees [first, last) over n rows of codes: [n, K] f32 scores (score
+// != 0) or [n, last - first] int32 leaf indices into ``out``, by the
+// plan (code_bytes, warps, batch, rows, buffers, grid) of ops/forest.py
+// forest_plan.
+int forest_predict_launch(const void* codes, const void* feat,
+                          const void* rec, const void* leafv,
+                          const void* bits, const void* bits_base,
+                          const void* root, void* out, long long n,
+                          int first, int last, int k, int s, int l, int fu,
+                          int tail, int trees, int score, int code_bytes,
+                          int rec_bytes, int warps, int batch, int rows,
+                          int buffers, int grid, void* stream) {
+  Args a = {};
+  a.codes = static_cast<const int*>(codes);
+  return launch(a, feat, rec, leafv, bits, bits_base, root, out, n, first,
+                last, k, s, l, fu, tail, trees, score, code_bytes, rec_bytes,
+                warps, batch, rows, buffers, grid, stream);
+}
+
+// The same over n f32 rows [n, x_cols], binned in the tile staging by
+// the device-binning tables (edges [F, m_edges], off32 [F], nan_slot
+// [F]): the plan is forest_plan's for the codes of those rows.
+int forest_predict_from_x_launch(
+    const void* x, int x_cols, const void* edges, int m_edges,
+    const void* off32, const void* nan_slot, const void* feat,
+    const void* rec, const void* leafv, const void* bits,
+    const void* bits_base, const void* root, void* out, long long n,
+    int first, int last, int k, int s, int l, int fu, int tail, int trees,
+    int score, int code_bytes, int rec_bytes, int warps, int batch, int rows,
+    int buffers, int grid, void* stream) {
+  if (x_cols < 1 || m_edges < 1) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.x = static_cast<const float*>(x);
+  a.x_cols = x_cols;
+  a.edges = static_cast<const float*>(edges);
+  a.m_edges = m_edges;
+  a.off32 = static_cast<const int*>(off32);
+  a.nan_slot = static_cast<const int*>(nan_slot);
+  return launch(a, feat, rec, leafv, bits, bits_base, root, out, n, first,
+                last, k, s, l, fu, tail, trees, score, code_bytes, rec_bytes,
+                warps, batch, rows, buffers, grid, stream);
 }
 
 }  // extern "C"

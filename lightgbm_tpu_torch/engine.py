@@ -99,9 +99,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     - ``tpu_run_report``: a RunRecorder (obs/recorder.py) spans the
       iterations through ``callback.record_run`` and writes the
       versioned run report at the end, as the JAX package's
-      engine.py:107-185 does. Left out of its meta until their modules
-      are ported: the ``step_cache`` (ROADMAP item 16) and
-      ``predict_cache`` (item 18(a)) statistics;
+      engine.py:107-185 does, its meta with the ``step_cache`` and
+      ``predict_cache`` registries' ``stats()``;
     - ``tpu_profile_dir``/``tpu_profile_iters``: a torch.profiler window
       over the iterations (obs/profiler.py), the update and evaluation
       of each inside ``train/iteration`` and ``train/eval`` phase ranges;
@@ -221,6 +220,9 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
             if init_iteration == 0 and not resumed:
                 # the recorder's iteration keys start at 1 only then
                 leaves, waves = booster._gbdt.leaves_and_waves()
+            from .ops import predict_cache, step_cache
+            recorder.meta["step_cache"] = step_cache.stats()
+            recorder.meta["predict_cache"] = predict_cache.stats()
             recorder.finish(
                 leaves_per_iteration=leaves or None,
                 waves_per_iteration=waves or None,

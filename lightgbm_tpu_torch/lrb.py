@@ -50,10 +50,13 @@ Where the port differs from the JAX driver:
   same bytes with it and without, and no allocation retries, while it
   held its slots resident for the loop's lifetime (PERF.md, the ingest
   rows).
-- No compiled-step registry (``ops/step_cache.py``, ROADMAP item 16):
-  the record has no ``step_cache_hits``, and ``compile_s`` is
-  the nvcc time the window paid building the kernels
-  (``utils/cuda_build.py``), 0 once they are built.
+- The training-step registry (``ops/step_cache.py``) holds captured
+  CUDA graphs of the waves, not compiled programs: a window's record
+  carries ``step_cache_hits`` as the JAX driver's does (a later window's
+  booster replays the graphs an earlier one captured), and ``compile_s``
+  is the nvcc time the window paid building the kernels
+  (``utils/cuda_build.py``, 0 once they are built) plus the seconds it
+  spent capturing wave graphs.
 - ``serve_daemon=True`` (``--serve-daemon``) scores every window
   through the fleet scoring daemon (serve/) over localhost HTTP, as the
   JAX driver does; the daemon runs on the driver's ``device``. The
@@ -86,6 +89,7 @@ from .obs import registry as obs
 from .obs import reqlog
 from .obs import slo as obs_slo
 from .obs import trace
+from .ops import step_cache
 from .utils import cuda_build, faults, log, retry
 from .utils.device import resolve_device
 
@@ -1024,6 +1028,7 @@ class LrbDriver:
             log.warning("window %d: degenerate labels; keeping previous "
                         "model", widx)
             return None
+        s0 = step_cache.stats()
         c0 = cuda_build.compile_seconds()
         t0 = time.monotonic()
         ds = capi.LGBM_DatasetCreateFromMat(X, parameters=self.params,
@@ -1046,9 +1051,13 @@ class LrbDriver:
         # per-window build-vs-train split: window 1 may pay the kernels'
         # nvcc build, later windows 0
         train_s = time.monotonic() - t0
-        compile_s = cuda_build.compile_seconds() - c0
-        log.info("window %d: %d rows trained in %.2fs (kernel build "
-                 "%.2fs)", widx, len(labels), train_s, compile_s)
+        s1 = step_cache.stats()
+        compile_s = (cuda_build.compile_seconds() - c0
+                     + s1["compile_s"] - s0["compile_s"])
+        log.info("window %d: %d rows trained in %.2fs (kernel build and "
+                 "graph capture %.2fs, step cache +%d hit / +%d miss)",
+                 widx, len(labels), train_s, compile_s,
+                 s1["hits"] - s0["hits"], s1["misses"] - s0["misses"])
         # stamp the model's generation ON the handle: predict_live
         # reads the LIVE published handle, which in pipelined mode
         # can be newer than _trained_window (that field only advances
@@ -1056,7 +1065,8 @@ class LrbDriver:
         # attribution must follow the handle, not the lagging field
         booster._lrb_window = widx
         return ({"train_s": round(train_s, 3),
-                 "compile_s": round(compile_s, 3)},
+                 "compile_s": round(compile_s, 3),
+                 "step_cache_hits": s1["hits"] - s0["hits"]},
                 booster)
 
     def window_wall_quantiles(self) -> Optional[dict]:

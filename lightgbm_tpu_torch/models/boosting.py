@@ -340,7 +340,7 @@ class RF(GBDT):
             self.models.append(None)
             self._tree_shrinkage.append(1.0)
         self.iter_ += 1
-        self._invalidate_stacked()
+        self._bump_model_gen()
         return False
 
     def rollback_one_iter(self) -> None:
@@ -367,4 +367,4 @@ class RF(GBDT):
                                  rec.leaf_output, -1.0)
                 scores[k].div_(div)
         self.iter_ -= 1
-        self._invalidate_stacked()
+        self._bump_model_gen()

@@ -280,6 +280,11 @@ class Timer:
         with self._lock:
             return self._total
 
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
 
 class MetricsRegistry:
     """Named instruments in four domains under one lock."""

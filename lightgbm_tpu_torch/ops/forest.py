@@ -14,8 +14,13 @@ chunk, over compact node records staged in shared memory
 ``forest_predict_plain`` for CPU tensors; there is no other route. The
 plain version walks the per-node decision rows the compact records were
 built from and adds the same f32 values in the same order, so the two
-agree bit for bit. ``forest_plan`` decides every launch; the library
-only checks the plan. The library is built by utils/cuda_build.py.
+agree bit for bit. ``forest_predict_from_x`` is the same walk over f32
+rows ``[n, F]`` that the kernel bins in its tile staging (the JAX
+package's :906 ``forest_predict_from_x`` and :1204
+``forest_predict_from_x_gpu``); its plain version is ``codes_from_x``
+then ``forest_predict_plain``, the two launches it replaces. Both count
+in ``launches``. ``forest_plan`` decides every launch; the library only
+checks the plan. The library is built by utils/cuda_build.py.
 """
 from __future__ import annotations
 
@@ -30,8 +35,10 @@ from ..utils import cuda_build
 from ..utils.device import Counter, card_plan
 from ..utils.log import LightGBMError
 
-# kernel launches since the last reset (the plain version never counts)
+# kernel launches since the last reset (the plain version never counts);
+# ``from_x_launches`` counts those of them that binned f32 rows
 launches = Counter()
+from_x_launches = Counter()
 
 # the kernel's limits (csrc/forest_predict.cu) and the card's (an H100 SM)
 LANES = 32               # trees a chunk: one lane each
@@ -213,6 +220,8 @@ _SIGNATURES = {
     "forest_smem_bytes": [_I] * 11,
     "forest_resident_blocks": [_I] * 3,
     "forest_predict_launch": [_P] * 8 + [_LL] + [_I] * 16 + [_P],
+    "forest_predict_from_x_launch": ([_P, _I, _P, _I] + [_P] * 9 + [_LL]
+                                     + [_I] * 16 + [_P]),
 }
 _fns = {}
 _fns_lock = threading.Lock()
@@ -306,21 +315,73 @@ def _predict(codes_t: torch.Tensor, forest: Forest, first: int, last: int,
     _check(codes_t, forest, first, last)
     if codes_t.device.type == "cpu":
         return forest_predict_plain(codes_t, forest, first, last, leaf_mode)
-    if codes_t.device.type != "cuda":
-        raise LightGBMError(f"no forest kernel for {codes_t.device}")
+    _check_walk(codes_t, forest.walk)
+    return _launch("forest_predict_launch", (codes_t.data_ptr(),), codes_t,
+                   codes_t.shape[1], forest, first, last, leaf_mode, plan,
+                   None)
+
+
+def forest_predict_from_x(x: torch.Tensor, edges, forest: Forest,
+                          first: int, last: int, leaf_mode: bool = False,
+                          out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Trees [first, last) over f32 rows ``x [N, F]`` (F = the forest's
+    features), binned by ``edges`` = (E [F, M] f32 edges rounded down,
+    off32 [F], nan_slot [F]; ops/stacked_predict.py ``edge_tensors``), as
+    ``forest_predict`` over ``codes_from_x(x, *edges)``: one launch for
+    CUDA tensors (``out``, when given, is the [N, K] or [N, last - first]
+    result it writes: a serving entry's static scores), the two steps'
+    plain versions for CPU tensors (into ``out`` alike)."""
+    E, off32, nan_slot = edges
+    if x.dtype != torch.float32 or x.dim() != 2 or \
+            x.shape[1] != forest.num_features:
+        raise LightGBMError(f"rows must be [N, {forest.num_features}] "
+                            f"float32, got {tuple(x.shape)} {x.dtype}")
+    if not 0 <= first <= last <= len(forest.root_host):
+        raise LightGBMError(f"tree range [{first}, {last}) outside "
+                            f"[0, {len(forest.root_host)}]")
+    if x.device.type == "cpu":
+        got = forest_predict_plain(codes_from_x(x, *edges), forest, first,
+                                   last, leaf_mode)
+        return got if out is None else out.copy_(got)
+    for name, t, dtype in (("E", E, torch.float32), ("off32", off32,
+                                                     torch.int32),
+                           ("nan_slot", nan_slot, torch.int32)):
+        if t.dtype != dtype or t.device != x.device or \
+                not t.is_contiguous() or t.shape[0] != x.shape[1]:
+            raise LightGBMError(f"{name} must be contiguous {dtype} with "
+                                f"one row a feature, on {x.device}")
+    _check_walk(x, forest.walk)
+    return _launch("forest_predict_from_x_launch",
+                   (x.data_ptr(), x.shape[1], E.data_ptr(), E.shape[1],
+                    off32.data_ptr(), nan_slot.data_ptr()), x, x.shape[0],
+                   forest, first, last, leaf_mode, None, out)
+
+
+def _launch(entry: str, inputs: tuple, like: torch.Tensor, n: int,
+            forest: Forest, first: int, last: int, leaf_mode: bool,
+            plan: Optional[ForestPlan], out: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """One launch of the library's ``entry`` (codes, or rows and their
+    binning tables: ``inputs``) over ``n`` rows into ``out`` (allocated
+    when None), by ``plan`` (``plan_for``'s when None)."""
     walk = forest.walk
-    _check_walk(codes_t, walk)
-    n = codes_t.shape[1]
     if n >= 2 ** 31:
         raise LightGBMError(f"{n} rows in one launch; chunk the rows")
     K = forest.num_class
-    dev = codes_t.device
-    if leaf_mode:
-        out = torch.empty((n, last - first), dtype=torch.int32, device=dev)
-    elif first == last:
-        return torch.zeros((n, K), dtype=torch.float32, device=dev)
-    else:   # the kernel writes every row's K sums
-        out = torch.empty((n, K), dtype=torch.float32, device=dev)
+    dev = like.device
+    shape = (n, last - first) if leaf_mode else (n, K)
+    dtype = torch.int32 if leaf_mode else torch.float32
+    if out is None:
+        if not leaf_mode and first == last:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        # the kernel writes every row's K sums
+        out = torch.empty(shape, dtype=dtype, device=dev)
+    elif out.shape != shape or out.dtype != dtype or \
+            out.device != dev or not out.is_contiguous():
+        raise LightGBMError(f"out must be contiguous {dtype} {shape}")
+    elif not leaf_mode and first == last:
+        return out.zero_()
     if n == 0 or first == last:
         return out
     S, L, Fu = walk.rec.shape[1], walk.leaf.shape[1], walk.feat.shape[0]
@@ -334,8 +395,8 @@ def _predict(codes_t: torch.Tensor, forest: Forest, first: int, last: int,
     # current for the call, and the caller's current again after it
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn("forest_predict_launch")(
-            codes_t.data_ptr(), walk.feat.data_ptr(), walk.rec.data_ptr(),
+        err = _fn(entry)(
+            *inputs, walk.feat.data_ptr(), walk.rec.data_ptr(),
             walk.leaf.data_ptr(), walk.bits.data_ptr(),
             walk.bits_base.data_ptr(), walk.root.data_ptr(), out.data_ptr(),
             n, first, last, K, S, L, Fu, walk.tail, len(forest.root_host),
@@ -345,7 +406,23 @@ def _predict(codes_t: torch.Tensor, forest: Forest, first: int, last: int,
     if err != 0:
         raise LightGBMError(f"forest kernel launch failed: CUDA error {err}")
     launches.add()
+    if entry == "forest_predict_from_x_launch":
+        from_x_launches.add()
     return out
+
+
+def codes_from_x(x: torch.Tensor, E: torch.Tensor, off32: torch.Tensor,
+                 nan_slot: torch.Tensor) -> torch.Tensor:
+    """f32 rows [n, F] -> feature-major global codes [F, n] int32.
+
+    The JAX package counts ``sum(x > E)`` over a [n, F, M] comparison;
+    over sorted edges (inf-padded) that count is the left insertion
+    point, so one searchsorted per feature gives the same codes without
+    the [n, F, M] intermediate."""
+    xt = x.t().contiguous()
+    bins = torch.searchsorted(E, xt).to(torch.int32)
+    return torch.where(torch.isnan(xt), nan_slot[:, None],
+                       off32[:, None] + bins).contiguous()
 
 
 def forest_predict_plain(codes_t: torch.Tensor, forest: Forest, first: int,

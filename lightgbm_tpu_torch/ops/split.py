@@ -43,12 +43,16 @@ categorical features never split.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .f32math import fma
+from ..utils import cuda_build
+from ..utils.device import Counter, on_device
+from ..utils.log import LightGBMError
 
 KEPSILON = 1e-15            # meta.h:38
 KMIN_SCORE = float("-inf")
@@ -277,22 +281,17 @@ def _categorical_tables(hist, sum_g, sum_h2, num_data, fmask, meta,
     and the three channels ride one ``xla_cumsum``; the right-side
     checks break the scan (a prefix mask), and min_data_per_group
     chunking is a sequential loop over the P positions that resets the
-    group's count at each emitted candidate."""
+    group's count at each emitted candidate: on a card the one-hot gains,
+    the scan, the loop and the positions' gains are one launch
+    (``categorical_gains``)."""
     M, F, B, _ = hist.shape
     dev = hist.device
-    f32 = torch.float32
     g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
     nb = meta.num_bin.to(torch.int64)[None, :, None]
     mt = meta.missing_type.to(torch.int64)[None, :, None]
     ic = (meta.is_cat.to(torch.int64).expand(F) > 0)[None, :, None]
     bidx = torch.arange(B, device=dev)[None, None, :]
-    l1 = _f32(hp.lambda_l1)
     l2c = _f32(hp.lambda_l2 + hp.cat_l2)
-    l2n = _f32(hp.lambda_l2)
-    mds = float(hp.max_delta_step)
-    mdl = _f32(hp.min_data_in_leaf)
-    msh = _f32(hp.min_sum_hessian_in_leaf)
-    mdpg = _f32(hp.min_data_per_group)
     eps = _f32(KEPSILON)
 
     # the trailing missing bin is no candidate unless MissingType.NONE
@@ -300,17 +299,7 @@ def _categorical_tables(hist, sum_g, sum_h2, num_data, fmask, meta,
     bin_ok = bidx < used_bin
     use_onehot = nb <= hp.max_cat_to_onehot                # [1, F, 1]
 
-    # one-hot: left = the single bin t, plain l2 (hpp:133-163)
-    lh_o = h + eps
-    rh_o = sum_h2 - lh_o
-    rc_o = num_data - c
-    gain_o = _pair_gain(g, lh_o, sum_g - g, rh_o, l1, l2n, mds)
-    ok_o = (bin_ok & (c >= mdl) & (h >= msh) & (rc_o >= mdl)
-            & (rh_o >= msh) & (gain_o > min_gain_shift)
-            & ic & use_onehot & fmask)
-    gain_o = torch.where(ok_o, gain_o, KMIN_SCORE)
-
-    # sorted k-vs-rest, l2 + cat_l2 (hpp:164-234)
+    # sorted k-vs-rest, l2 + cat_l2 (hpp:164-234): the bins' order
     elig = bin_ok & (c >= _f32(hp.cat_smooth))
     ratio = torch.where(elig, g / (h + _f32(hp.cat_smooth)), float("inf"))
     order = torch.argsort(ratio, dim=-1, stable=True)     # [M, F, B]
@@ -327,6 +316,133 @@ def _categorical_tables(hist, sum_g, sum_h2, num_data, fmask, meta,
     srt = torch.gather(hist.expand(2, M, F, B, 3), 3,
                        idx[..., None].expand(2, M, F, P, 3))
     srt = torch.where(in_use[..., None], srt, 0.0)
+    # the one-hot candidates (left = the single bin t, plain l2; hpp:133-
+    # 163) and the k-vs-rest scan
+    cum, gain, gain_o = categorical_gains(
+        hist.contiguous(), srt.contiguous(), sum_g, sum_h2, num_data,
+        min_gain_shift, used, ic & ~use_onehot & fmask, used_bin,
+        ic & use_onehot & fmask, hp)
+    lg, lh, lc = cum[..., 0], cum[..., 1] + eps, cum[..., 2]
+    if P < B:
+        gain = torch.cat([gain, gain.new_full((2, M, F, B - P),
+                                              KMIN_SCORE)], dim=-1)
+    # a feature is in one mode: one-hot rides the dir=+1 slot
+    gc1 = torch.maximum(gain[0], gain_o)
+    ctx = dict(rank=rank, used=used, elig=elig, use_onehot=use_onehot,
+               lg_o=g, lh_o=h + eps, lc_o=c, lg=lg, lh=lh, lc=lc, l2c=l2c,
+               P=P)
+    return gc1, gain[1], ctx
+
+
+# categorical_gains' kernel launches since the last reset (the plain
+# version never counts)
+gains_launches = Counter()
+_gains_fn = None
+
+
+def categorical_gains(hist: torch.Tensor, srt: torch.Tensor, sum_g, sum_h2,
+                      num_data, min_gain_shift, used, sorted_ok, used_bin,
+                      onehot_ok, hp: SplitParams):
+    """The candidate tables of ``_categorical_tables`` for M leaves over
+    F features -> (cum, gain, gain_o).
+
+    k-vs-rest, over ``srt [2, M, F, P, 3]`` f32 (each direction's sorted
+    g, h, count of each leaf and feature, zero past its ``used [M, F,
+    1]`` eligible bins): cum, the prefix sums in XLA's CPU order
+    (``xla_cumsum``), and gain [2, M, F, P], each position's gain with l2
+    + cat_l2, -inf where it is no candidate: min_data_per_group's
+    chunking did not emit it, a side fails min_data_in_leaf or the
+    hessian floor (the right side's failure ends the scan), it lies past
+    ``used`` or half of it (at most max_cat_threshold), its gain is not
+    above ``min_gain_shift [M, 1, 1]``, or ``sorted_ok [M, F, 1]`` is
+    off. One-hot, over ``hist [M, F, B, 3]``: gain_o [M, F, B], each bin
+    going left alone with plain l2, -inf past ``used_bin [1, F, 1]``,
+    where a side fails its floors, the gain is not above the shift, or
+    ``onehot_ok [M, F, 1]`` is off. ``sum_g``, ``sum_h2`` (parent + 2
+    kEpsilon) and ``num_data`` are [M, 1, 1].
+
+    CUDA tensors launch csrc/categorical.cu (one thread a scan row or a
+    bin, the same operations in the same order), CPU tensors run
+    ``categorical_gains_plain``."""
+    if srt.device.type == "cpu":
+        return categorical_gains_plain(hist, srt, sum_g, sum_h2, num_data,
+                                       min_gain_shift, used, sorted_ok,
+                                       used_bin, onehot_ok, hp)
+    if srt.device.type != "cuda":
+        raise LightGBMError(f"no categorical kernel for {srt.device}")
+    M, F, B, _ = hist.shape
+    P = srt.shape[-2]
+    if srt.dtype != torch.float32 or hist.dtype != torch.float32 or \
+            srt.shape != (2, M, F, P, 3) or hist.shape[-1] != 3 or \
+            not (srt.is_contiguous() and hist.is_contiguous()) or \
+            not 1 <= P <= min(B, 256):
+        raise LightGBMError(f"the categorical kernel takes contiguous f32 "
+                            f"hist [M, F, B, 3] and [2, M, F, P <= 256, 3]; "
+                            f"got {tuple(hist.shape)}, {tuple(srt.shape)}")
+    global _gains_fn
+    if _gains_fn is None:
+        fn = cuda_build.library("categorical").categorical_gains_launch
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([p] * 5 + [i] * 4 + [p] * 8
+                       + [f, f, f, f, i, f, f, f, f, i, p])
+        fn.restype = i
+        _gains_fn = fn
+    leaf = [t.reshape(M).to(torch.float32).contiguous()
+            for t in (sum_g, sum_h2, num_data, min_gain_shift)]
+
+    def per_feature(t, dtype):
+        return t.expand(M, F, 1).reshape(M * F).to(dtype).contiguous()
+    tables = (per_feature(used, torch.int32),
+              per_feature(sorted_ok, torch.uint8),
+              used_bin.reshape(F).to(torch.int32).contiguous(),
+              per_feature(onehot_ok, torch.uint8))
+    cum = torch.empty_like(srt)
+    gain = torch.empty(srt.shape[:-1], dtype=torch.float32,
+                       device=srt.device)
+    gain_o = torch.empty((M, F, B), dtype=torch.float32, device=srt.device)
+    with on_device(srt.device):
+        err = _gains_fn(
+            hist.data_ptr(), srt.data_ptr(), cum.data_ptr(), gain.data_ptr(),
+            gain_o.data_ptr(), M, F, B, P,
+            *[t.data_ptr() for t in leaf + list(tables)],
+            _f32(hp.lambda_l1), _f32(hp.lambda_l2 + hp.cat_l2),
+            _f32(hp.lambda_l2), float(hp.max_delta_step),
+            int(hp.max_delta_step > 0.0), _f32(KEPSILON),
+            _f32(hp.min_data_in_leaf), _f32(hp.min_sum_hessian_in_leaf),
+            _f32(hp.min_data_per_group), int(hp.max_cat_threshold),
+            torch.cuda.current_stream(srt.device).cuda_stream)
+    if err != 0:
+        raise LightGBMError(f"categorical kernel failed: CUDA error {err}")
+    gains_launches.add()
+    return cum, gain, gain_o
+
+
+def categorical_gains_plain(hist: torch.Tensor, srt: torch.Tensor, sum_g,
+                            sum_h2, num_data, min_gain_shift, used,
+                            sorted_ok, used_bin, onehot_ok,
+                            hp: SplitParams):
+    """``categorical_gains`` in plain PyTorch (the JAX package's order):
+    the one-hot pair gains; one ``xla_cumsum`` over the channels, the
+    emit loop over the P positions (the group's count reset at each
+    emitted candidate), the right side's prefix mask and the pair
+    gains."""
+    l1, l2c = _f32(hp.lambda_l1), _f32(hp.lambda_l2 + hp.cat_l2)
+    l2n = _f32(hp.lambda_l2)
+    mds = float(hp.max_delta_step)
+    mdl = _f32(hp.min_data_in_leaf)
+    msh = _f32(hp.min_sum_hessian_in_leaf)
+    mdpg = _f32(hp.min_data_per_group)
+    eps = _f32(KEPSILON)
+    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]
+    lh_o = h + eps
+    rh_o = sum_h2 - lh_o
+    rc_o = num_data - c
+    gain_o = _pair_gain(g, lh_o, sum_g - g, rh_o, l1, l2n, mds)
+    bidx = torch.arange(hist.shape[2], device=hist.device)
+    ok_o = ((bidx < used_bin) & (c >= mdl) & (h >= msh) & (rc_o >= mdl)
+            & (rh_o >= msh) & (gain_o > min_gain_shift) & onehot_ok)
+    gain_o = torch.where(ok_o, gain_o, KMIN_SCORE)
+
     cum = xla_cumsum(srt.transpose(-1, -2)).transpose(-1, -2)
     lg, lh, lc = cum[..., 0], cum[..., 1] + eps, cum[..., 2]
     rg, rh, rc = sum_g - lg, sum_h2 - lh, num_data - lc
@@ -334,28 +450,20 @@ def _categorical_tables(hist, sum_g, sum_h2, num_data, fmask, meta,
     # a right-side failure breaks the reference's scan: a prefix mask
     right_ok = ((rc >= mdl) & (rc >= mdpg) & (rh >= msh)).to(
         torch.int32).cumprod(dim=-1) > 0
-    cnt = torch.zeros((2, M, F), dtype=f32, device=dev)
+    cnt = torch.zeros(srt.shape[:-2], dtype=srt.dtype, device=srt.device)
     emits = []
-    for p in range(P):
+    for p in range(srt.shape[-2]):
         cnt = cnt + srt[..., p, 2]
         e = left_ok[..., p] & (cnt >= mdpg)
         cnt = torch.where(e, 0.0, cnt)
         emits.append(e)
     emit = torch.stack(emits, dim=-1)
     gain = _pair_gain(lg, lh, rg, rh, l1, l2c, mds)
+    pos = torch.arange(srt.shape[-2], device=srt.device)
     max_num_cat = torch.clamp((used + 1) // 2, max=hp.max_cat_threshold)
-    ok = (emit & right_ok & in_use & (pos < max_num_cat)
-          & (gain > min_gain_shift) & ic & ~use_onehot & fmask)
-    gain = torch.where(ok, gain, KMIN_SCORE)
-    if P < B:
-        gain = torch.cat([gain, gain.new_full((2, M, F, B - P),
-                                              KMIN_SCORE)], dim=-1)
-    # a feature is in one mode: one-hot rides the dir=+1 slot
-    gc1 = torch.maximum(gain[0], gain_o)
-    ctx = dict(rank=rank, used=used, elig=elig, use_onehot=use_onehot,
-               lg_o=g, lh_o=lh_o, lc_o=c, lg=lg, lh=lh, lc=lc, l2c=l2c,
-               P=P)
-    return gc1, gain[1], ctx
+    ok = (emit & right_ok & (pos < used) & (pos < max_num_cat)
+          & (gain > min_gain_shift) & sorted_ok)
+    return cum, torch.where(ok, gain, KMIN_SCORE), gain_o
 
 
 def _cat_left_bitset(fi, t, cat_p1, ctx, B: int) -> torch.Tensor:

@@ -20,26 +20,35 @@ targets) is built only on request (``jax_layout``), and ``walk_tables``
 turns the JAX package's own W into the walk's tables.
 
 Rows are binned on the device when they are f32-exact and every feature
-is numerical (``codes_from_x``), else on the host in float64
-(``_bin_rows``); then one forest-kernel launch per row chunk. A batch is
-cut into chunks of its serve bucket (ops/predict_cache.py: a power of
+is numerical, by the forest kernel itself (K4 from rows,
+``forest_ops.forest_predict_from_x``: one launch a row chunk), else on
+the host in float64 (``_bin_rows``) and walked from their codes. A batch
+is cut into chunks of its serve bucket (ops/predict_cache.py: a power of
 two, at most ``ROW_CHUNK``) and the last chunk is padded to it, as the
 JAX stacker pads (its ``ops/stacked_predict.py:649, :707``); the pad
-rows are sliced off.
+rows are sliced off. A model consults the predict registry once per
+geometry and bucket (``_dispatch``); on a card its score calls replay
+one CUDA graph over the registry entry's staging (``_replay``).
+Continued training extends a clone of the stack (``extend``) instead of
+rebuilding it.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import copy
+import threading
+from collections import OrderedDict
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import forest as forest_ops
 from . import predict_cache
+from .forest import codes_from_x   # noqa: F401  (re-exported)
 from ..io.binning import MissingType
 from ..obs import reqlog
 from ..utils import log
-from ..utils.device import Counter
+from ..utils.device import Counter, capture_graph
 
 # decision_type bit layout (models/tree.py, mirroring tree.h)
 K_CATEGORICAL_MASK = 1
@@ -51,6 +60,9 @@ _ZERO_EPS = 1e-35
 MAX_FEATURE_WIDTH = 1024
 # rows per forest-kernel launch: bounds the codes and staging tensors
 ROW_CHUNK = 1 << 18
+# serving graphs a model keeps per registry entry, one per tree range
+# (first, ntree): the full model's and a few num_iteration cuts
+MAX_GRAPHS = 8
 
 # models that could not be stacked and are scored by the host walk
 fallbacks = Counter()
@@ -68,6 +80,10 @@ class StackedModel:
         self.num_trees = len(trees)
         self.device = device
         self._serve_policy = serve_bucket
+        # (geometry key) -> [registry entry, this model's CUDA graphs by
+        # tree range (first, ntree)]
+        self._memo: dict = {}
+        self._memo_lock = threading.Lock()
         self.ok = True
         try:
             self._build(trees, num_features)
@@ -112,23 +128,120 @@ class StackedModel:
 
         # 4. the walk's tables, each node's decisions evaluated straight
         # into dec[t, s, :width of its feature]; the binning tables
-        T = len(trees)
-        dec = np.zeros((T, S, max(int(np.max(self._rep_sizes, initial=1)),
-                                  1)), np.uint8)
-        leaf_val = np.zeros((T, L), np.float32)
-        for ti, t in enumerate(trees):
-            nl = t.num_leaves
-            leaf_val[ti, :nl] = np.asarray(t.leaf_value[:nl], np.float32)
-            for s in range(nl - 1):
-                rep = reps[t.split_feature[s]]
-                dec[ti, s, :rep.size] = _node_table(t, s, rep)
+        dec, leaf_val = _decision_rows(trees, reps, S, L, self._rep_sizes)
+        self._nodes = (feats, lefts, rights, depth)
+        self._set_tables(dec, leaf_val)
+
+    def _set_tables(self, dec: np.ndarray, leaf_val: np.ndarray) -> None:
+        """The host decision rows and leaf values, the walk's tables and
+        the device-binning tables from them, on the model's device."""
+        feats, lefts, rights, depth = self._nodes
+        self._dec, self._leaf_val = dec, leaf_val
         self.forest = _forest(feats, lefts, rights, depth, self._offsets,
                               self._rep_sizes, dec, leaf_val,
                               num_class=self.num_class, device=self.device,
-                              bands=self._zero_bands(reps))
+                              bands=self._zero_bands(self._reps))
         self.edges = (edge_tensors(self._E_f32, self._off32, self._nan_slot,
                                    self.device)
                       if self._dev_bin_ok else None)
+
+    # -- incremental stacking (the JAX package's :288-396) ------------------
+
+    def clone_for_extend(self) -> "StackedModel":
+        """A shallow copy whose ``extend()`` cannot perturb a reader of
+        the original: the copy-on-write half of GBDT._stacked_model's
+        publish protocol. The containers ``extend`` mutates in place are
+        duplicated; the tables are only ever reassigned. The copy starts
+        with an empty memo: a graph holds the addresses of the tables it
+        was captured with, so none is carried onto new tables."""
+        new = copy.copy(self)
+        new._thr_sets = [set(x) for x in self._thr_sets]
+        new._cat_sets = [set(x) for x in self._cat_sets]
+        new._zero_mt = self._zero_mt.copy()
+        new._is_cat = self._is_cat.copy()
+        new._memo = {}
+        new._memo_lock = threading.Lock()
+        return new
+
+    def extend(self, new_trees: List) -> bool:
+        """Append ``new_trees``, evaluating only their nodes.
+
+        An old node's decision row is copied into the new code layout
+        instead of re-evaluated (the JAX package's argument): a new
+        threshold splits an old bin into sub-bins wholly inside it, and an
+        old node decides alike across an old bin (its threshold is an
+        edge; the zero band is a bin of its own whose sub-bins stay in
+        it); new categories fall in the old "other" slot, which every old
+        bitset sends right. So the new code j of feature f takes the old
+        row at ``_feature_codes(new rep j, old edges, old categories)``.
+
+        Returns False when the extension cannot be hosted (a feature-role
+        conflict, the width or byte caps); the model is then untouched and
+        the caller rebuilds. The memo is emptied on success: graphs of the
+        old tables are never replayed on the new ones."""
+        new_trees = list(new_trees)
+        if not self.ok:
+            return False
+        if not new_trees:
+            return True
+        saved = ([set(x) for x in self._thr_sets],
+                 [set(x) for x in self._cat_sets],
+                 self._zero_mt.copy(), self._is_cat.copy(),
+                 self._edges, self._cats, self._rep_sizes, self._offsets,
+                 self._Wtot, self._dev_bin_ok, self._reps,
+                 getattr(self, "_E_f32", None),
+                 getattr(self, "_nan_slot", None),
+                 getattr(self, "_off32", None))
+        old_edges, old_cats = self._edges, self._cats
+        old_dec, T_old = self._dec, self.num_trees
+        feats, lefts, rights, depth = self._nodes
+        try:
+            self._scan_nodes(new_trees)
+            reps = self._rebuild_tables()
+            self._reps = reps
+            L = max([self._L] + [t.num_leaves for t in new_trees])
+            S = L - 1
+            T = T_old + len(new_trees)
+            if self._Wtot * T * S > (2 << 30):
+                raise _FallbackError(
+                    f"W matrix {(self._Wtot * T * S) >> 20} MB")
+            Wn = max(int(np.max(self._rep_sizes, initial=1)), 1)
+            dec = np.zeros((T, S, Wn), np.uint8)
+            used = np.zeros(old_dec.shape[:2], bool)
+            feat_all = np.zeros(old_dec.shape[:2], np.int64)
+            for t, feat in enumerate(feats):
+                feat_all[t, :feat.size] = feat
+                used[t, :feat.size] = True
+            for f in np.unique(feat_all[used]):
+                src = _feature_codes(reps[f], old_edges[f], old_cats[f])
+                m = used & (feat_all == f)
+                dec[:T_old, :old_dec.shape[1], :src.size][m] = \
+                    old_dec[m][:, src]
+            dn, leafn = _decision_rows(new_trees, reps, S, L,
+                                       self._rep_sizes)
+            dec[T_old:] = dn
+            leaf_val = np.concatenate([
+                np.pad(self._leaf_val, ((0, 0), (0, L - self._L))), leafn])
+        except _FallbackError as e:
+            (self._thr_sets, self._cat_sets, self._zero_mt, self._is_cat,
+             self._edges, self._cats, self._rep_sizes, self._offsets,
+             self._Wtot, self._dev_bin_ok, self._reps, self._E_f32,
+             self._nan_slot, self._off32) = saved
+            log.info("incremental stack fell back (%s); rebuilding", e)
+            return False
+        nf, nl, nr = _node_arrays(
+            [t.split_feature[:t.num_leaves - 1] for t in new_trees],
+            [t.left_child[:t.num_leaves - 1] for t in new_trees],
+            [t.right_child[:t.num_leaves - 1] for t in new_trees])
+        self._nodes = (feats + nf, lefts + nl, rights + nr,
+                       np.concatenate([depth, _tree_depths(nl, nr)]))
+        self._S, self._L = S, L
+        self.num_trees = T
+        self._set_tables(dec, leaf_val)
+        with self._memo_lock:
+            self._memo = {}
+        predict_cache.count_extend(len(new_trees))
+        return True
 
     def _zero_bands(self, reps: List[np.ndarray]) -> List:
         """Per feature, the local codes (lo, hi) whose representatives lie
@@ -314,63 +427,205 @@ class StackedModel:
                 x, self._edges[f], self._cats[f])
         return codes
 
-    def predict(self, X: np.ndarray, first: int = 0,
-                ntree: Optional[int] = None,
-                pred_leaf: bool = False) -> np.ndarray:
-        """Raw scores [K, N] float64 (or leaf indices [N, ntree-first]
-        int32) of trees [first, ntree)."""
-        ntree = self.num_trees if ntree is None else min(ntree,
-                                                         self.num_trees)
-        first = min(first, ntree)
-        X = np.ascontiguousarray(np.asarray(X, np.float64))
+    def _device_rows(self, X: np.ndarray) -> Optional[np.ndarray]:
+        """The model features of ``X`` as f32 rows ``[N, Fm]`` for the
+        device binning, or None when the host must bin them: a
+        categorical feature, too few columns, or f64 values that are not
+        f32-exact (probed on 64 rows first, so true f64 data pays no full
+        scan). A rule decided before any launch. f32 input is taken as it
+        is, with no scan."""
         Fm = len(self._offsets) - 1
-        # device binning when rows are f32-exact and all-numerical:
-        # skips the host searchsorted pass AND halves the upload. Probe
-        # a small sample first so true f64 data doesn't pay a full scan.
-        dev_bin = self._dev_bin_ok and X.shape[1] >= Fm
-        rows = None
+        if not self._dev_bin_ok or X.shape[1] < Fm:
+            return None
+        if X.dtype == np.float32:
+            return np.ascontiguousarray(X[:, :Fm])
         # overflow in these casts is EXPECTED for data that is not
         # f32-exact (values beyond f32 range become inf, _f32_exact
         # rejects them and the host binning path runs)
         with np.errstate(over="ignore"):
-            if dev_bin:
-                probe = X[:64, :Fm]
-                dev_bin = _f32_exact(probe, probe.astype(np.float32))
-            if dev_bin:
-                Xf = X[:, :Fm].astype(np.float32)
-                dev_bin = _f32_exact(X[:, :Fm], Xf)
-                rows = Xf if dev_bin else None
+            probe = X[:64, :Fm]
+            if not _f32_exact(probe, probe.astype(np.float32)):
+                return None
+            Xf = X[:, :Fm].astype(np.float32)
+            return Xf if _f32_exact(X[:, :Fm], Xf) else None
+
+    def _dispatch(self, first: int, ntree: int, chunk: int, pred_leaf: bool,
+                  dev_bin: bool) -> list:
+        """This model's memo entry ``[registry entry, graphs]`` for the
+        launch of trees [first, ntree) over chunks of ``chunk`` rows: the
+        registry (ops/predict_cache.py) is consulted once per (model,
+        geometry), so its hits count reuse across models. The key holds
+        what shapes the launch plan and the staging: the code layout and
+        the tables' shape (the JAX package's key), the route, the bucket
+        and the plan itself (which the walk's features, code and record
+        widths and tree range decide). The plan records the chunks the
+        range spans, not the range, so ranges of one plan share the entry
+        and its staging; a graph bakes its range in, so ``graphs`` holds
+        one per (first, ntree) (``_replay``)."""
+        plan = forest_ops.plan_for(self.forest, chunk, first, ntree,
+                                   pred_leaf)
+        key = ("forest", str(self.device),
+               tuple(int(o) for o in self._offsets), self._S, self._L,
+               self.num_class, bool(pred_leaf), bool(dev_bin),
+               self._E_f32.shape[1] if dev_bin else 0, chunk, plan)
+        with self._memo_lock:
+            got = self._memo.get(key)
+            if got is None:
+                Fm = len(self._offsets) - 1
+                got = self._memo[key] = [predict_cache.get(
+                    key, lambda: _Entry(plan, chunk, Fm, self.num_class,
+                                        self.device)), OrderedDict()]
+            return got
+
+    def predict(self, X: np.ndarray, first: int = 0,
+                ntree: Optional[int] = None,
+                pred_leaf: bool = False) -> np.ndarray:
+        """Raw scores [K, N] float64 (or leaf indices [N, ntree-first]
+        int32) of trees [first, ntree). ``X`` is float64, or float32 as
+        the C API hands f32 input over (binned on the device as it is).
+
+        Rows the device bins go through K4 from rows; on a card, score
+        calls replay this model's CUDA graph over its registry entry's
+        staging (``_replay``): every bucket up to ``ROW_CHUNK``, each chunk
+        of a larger batch. Leaf indices, host-binned rows and the CPU
+        launch eagerly."""
+        ntree = self.num_trees if ntree is None else min(ntree,
+                                                         self.num_trees)
+        first = min(first, ntree)
+        X = np.asarray(X)
+        if X.dtype != np.float32:
+            X = np.ascontiguousarray(X, np.float64)
+        rows = self._device_rows(X)
+        dev_bin = rows is not None
         if rows is None:
-            rows = self._bin_rows(X)
+            rows = self._bin_rows(np.asarray(X, np.float64))
         N = X.shape[0]
+        K = self.num_class
         # the serve bucket, clamped to the row chunk; the clamped width
         # is the one the request rode (obs/reqlog.py)
         chunk = max(1, min(ROW_CHUNK, predict_cache.serve_bucket_rows(
             N, self._serve_policy)))
         reqlog.note_bucket(chunk)
+        if N == 0 or first == ntree:
+            return (np.zeros((N, ntree - first), np.int32) if pred_leaf
+                    else np.zeros((K, N), np.float64))
+        memo = self._dispatch(first, ntree, chunk, pred_leaf, dev_bin)
+        if dev_bin and not pred_leaf and self.device.type == "cuda":
+            return self._replay(memo, rows, first, ntree).T.astype(
+                np.float64)
         parts = []
         for c0 in range(0, N, chunk):
             part = rows[c0:c0 + chunk]
             if part.shape[0] < chunk:
                 # the rows are scored one by one: pad rows (copies of
-                # the last row, valid codes) only add columns to slice
+                # the last row, valid codes) only add rows to slice
                 part = np.pad(part, ((0, chunk - part.shape[0]), (0, 0)),
                               mode="edge")
             if dev_bin:
-                codes_t = codes_from_x(
-                    torch.from_numpy(part).to(self.device), *self.edges)
+                parts.append(forest_ops.forest_predict_from_x(
+                    torch.from_numpy(part).to(self.device), self.edges,
+                    self.forest, first, ntree, leaf_mode=pred_leaf))
             else:
-                codes_t = torch.from_numpy(
-                    np.ascontiguousarray(part.T)).to(self.device)
-            parts.append(forest_ops.forest_predict(
-                codes_t, self.forest, first, ntree, leaf_mode=pred_leaf))
-        if pred_leaf:
-            if not parts:
-                return np.zeros((0, ntree - first), np.int32)
-            return torch.cat(parts)[:N].cpu().numpy()
-        if not parts:
-            return np.zeros((self.num_class, 0), np.float64)
-        return torch.cat(parts)[:N].cpu().numpy().T.astype(np.float64)
+                parts.append(forest_ops.forest_predict(
+                    torch.from_numpy(np.ascontiguousarray(part.T)).to(
+                        self.device), self.forest, first, ntree,
+                    leaf_mode=pred_leaf))
+        out = torch.cat(parts)[:N].cpu().numpy()
+        return out if pred_leaf else out.T.astype(np.float64)
+
+    def _replay(self, memo: list, rows: np.ndarray, first: int,
+                ntree: int) -> np.ndarray:
+        """[N, K] f32 scores of f32 ``rows`` through the memo's registry
+        entry: per chunk the rows go into its pinned staging, this
+        model's graph of trees [first, ntree) (the copy in, K4 from rows,
+        the copy out) replays, and the scores are read from its pinned
+        result once its event has passed. A range's first call launches
+        the three eagerly (its warm-up) and captures the graph after; a
+        memo entry keeps the ``MAX_GRAPHS`` ranges used last. The entry's
+        lock keeps the threads that share its staging apart, from the
+        copy in to the read."""
+        entry, graphs = memo
+        rng = (first, ntree)
+        out = np.empty((rows.shape[0], self.num_class), np.float32)
+        with entry.lock:
+            st = entry.staging()
+            for c0 in range(0, rows.shape[0], entry.bucket):
+                nr = min(entry.bucket, rows.shape[0] - c0)
+                st.x_np[:nr] = rows[c0:c0 + nr]
+                graph = graphs.get(rng)
+                if graph is None:
+                    run = lambda: self._stage_and_launch(st, first, ntree)
+                    run()
+                    graphs[rng] = capture_graph(run, self.device)
+                    while len(graphs) > MAX_GRAPHS:
+                        graphs.popitem(last=False)
+                else:
+                    graphs.move_to_end(rng)
+                    graph.replay()      # counts its K4 launch
+                st.done.record()
+                st.done.synchronize()
+                out[c0:c0 + nr] = st.out_np[:nr]
+        return out
+
+    def _stage_and_launch(self, st: "_Staging", first: int,
+                          ntree: int) -> None:
+        """The staged rows up, K4 from rows into the static scores, the
+        scores down: what a serving graph holds (its copies as memcpy
+        nodes)."""
+        st.x_dev.copy_(st.x_host, non_blocking=True)
+        forest_ops.forest_predict_from_x(st.x_dev, self.edges, self.forest,
+                                         first, ntree, out=st.out_dev)
+        st.out_host.copy_(st.out_dev, non_blocking=True)
+
+
+class _Staging(NamedTuple):
+    """A serving entry's buffers on a card: pinned rows, the static
+    device rows and scores, pinned scores, and the event a call waits on."""
+    x_host: torch.Tensor
+    x_np: np.ndarray
+    x_dev: torch.Tensor
+    out_dev: torch.Tensor
+    out_host: torch.Tensor
+    out_np: np.ndarray
+    done: object
+
+
+class _Entry:
+    """A predict registry value (ops/predict_cache.py): what one serve
+    bucket's launch needs that no model's tables decide: its plan, and on
+    a card its staging (made at first use; pinned host memory needs a
+    card). Models of one geometry share it; ``lock`` orders their use of
+    the staging."""
+
+    def __init__(self, plan: "forest_ops.ForestPlan", bucket: int, Fm: int,
+                 K: int, device: torch.device):
+        self.plan = plan
+        self.bucket = bucket
+        self._shape = (bucket, Fm, K)
+        # the staging's bytes on a card, pinned host and device (the
+        # registry's byte bound)
+        self.nbytes = (2 * 4 * bucket * (Fm + K)
+                       if device.type == "cuda" else 0)
+        self.device = device
+        self.lock = threading.Lock()
+        self._staging: Optional[_Staging] = None
+
+    def staging(self) -> _Staging:
+        """The buffers, made on first use (the caller holds ``lock``)."""
+        if self._staging is None:
+            bucket, Fm, K = self._shape
+            f32 = torch.float32
+            x_host = torch.zeros((bucket, Fm), dtype=f32, pin_memory=True)
+            out_host = torch.zeros((bucket, K), dtype=f32, pin_memory=True)
+            self._staging = _Staging(
+                x_host=x_host, x_np=x_host.numpy(),
+                x_dev=torch.zeros((bucket, Fm), dtype=f32,
+                                  device=self.device),
+                out_dev=torch.zeros((bucket, K), dtype=f32,
+                                    device=self.device),
+                out_host=out_host, out_np=out_host.numpy(),
+                done=torch.cuda.Event())
+        return self._staging
 
 
 class _FallbackError(Exception):
@@ -414,6 +669,23 @@ def walk_tables(W: np.ndarray, leaf: np.ndarray, offsets: np.ndarray,
         dec[m, :w] = W[o:o + w][:, m].T
     return _forest(feats, lefts, rights, depth, offsets, rep_sizes, dec,
                    leaf, num_class=num_class, device=device)
+
+
+def _decision_rows(trees: List, reps: List[np.ndarray], S: int, L: int,
+                   rep_sizes: np.ndarray):
+    """(dec [T, S, Wn] uint8, leaf values [T, L] f32) of ``trees``: each
+    node's decisions at its feature's representatives."""
+    T = len(trees)
+    dec = np.zeros((T, S, max(int(np.max(rep_sizes, initial=1)), 1)),
+                   np.uint8)
+    leaf_val = np.zeros((T, L), np.float32)
+    for ti, t in enumerate(trees):
+        nl = t.num_leaves
+        leaf_val[ti, :nl] = np.asarray(t.leaf_value[:nl], np.float32)
+        for s in range(nl - 1):
+            rep = reps[t.split_feature[s]]
+            dec[ti, s, :rep.size] = _node_table(t, s, rep)
+    return dec, leaf_val
 
 
 def _node_arrays(split_feature: Sequence, left_child: Sequence,
@@ -703,20 +975,6 @@ def edge_tensors(E_f32: np.ndarray, off32: np.ndarray, nan_slot: np.ndarray,
     return (torch.from_numpy(np.ascontiguousarray(E_f32)).to(device),
             torch.from_numpy(np.ascontiguousarray(off32)).to(device),
             torch.from_numpy(np.ascontiguousarray(nan_slot)).to(device))
-
-
-def codes_from_x(x: torch.Tensor, E: torch.Tensor, off32: torch.Tensor,
-                 nan_slot: torch.Tensor) -> torch.Tensor:
-    """f32 rows [n, F] -> feature-major global codes [F, n] int32.
-
-    The JAX package counts ``sum(x > E)`` over a [n, F, M] comparison;
-    over sorted edges (inf-padded) that count is the left insertion
-    point, so one searchsorted per feature gives the same codes without
-    the [n, F, M] intermediate."""
-    xt = x.t().contiguous()
-    bins = torch.searchsorted(E, xt).to(torch.int32)
-    return torch.where(torch.isnan(xt), nan_slot[:, None],
-                       off32[:, None] + bins).contiguous()
 
 
 def _feature_codes(x: np.ndarray, edges: Optional[np.ndarray],

@@ -51,16 +51,30 @@ child, in f32.
 
 JAX runs the waves in a ``lax.while_loop`` on the device. Here the loop
 is Python: each wave reads its number of active splits back to the host
-once, which both ends the loop and sizes the next launches. Capturing
-the loop in a CUDA graph is left for later.
+once, which both ends the loop and picks the next wave's launches. A
+wave's device work (its body: the split table, K1 or the two-pass
+partition and histograms, the subtraction, the record and leaf tables,
+the children's split search; then the next wave's election, a stable
+sort and its top W) reads the leaf count from a device scalar, so it
+depends on the host only through k, the wave width. Under the step
+cache (ops/step_cache.py) a tree grows on a ``WaveState``: static
+tensors (the inputs padded to the cached geometry's rows, and every
+table the waves read or write) and, on a card, one CUDA graph per k,
+captured after that width's first wave ran eagerly (its warm-up) and
+replayed at every later wave of that width, in this tree or another
+booster's. The root (its K2 pass and ``_stable_sum``'s host add) stays
+outside the graphs. Without a state the same code runs eagerly on the
+booster's own tensors.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from . import step_cache
 from .grower import TreeRecord
 from .f32math import fma, xla_sum
 from .hist_wave import (dequantize, fused_partition_histogram,
@@ -71,6 +85,7 @@ from ..io.efb import expand_bundle_histogram
 from .split import (KMIN_SCORE, NCAT_WORDS, FeatureMeta, SplitParams,
                     _f32, calculate_leaf_output, find_best_split,
                     threshold_l1)
+from ..utils.device import capture_graph
 
 
 class WaveGrowerConfig(NamedTuple):
@@ -147,6 +162,84 @@ def _forced_gain(sum_g, sum_h, l1: float, l2: float, mds: float,
     return -fma(twice_g, out, (sum_h + l2) * out * out)
 
 
+class WaveState:
+    """A step-cache entry (ops/step_cache.py): one grower geometry's
+    static tensors and its wave graphs. ``owner`` is the bin token of the
+    booster whose bins and feature metadata the state holds."""
+
+    def __init__(self, device: torch.device, rows: int):
+        self.device = device
+        self.rows = rows            # the padded columns of every input
+        self.owner = None
+        self.meta: Optional[FeatureMeta] = None
+        self._bufs: dict = {}
+        self.graphs: dict = {}      # k -> utils.device.Captured
+        # one memory pool for the graphs of this state: they never run at
+        # once, and no intermediate outlives its wave
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if device.type == "cuda" else None)
+        # the card's reserved memory grown over this state's captures:
+        # what its graph pool holds, about (another thread's allocations
+        # over a capture count too)
+        self.pool_bytes = 0
+
+    def nbytes(self) -> int:
+        """Device bytes the state holds: its static tensors (the padded
+        copy of the owner's bins among them) and its graph pool."""
+        return self.pool_bytes + sum(t.numel() * t.element_size()
+                                     for t in self._bufs.values())
+
+    def keep(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s value in this state's persistent tensor ``name``."""
+        buf = self._bufs.get(name)
+        if buf is None:
+            buf = self._bufs[name] = torch.empty(t.shape, dtype=t.dtype,
+                                                 device=self.device)
+        return buf.copy_(t)
+
+    def padded(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [..., n] in the persistent [..., rows] tensor ``name``,
+        zeros past column n."""
+        n = t.shape[-1]
+        buf = self._bufs.get(name)
+        if buf is None:
+            buf = self._bufs[name] = torch.zeros(
+                t.shape[:-1] + (self.rows,), dtype=t.dtype,
+                device=self.device)
+        buf[..., :n].copy_(t)
+        buf[..., n:].zero_()
+        return buf
+
+    def load(self, owner, bins_t: torch.Tensor, meta: FeatureMeta):
+        """(bins, meta) of ``owner`` in the static tensors, copied only
+        when another booster (or other bins) held them last."""
+        if self.owner is not owner:
+            self.padded("bins", bins_t)
+            self.meta = FeatureMeta(*[self.keep(f"meta_{name}", x)
+                                      for name, x in zip(meta._fields,
+                                                         meta)])
+            self.owner = owner
+        return self._bufs["bins"], self.meta
+
+    def run_wave(self, k: int, fn) -> None:
+        """Wave width ``k``'s work: its graph's replay, or on its first
+        wave ``fn`` eagerly and then its capture (on the CPU, ``fn``)."""
+        if self.device.type != "cuda":
+            fn()
+            return
+        graph = self.graphs.get(k)
+        if graph is not None:
+            graph.replay()
+            return
+        t0 = time.perf_counter()
+        fn()
+        held = torch.cuda.memory_reserved(self.device)
+        self.graphs[k] = capture_graph(fn, self.device, pool=self.pool)
+        self.pool_bytes += max(
+            torch.cuda.memory_reserved(self.device) - held, 0)
+        step_cache.record_capture(time.perf_counter() - t0)
+
+
 class WaveGrower:
     """Grows one tree per ``grow`` call from bins [F, N] on one device."""
 
@@ -220,7 +313,8 @@ class WaveGrower:
 
     def grow(self, bins_t: torch.Tensor, grad: torch.Tensor,
              hess: torch.Tensor, sample_mask: torch.Tensor,
-             feature_mask: torch.Tensor, counted_rows=None, sparse=None):
+             feature_mask: torch.Tensor, counted_rows=None, sparse=None,
+             state: Optional[WaveState] = None, owner=None):
         """One tree. bins_t [F, N] (packed4: [ceil(F/2), N]); grad, hess,
         sample_mask [N] f32 (mask 0/1 from bagging); feature_mask [F]
         bool. Returns (TreeRecord, leaf ids [N] int32 of every row,
@@ -235,8 +329,29 @@ class WaveGrower:
 
         ``bins_t`` holds the bundle columns under EFB; ``sparse``: the
         set's binned entries (codes, feat, row, zero_bins) under the
-        sparse tier."""
+        sparse tier.
+
+        ``state``: a step-cache entry (``WaveState``; the fused route
+        without forced splits): the inputs pad to its rows as uncounted
+        columns (``counted_rows`` must be given), ``owner``'s bins and
+        metadata load into it when it held another's, the tree grows on
+        its static tensors and its waves run as CUDA graphs; the record
+        and leaf ids returned are copies."""
         cfg, meta, L, W = self.cfg, self.meta, self.L, self.W
+        n_in = bins_t.shape[1]
+        if state is not None:
+            if self.two_pass or cfg.forced or counted_rows is None:
+                raise ValueError("the step cache takes the fused route "
+                                 "without forced splits, with counted rows")
+            bins_t, meta = state.load(owner, bins_t, meta)
+            grad = state.padded("grad", grad)
+            hess = state.padded("hess", hess)
+            sample_mask = state.padded("mask", sample_mask)
+            feature_mask = state.keep("fmask", feature_mask)
+            keep = state.keep
+        else:
+            def keep(name, t):
+                return t
         hp = cfg.hp
         B = cfg.num_bins
         dev = bins_t.device
@@ -254,10 +369,13 @@ class WaveGrower:
                     counted_rows=counted_rows)
         if cfg.precision == "int8":
             q = quantize(grad, hess)
-            hg, hh, scale = q.gq, q.hq, (q.sg, q.sh)
-            qscale = torch.stack([q.sg, q.sh, torch.ones_like(q.sg)])
+            hg, hh = keep("hg", q.gq), keep("hh", q.hq)
+            scale = (keep("sg", q.sg), keep("sh", q.sh))
+            qscale = keep("qscale", torch.stack([q.sg, q.sh,
+                                                 torch.ones_like(q.sg)]))
         else:
-            hg, hh, scale = grad, hess, None
+            hg, hh = keep("hg", grad), keep("hh", hess)
+            scale = None
 
         # root: one K2 pass over the in-bag rows (out-of-bag rows read
         # as leaf -1). The JAX package passes W slots with only slot 0
@@ -293,14 +411,16 @@ class WaveGrower:
                                                          device=dev)),
                               sum_scale=scale)
 
-        def table(fill, dtype, first):
+        def table(fill, dtype, first, name):
             t = torch.full((L,), fill, dtype=dtype, device=dev)
             t[0] = first[0]
-            return t
+            return keep(name, t)
 
-        pool = torch.zeros((L, F, B, 3), dtype=f32, device=dev)
+        pool = keep("pool", torch.zeros((L, F, B, 3), dtype=f32,
+                                        device=dev))
         pool[0] = root_hist[0]
-        t = {name: table(fill, dtype, getattr(res, name))
+        leaf_ids = keep("leaf_ids", leaf_ids)
+        t = {name: table(fill, dtype, getattr(res, name), "t_" + name)
              for name, fill, dtype in (
                  ("gain", KMIN_SCORE, f32), ("feature", 0, i32),
                  ("threshold_bin", 0, i32), ("default_left", False,
@@ -310,13 +430,16 @@ class WaveGrower:
                  ("left_sum_g", 0.0, f32), ("left_sum_h", 0.0, f32),
                  ("right_sum_g", 0.0, f32), ("right_sum_h", 0.0, f32),
                  ("is_cat", False, torch.bool))}
-        t["cat_words"] = torch.zeros((L, NCAT_WORDS), dtype=i32, device=dev)
+        t["cat_words"] = keep("t_cat_words", torch.zeros(
+            (L, NCAT_WORDS), dtype=i32, device=dev))
         t["cat_words"][0] = res.cat_words[0]
-        leaf_output = torch.zeros(L, dtype=f32, device=dev)
-        leaf_count = table(0.0, f32, root_c[None])
-        leaf_sum_g = table(0.0, f32, root_g[None])
-        leaf_sum_h = table(0.0, f32, root_h[None])
-        leaf_depth = torch.zeros(L, dtype=i32, device=dev)
+        leaf_output = keep("leaf_output", torch.zeros(L, dtype=f32,
+                                                      device=dev))
+        leaf_count = table(0.0, f32, root_c[None], "leaf_count")
+        leaf_sum_g = table(0.0, f32, root_g[None], "leaf_sum_g")
+        leaf_sum_h = table(0.0, f32, root_h[None], "leaf_sum_h")
+        leaf_depth = keep("leaf_depth", torch.zeros(L, dtype=i32,
+                                                    device=dev))
         rec = dict(
             split_leaf=torch.full((L - 1,), -1, dtype=i32, device=dev),
             split_feature=torch.full((L - 1,), -1, dtype=i32, device=dev),
@@ -329,6 +452,7 @@ class WaveGrower:
             split_is_cat=torch.zeros(L - 1, dtype=torch.bool, device=dev),
             split_cat_words=torch.zeros((L - 1, NCAT_WORDS), dtype=i32,
                                         device=dev))
+        rec = {name: keep("rec_" + name, v) for name, v in rec.items()}
         num_leaves = 1
 
         # the forced prefix: a wave of one slot per forced split (the JAX
@@ -403,20 +527,29 @@ class WaveGrower:
                 t[name][idx2] = v.to(t[name].dtype)
             num_leaves += 1
 
-        while num_leaves < L:
-            # 1. elect the wave: the top-W leaves by gain (ties to the
-            # lower leaf id, as lax.top_k), capped by the leaf budget.
-            # Gains sort descending, so the active slots are a prefix.
+        # the waves: the leaf count on the device (``nl``), the election
+        # into static tensors, one readback a wave (k)
+        nl = keep("nl", torch.tensor(num_leaves, dtype=i64, device=dev))
+        elected = (keep("order", torch.zeros(W, dtype=i64, device=dev)),
+                   keep("top_gain", torch.zeros(W, dtype=f32, device=dev)),
+                   keep("k", torch.zeros((), dtype=i64, device=dev)))
+
+        def elect():
+            # the top-W leaves by gain (ties to the lower leaf id, as
+            # lax.top_k), capped by the leaf budget; gains sort
+            # descending, so the active slots are a prefix
             order = torch.sort(t["gain"], descending=True,
                                stable=True).indices[:W]
             top_gain = t["gain"][order]
             rank = torch.arange(order.shape[0], device=dev)
-            active = (top_gain > 0.0) & (rank < L - num_leaves)
-            k = int(active.sum())             # the one readback per wave
-            if k == 0:
-                break
-            wl = order[:k]
-            new_ids = torch.arange(num_leaves, num_leaves + k, device=dev)
+            active = (top_gain > 0.0) & (rank < L - nl)
+            elected[0].copy_(order)
+            elected[1].copy_(top_gain)
+            elected[2].copy_(active.sum())
+
+        def wave(k):
+            wl = elected[0][:k]
+            new_ids = nl + torch.arange(k, device=dev)
 
             # 2. per-slot split parameters
             feat = t["feature"][wl].to(i64)
@@ -439,9 +572,9 @@ class WaveGrower:
             fuse_sub = (scale is not None and not proxy
                         and not cfg.bundle_bins)
             if self.two_pass:
-                leaf_ids = self._partition(bins_t, leaf_ids, wl, new_ids,
-                                           feat, t["threshold_bin"][wl],
-                                           dleft, iscat, catw)
+                leaf_ids.copy_(self._partition(
+                    bins_t, leaf_ids, wl, new_ids, feat,
+                    t["threshold_bin"][wl], dleft, iscat, catw))
                 hist_small = self._hist(
                     bins_t, hg, hh, torch.where(in_bag, leaf_ids, -1),
                     small_ids.to(i32), None if fuse_sub else scale,
@@ -457,7 +590,8 @@ class WaveGrower:
                     bins_t, hg, hh, sample_mask, leaf_ids, tbl, B,
                     gh_scale=None if fuse_sub else scale,
                     any_cat=hp.has_cat, **tier)
-                leaf_ids, hist_small = out[0], out[1]
+                leaf_ids.copy_(out[0])
+                hist_small = out[1]
             if fuse_sub:
                 raw = hist_small
                 hist_small = dequantize(raw, scale)
@@ -484,11 +618,11 @@ class WaveGrower:
             pool[new_ids] = hist_right
 
             # 5. record the wave's splits after the num_leaves - 1 so far
-            pos = slice(num_leaves - 1, num_leaves - 1 + k)
+            pos = new_ids - 1
             rec["split_leaf"][pos] = wl.to(i32)
             rec["split_feature"][pos] = feat.to(i32)
             rec["split_bin"][pos] = t["threshold_bin"][wl]
-            rec["split_gain"][pos] = top_gain[:k]
+            rec["split_gain"][pos] = elected[1][:k]
             rec["split_default_left"][pos] = dleft
             rec["split_is_cat"][pos] = iscat
             rec["split_cat_words"][pos] = catw
@@ -509,16 +643,35 @@ class WaveGrower:
             can = self._depth_ok(child_depth)
             res = find_best_split(
                 torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
-                torch.cat([lh, rh]), torch.cat([lcnt_x, rcnt_x]), feature_mask,
-                meta, hp, torch.cat([can, can]))
+                torch.cat([lh, rh]), torch.cat([lcnt_x, rcnt_x]),
+                feature_mask, meta, hp, torch.cat([can, can]))
             idx2 = torch.cat([wl, new_ids])
             for name in t:
                 v = getattr(res, name)
                 if name == "gain":
                     v = torch.where(torch.isfinite(v), v, KMIN_SCORE)
                 t[name][idx2] = v.to(t[name].dtype)
+            nl.add_(k)
+            elect()
+
+        elect()
+        while num_leaves < L:
+            k = int(elected[2])               # the one readback per wave
+            if k == 0:
+                break
+            if state is None:
+                wave(k)
+            else:
+                state.run_wave(k, lambda: wave(k))
             num_leaves += k
 
+        if state is not None:
+            # the static tensors are the next tree's
+            leaf_ids = leaf_ids[:n_in].clone()
+            leaf_output, leaf_count, leaf_sum_g, leaf_sum_h = (
+                x.clone() for x in (leaf_output, leaf_count, leaf_sum_g,
+                                    leaf_sum_h))
+            rec = {name: v.clone() for name, v in rec.items()}
         record = TreeRecord(num_leaves=num_leaves, leaf_output=leaf_output,
                             leaf_count=leaf_count, leaf_sum_g=leaf_sum_g,
                             leaf_sum_h=leaf_sum_h, **rec)

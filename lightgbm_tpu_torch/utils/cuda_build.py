@@ -29,7 +29,7 @@ from .log import LightGBMError
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "_build")
-SOURCES = ("forest_predict", "hist_wave", "leaf_gather")
+SOURCES = ("forest_predict", "hist_wave", "leaf_gather", "categorical")
 HOST_SOURCES = ("fast_parser",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

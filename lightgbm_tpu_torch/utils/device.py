@@ -75,6 +75,75 @@ def card_plan(plan, items: int, dev: torch.device, smem_query: tuple,
     return got
 
 
+# the calling thread's capture (capture_graph): while it records, the
+# launch counters' adds go to its tally, and each replay adds them
+_capturing = threading.local()
+
+
+class Captured:
+    """A CUDA graph and the counter adds its capture recorded: the
+    kernels it holds count at every replay, where they launch."""
+
+    def __init__(self, graph, tally: list):
+        self.graph = graph
+        self.tally = tally
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for counter, k in self.tally:
+            counter.add(k)
+
+
+def capture_graph(fn, dev: torch.device, pool=None) -> Captured:
+    """``fn``'s work on ``dev`` recorded into a CUDA graph, returned and
+    not run. ``fn`` has run once already, uncaptured, so that the lazy
+    set-up it does (a library's first load, its launch plans, cub's and
+    the allocator's first blocks) is behind it. The capture runs on a
+    side stream ordered after the current one (the calling thread's own,
+    ``_capture_stream``), in thread-local mode, so
+    other threads' CUDA calls (the LRB loop's trainer beside its
+    server) are not refused while it records; ``pool`` is a memory pool
+    to share with other graphs that never run at once. Counter adds made
+    while it records (``Counter.add``) go to the graph's tally. A
+    failure raises."""
+    graph = torch.cuda.CUDAGraph()
+    current = torch.cuda.current_stream(dev)
+    side = _capture_stream(dev)
+    side.wait_stream(current)
+    tally: list = []
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        _capturing.tally = tally
+        try:
+            fn()
+        except BaseException:
+            _capturing.tally = None
+            # the capture is void; fn's error says why
+            with contextlib.suppress(Exception):
+                graph.capture_end()
+            raise
+        _capturing.tally = None
+        graph.capture_end()
+    current.wait_stream(side)
+    return Captured(graph, tally)
+
+
+def _capture_stream(dev: torch.device):
+    """The calling thread's capture stream on ``dev``, made once. The
+    allocator reuses a freed block only for the stream it was allocated
+    on, so graphs that share a memory pool reuse each other's freed
+    memory only when they are captured on one stream (torch.cuda.graph
+    keeps one default capture stream for the same reason)."""
+    streams = getattr(_capturing, "streams", None)
+    if streams is None:
+        streams = _capturing.streams = {}
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    side = streams.get(key)
+    if side is None:
+        side = streams[key] = torch.cuda.Stream(dev)
+    return side
+
+
 class Counter:
     """An integer that several threads may add to (launch and fallback
     counts a run reads to show which route it took)."""
@@ -84,6 +153,10 @@ class Counter:
         self._n = 0
 
     def add(self, k: int = 1) -> None:
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:       # recorded, not launched: replays count
+            tally.append((self, k))
+            return
         with self._lock:
             self._n += k
 

@@ -211,8 +211,14 @@ def test_sequential_loop_matches_jax():
         for k in PARITY_KEYS:
             assert a.get(k) == b.get(k), (a["window"], k, a.get(k),
                                           b.get(k))
-    assert all(r["compile_s"] == 0.0 for r in res_t)   # nothing built
-    assert "step_cache_hits" not in res_t[0]
+    # nothing built and no graph captured on the CPU. The three windows
+    # keep 40, 49 and 34 non-trivial features and B of 128, 64 and 128:
+    # the port's step geometry holds F exactly, so no window lands on an
+    # earlier one's (the JAX package pads F to a multiple of 8, and its
+    # third window hits the first's)
+    assert all(r["compile_s"] == 0.0 for r in res_t)
+    assert [r["step_cache_hits"] for r in res_t] == [0, 0, 0]
+    assert [r["step_cache_hits"] for r in res_j] == [0, 0, 1]
     assert text_t == text_j
 
 
