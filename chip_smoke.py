@@ -130,7 +130,7 @@ the entry points a user calls:
    400 healthy 64-row requests a tenant over HTTP, then
    ``fleet.predict.lrb_a@1+:sleep80``): lrb_a refused with HTTP 429 with
    budget left and not exhausted, lrb_b served bit-equal, faults
-   cleared. Then 2,000 requests of 64 rows (LRB rows, HIGGS rows for
+   cleared. Then 1,024 requests of 64 rows (LRB rows, HIGGS rows for
    ``higgs``) in the ratio 7:7:2 from 32 ``FleetClient`` threads over
    localhost HTTP, coalesce_us 2000 and max_batch 4096, every answer
    bit-equal to ``LGBM_BoosterPredictForMat`` on a freshly loaded handle
@@ -140,7 +140,7 @@ the entry points a user calls:
    p50/p99 at its client, the batches' rows p50/p99, K4 launches a
    request, and, over one request in 8 sent again under the profiler,
    the card's busy share and the host's top operators; the same for the
-   first 500 requests with coalesce_us 0. Then 8 clients on lrb_a
+   first 250 requests with coalesce_us 0. Then 8 clients on lrb_a
    while it is registered 3 times, two model texts in turn: no failed
    request, every answer bit-equal to its version's, ``fleet/
    model_swaps`` +3. Last, phase 19's trace cut to 2 windows of 62,500
@@ -180,20 +180,20 @@ the entry points a user calls:
    multiclass at UCI Covertype's shape (``make_covertype_like``:
    464,809 train rows x 54 columns, 10 numerical, 4 + 40 one-hot; 7
    classes; the 116,203-row holdout as a valid set with multi_logloss
-   and multi_error), 255 leaves, max_bin 255, 3 iterations (21 trees)
+   and multi_error), 255 leaves, max_bin 255, 2 iterations (14 trees)
    through ``train``: ms an iteration, the card's busy share, K1/K2/K3
    launches an iteration (K3 7 + 7), K3 on class row 3 of the train
    scores bit-equal to its plain version, K4's [N, 7] holdout scores and
    leaf indices bit-equal to plain (``check_forest``), each row's class
    probabilities summing to 1 within 1e-6; (b) ``regression`` and
    ``regression_l1`` at YearPredictionMSD's shape and published split
-   (``make_year_like``: 463,715 / 51,630 rows x 90), 3 iterations of
+   (``make_year_like``: 463,715 / 51,630 rows x 90), 2 iterations of
    255 leaves with l2 / l1 on the test rows: L2 at the hilo3 wave width
    W=40, the renewal's ms a tree (CUDA events), renewed outputs that
    differ from the grower's, the renewal bit-equal to its CPU run on the
    same leaf ids and residuals; (c) ``lambdarank`` at MSLR-WEB10K Fold
    1's shape (``make_mslr_like``: 723,412 rows x 136 in 6,000 queries,
-   relevance 0-4, a tail to 908 rows a query), 3 iterations of 255
+   relevance 0-4, a tail to 908 rows a query), 2 iterations of 255
    leaves, NDCG@1,3,5,10 on a 1,000-query holdout within 1e-9 of the
    host's float64 NDCG (``ndcg_np``), the gradient step's ms and its
    chunks; (d) card against CPU (``card_and_cpu``, ``judge_trees``) at
@@ -219,7 +219,7 @@ the entry points a user calls:
    rows through ``PredictForMat`` bit-equal to the plain forest
    (``check_forest``) and within 1e-5 of the float64 host walk on the
    rescaled trees; (c) RF at Covertype's shape (phase 22's generator, 7
-   classes, bagging 0.632 every iteration, 255 leaves, 3 iterations):
+   classes, bagging 0.632 every iteration, 255 leaves, 2 iterations):
    K4's [116,203, 7] holdout outputs bit-equal to plain with
    ``average_output``, each row's probabilities summing to 1 within
    1e-6; (d) forced splits on phase 6's rows (the root on feature 50,
@@ -368,9 +368,41 @@ the entry points a user calls:
    csrc/categorical.cu) against its plain version on the airline run's
    widest launch; then the next LRB window's fresh booster reports
    step-cache hits (it captures only wave widths the first never took).
+   (c) the step geometry pads F to a multiple of 8 with trivial features
+   (``step_cache.bucket_features``; the LRB window's 52 to 56, HIGGS's 28
+   to 32; (b) prints each run's F and its state's): K1 and the root K2
+   at each of these cached geometries (``PAD_SHAPES``: the rows padded
+   as the state pads them, synthetic inputs) without the pad, with it as
+   zero bins and as the state's spread bins (the row index mod B), the
+   real features' histograms and leaf ids bit-equal, each timed
+   (``pad_reading``);
+29. the linkable C ABI and GOSS's legacy sampler, in at most
+   ``PHASE29_BUDGET_S``: (a) after phase 28 in its directory, phase 6's
+   window (1,000,000 x 53) and its next 65,536 rows written as CSR planes
+   (``csr_planes``) and labels; the port's C library
+   (``cuda_build.capi_library``: csrc/c_api_embed.cpp by g++ against
+   this Python) and ``CAPI_DRIVER`` (the fork's src/test.cpp:243-298
+   calls: DatasetCreateFromCSR, SetField("label"), BoosterCreate, 50
+   UpdateOneIter, PredictForCSR, SaveModel) built; the driver run as a
+   subprocess with ``TRAIN_PARAMS`` and ``tpu_run_report`` and no
+   ``LGBM_TPU_PLATFORM`` (cuda:0): its run report names cuda and this
+   card with K1, K2, K3 and K4 launched; the same planes through
+   ``capi`` in this process give its model file byte for byte and its
+   predictions bit for bit; each route's seconds to create the dataset
+   and booster, for 50 iterations and to predict; (b) right after phase
+   23: threefry2x32 uniforms (ops/threefry.py) over 1,000,000 rows
+   bit-equal card against CPU for three seeds; ``GOSS_LEGACY_PARAMS``
+   (``tpu_goss_hash=0``) on 100,000 LRB rows, 10 iterations (2 of
+   warm-up), on the card (off the step cache) against the side process's
+   CPU half: each sampled iteration's kept rows and amplified g and h
+   bit-equal to the plain sampler on the CPU on the same gradients, and
+   the card's kept rows the CPU's, or parting first on a near tie at the
+   top-k threshold, with the trees equal before it or parting on a near
+   tie (``judge_goss``); then ms an iteration at phase 6's full window,
+   the legacy sampler against the hashed one, cached and uncached.
 
-The CPU halves of the card-vs-CPU checks of phases 9, 14, 18, 22 and 23
-train in a side process started after phase 20 (``CpuJobs``,
+The CPU halves of the card-vs-CPU checks of phases 9, 14, 18, 22, 23
+and 29(b) train in a side process started after phase 20 (``CpuJobs``,
 ``train_on`` as on the main process), while the card runs phases 6-23;
 the checks read them back. The two processes run on disjoint halves of
 the cores until the side process ends; 20 iterations of
@@ -465,8 +497,8 @@ PARITY_KEYS = ("window", "eval_rows", "fp_rate", "fn_rate",
                "train_rows", "opt_obj_hit_ratio", "opt_byte_hit_ratio",
                "staleness_windows", "degraded", "degrade_reason")
 # phase 20: the fleet scoring daemon (lightgbm_tpu_torch/serve/)
-FLEET_REQUESTS = 2_000          # the coalesced run
-FLEET_REPEAT = 500              # the first of them again, coalesce_us 0
+FLEET_REQUESTS = 1_024          # the coalesced run: whole rounds of FLEET_MIX
+FLEET_REPEAT = 250              # the first of them again, coalesce_us 0
 FLEET_CLIENTS = 32              # FleetClient threads, one HTTP call each
 FLEET_ROWS = 64                 # rows a request (the LRB loop's calls)
 FLEET_MIX = (("lrb_a", 7), ("lrb_b", 7), ("higgs", 2))
@@ -506,7 +538,7 @@ MSLR_FEATURES = 136
 MSLR_HOLDOUT_QUERIES = 1_000
 MSLR_MAX_QUERY = 908            # the longest query of the generator
 OBJ_PARAMS = {"num_leaves": 255, "max_bin": 255, "verbose": -1}
-OBJ_ITERS = 3
+OBJ_ITERS = 2
 OBJ_CPU_ROWS = 20_000           # (d): card against CPU
 OBJ_CPU_LEAVES = 31
 OBJ_CPU_ITERS = 5
@@ -552,7 +584,7 @@ DART_PARAMS = {**TRAIN_PARAMS, "boosting": "dart", "drop_rate": "0.1",
 RF_PARAMS = {**OBJ_PARAMS, "objective": "multiclass",
              "num_class": COVERTYPE_CLASSES, "boosting": "rf",
              "bagging_fraction": 0.632, "bagging_freq": 1}
-RF_ITERS = 3
+RF_ITERS = 2
 FORCED_ITERS = 10
 CONTIN_ITERS = 15               # a first model, then as many continued
 RESET_ITERS = 10                # after ResetTrainingData on the next window
@@ -560,6 +592,15 @@ VAR_CPU_ROWS = 20_000           # (f): card against CPU
 VAR_CPU_ITERS = 5
 PROBE_ROWS = 200_000            # contention_probe: LRB rows, iterations
 PROBE_ITERS = 20
+PHASE29_BUDGET_S = 90.0         # (a) and (b) together
+GOSS_LEGACY_PARAMS = {          # TRAIN_PARAMS without bagging (GOSS
+    **{k: v for k, v in TRAIN_PARAMS.items()   # refuses it), 2 of warm-up
+       if not k.startswith("bagging")},
+    "boosting": "goss", "tpu_goss_hash": "0", "learning_rate": "0.5",
+    "num_iterations": "10", "top_rate": "0.2", "other_rate": "0.1"}
+GOSS_LEGACY_ITERS = 10
+UNIFORM_ROWS = 1_000_000        # (b): threefry uniforms, card against CPU
+GOSS_TIE = 1e-4                 # (b): a row's score off the top-k threshold
 
 
 def make_higgs_like(n_rows: int, n_features: int = 28, seed: int = 7):
@@ -1538,6 +1579,10 @@ def cpu_job(name: str) -> tuple:
         iters = (int(TRAIN_PARAMS["num_iterations"]) if name == "lrb"
                  else CPU_Q_ITERS)
         return params, X, lrb_labels(X, seed=32), iters, {}, None
+    if name == "goss_legacy":
+        X = make_lrb_rows(CPU_ROWS, seed=31)
+        return (dict(GOSS_LEGACY_PARAMS), X, lrb_labels(X, seed=32),
+                GOSS_LEGACY_ITERS, {}, None)
     if name.startswith("obj:"):
         case = next(c for c in objective_cases() if c[0] == name[4:])
         _, X, y, params, kw, fobj = case
@@ -1555,7 +1600,8 @@ CPU_JOBS = ("lrb", "lrb_int8", "airline_exact", "airline_int8",
             "obj:lambdarank", "obj:fobj", "var:goss", "var:dart",
             "var:dart uniform", "var:dart xgboost",
             "var:dart uniform xgboost", "var:rf binary",
-            "var:rf multiclass", "var:forced", "var:continued")
+            "var:rf multiclass", "var:forced", "var:continued",
+            "goss_legacy")
 
 
 def split_cores() -> tuple:
@@ -1575,6 +1621,27 @@ def pin_threads(cores) -> None:
             os.sched_setaffinity(int(tid), cores)
         except ProcessLookupError:      # a thread that has ended
             pass
+
+
+@contextlib.contextmanager
+def goss_samples():
+    """The legacy GOSS sampler's calls while the block runs (each sampled
+    iteration's key, g, h and mask in, and its outputs, on the host)."""
+    from lightgbm_tpu_torch.models import boosting as bm
+    calls = []
+    sample = bm.legacy_goss_sample
+
+    def spy(g, h, mask, key, top, other):
+        out = sample(g, h, mask, key, top, other)
+        if key:
+            calls.append((key, g.cpu(), h.cpu(), mask.cpu(),
+                          [o.cpu() for o in out]))
+        return out
+    bm.legacy_goss_sample = spy
+    try:
+        yield calls
+    finally:
+        bm.legacy_goss_sample = sample
 
 
 def cpu_worker(names, out: str, cores) -> None:
@@ -1599,12 +1666,14 @@ def cpu_worker(names, out: str, cores) -> None:
             params, X, y, iters, kw, fobj = cpu_job(name)
         if i == 0:
             open(os.path.join(out, "busy"), "w").close()
-        b, metrics, secs, inputs = train_on("cpu", params, X, y, iters,
-                                            fobj, init, **kw)
+        with goss_samples() as samples:
+            b, metrics, secs, inputs = train_on("cpu", params, X, y, iters,
+                                                fobj, init, **kw)
         path = os.path.join(out, f"{name}.pt")
         torch.save({"text": b.model_to_string(), "metrics": metrics,
                     "seconds": secs, "inputs": inputs,
-                    "records": b._gbdt.records}, path + ".part")
+                    "records": b._gbdt.records, "samples": samples},
+                   path + ".part")
         os.replace(path + ".part", path)
 
 
@@ -2869,7 +2938,8 @@ def lrb_loop_phase(dev, smi: str, tmp: str) -> dict:
                  f"{q['batch_p99']:.3f}, a request "
                  f"{q['request_p50']:.3f}/{q['request_p99']:.3f})"
                  if calls else "")
-              + f"; launches K1 {tr['K1']}, K2 {tr['K2']}, K3 "
+              + f"; step_cache_hits {r.get('step_cache_hits')}"
+              f"; launches K1 {tr['K1']}, K2 {tr['K2']}, K3 "
               f"{tr['K3']}, K4 {probes['eval'].get(w, 0)}; OPT "
               f"share {r['opt_obj_hit_ratio']}, fp {r.get('fp_rate')}"
               f", fn {r.get('fn_rate')}")
@@ -5295,9 +5365,11 @@ def check_sums_f64(bins, seen: RouteSpy) -> list:
                 g, h, mask, ids, tbl, hist = r
                 slot_ids = tbl[hw.TBL_SMALL].to(torch.int64)
                 count = mask > 0
+            # the step cache's pad features past the set's F are
+            # trivial (num_bin 1, never read); its pad columns past the
+            # set's n rows are uncounted (mask 0, leaf id -1 at the root)
+            hist = hist[:, :bins.shape[0]]
             W, _, B, _ = hist.shape
-            # the step cache's pad columns past the set's n rows are
-            # uncounted (mask 0, leaf id -1 at the root)
             g, h, ids, count = g[:n], h[:n], ids[:n], count[:n]
             slot = torch.full((n,), -1, dtype=torch.int64,
                               device=bins.device)
@@ -5721,6 +5793,9 @@ REG_ROWS = (1, 64, 4_096, 262_144)   # K4 from rows against its plain version
 REG_CALLS = 1_000                    # 64-row PredictForMat calls a dtype
 REG_AIRLINE_ROWS = 1_000_000         # (b)'s airline rows: phase 15's cut
 REG_PROFILED = 2                     # iterations in each profiler window
+PAD_SHAPES = {  # (c): a cached geometry's K1 (rows padded, F, W, B, leaves)
+    "lrb": (1_048_576, 52, 15, 256, 80),
+    "higgs": (11_534_336, 28, 32, 64, 64)}
 
 
 def _trace_counts(fn, tmp: str) -> tuple:
@@ -5748,6 +5823,58 @@ def _trace_counts(fn, tmp: str) -> tuple:
                        if e.get("cat") == "kernel")
     kernels = sum(e.get("cat") == "kernel" for e in events)
     return traced, counts, wall, busy, kernels
+
+
+def pad_reading(dev, smi: str, name: str, n: int, F: int, W: int, B: int,
+                leaf_hi: int) -> dict:
+    """Phase 28(c): the f32 pass at a cached geometry's rows, F, W and B
+    (f32_plan_sweep.py's synthetic inputs), K1 at W slots and the root
+    K2 (one slot, every row counted), each without a pad, with F padded
+    as the step cache pads it (``step_cache.bucket_features``) by zero
+    bins, and by the bins a state gives its pad features (the row index
+    mod B, ``WaveState.load``): the real features' histograms (and K1's
+    leaf ids) bit-equal in all three (the row ranges are planned from
+    F's bucket, ``hist_wave.hist_plan``); each launch's ms over 20."""
+    import torch
+    from f32_plan_sweep import inputs
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    from lightgbm_tpu_torch.ops import step_cache
+    Fp = step_cache.bucket_features(F)
+    pads = {"zero": torch.zeros((Fp - F, n), dtype=torch.uint8, device=dev),
+            "spread": (torch.arange(n, device=dev) % B).to(
+                torch.uint8).expand(Fp - F, n)}
+    plan = hw.hist_plan(n, F, W, B)
+    assert plan.rows_per_range == hw.hist_plan(n, Fp, W, B).rows_per_range
+    out = {"rows": n, "features": F, "padded_features": Fp,
+           "ranges": plan.ranges, "rows_per_range": plan.rows_per_range}
+    for kind, slots, hi in (("K1", W, leaf_hi), ("K2", 1, 1)):
+        args, kw = inputs(hw, torch, kind, n, F, slots, B, hi, False, 29, dev)
+        fn = (hw.fused_partition_histogram if kind == "K1"
+              else hw.wave_histogram)
+        want = fn(*args, **kw)
+        ms = {"none": cuda_ms(lambda: fn(*args, **kw), 20)}
+        for pad, rows in pads.items():
+            padded = (torch.cat([args[0], rows]), *args[1:])
+            got = fn(*padded, **kw)
+            if kind == "K1":
+                assert torch.equal(got[0], want[0]), f"{name}: pad moved rows"
+                got, ref = got[1], want[1]
+            else:
+                ref = want
+            assert torch.equal(got[:, :F], ref), f"{name} {kind}: {pad} pad"
+            ms[pad] = cuda_ms(lambda: fn(*padded, **kw), 20)
+            del padded
+        out[kind] = ms
+        print(f"(c) {name} {kind} at [{F}, {n}], W={slots}, B={B}: "
+              f"{ms['none']:.4f} ms; F padded to {Fp} with zero bins "
+              f"{ms['zero']:.4f} ms ({ms['zero'] / ms['none']:.3f}x), with "
+              f"the state's spread bins {ms['spread']:.4f} ms "
+              f"({ms['spread'] / ms['none']:.3f}x); the real features' "
+              f"histograms bit-equal, one order of addition ({plan.ranges} "
+              f"K1 ranges of {plan.rows_per_range} rows, from F's bucket); "
+              f"{smi}")
+        del args
+    return out
 
 
 def registry_phases(dev, smi: str, higgs_text: str, higgs_X: np.ndarray,
@@ -5991,7 +6118,11 @@ def registry_phases(dev, smi: str, higgs_text: str, higgs_X: np.ndarray,
                                    + s1["misses"] - s0["misses"]),
                        "peak_bytes": peak,
                        "held_bytes": (bst._gbdt._step_pool().nbytes()
-                                      if sc == -1 else 0)}
+                                      if sc == -1 else 0),
+                       # F as the step geometry pads it
+                       "features": (bst._gbdt._step_pool().key[3]
+                                    if sc == -1 else
+                                    bst._gbdt.train_data.num_features)}
             if sc == -1:
                 # the main path's launches under the profiler: the trace
                 # sees every kernel a graph replays
@@ -6017,7 +6148,9 @@ def registry_phases(dev, smi: str, higgs_text: str, higgs_X: np.ndarray,
         train[label] = run
         v = run[-1]
         print(f"(b) {label}: {X.shape[0]} x {X.shape[1]}, {iters} "
-              f"iterations; model text with tpu_step_cache -1 equal to 0; "
+              f"iterations, {run[0]['features']} features (the step "
+              f"geometry's F {v['features']}); model text with "
+              f"tpu_step_cache -1 equal to 0; "
               f"cached {v['ms']:.1f} ms/iteration ({v['graphs']} graphs "
               f"captured in {v['capture_s']:.2f} s), uncached "
               f"{run[0]['ms']:.1f}; peak device memory above the run's "
@@ -6092,6 +6225,11 @@ def registry_phases(dev, smi: str, higgs_text: str, higgs_X: np.ndarray,
           f"in {out['next_window']['seconds']:.2f} s; {step_cache.stats()}")
     del Xl, yl, Xn, yn, ds
 
+    # (c) the feature pad's cost: K1 at the LRB window's and HIGGS's
+    # cached geometry, with and without the pad features
+    out["pad"] = {name: pad_reading(dev, smi, name, *shape)
+                  for name, shape in PAD_SHAPES.items()}
+
     r = readings["higgs"][REG_ROWS[-1]]
     out["kernel"] = {
         "name": "forest_predict_from_x", "route": "cuda",
@@ -6107,6 +6245,374 @@ def registry_phases(dev, smi: str, higgs_text: str, higgs_X: np.ndarray,
     print(f"phase 28: {wall:.1f} s (budget 150 s)")
     assert wall <= 150.0, f"phase 28 took {wall:.1f} s"
     return out
+
+
+CAPI_DRIVER = r"""
+// The fork's call pattern (reference src/test.cpp:243-298) on one window:
+// DatasetCreateFromCSR -> SetField("label") -> BoosterCreate ->
+// UpdateOneIter x iterations -> PredictForCSR (the next rows) ->
+// SaveModel, against the port's liblightgbm_tpu_torch.so.
+//   driver <dir> <iterations>
+// <dir> holds the CSR planes (indptr, indices, data; next_ likewise),
+// label.bin and params.txt (one key=value a line); the driver writes
+// model.txt and pred.bin there and prints its seconds as JSON.
+#include <chrono>
+#include <cstdint>
+#include <cstdio>
+#include <fstream>
+#include <iterator>
+#include <string>
+#include <unordered_map>
+#include <vector>
+
+typedef void* DatasetHandle;
+typedef void* BoosterHandle;
+typedef std::unordered_map<std::string, std::string> Params;
+extern "C" const char* LGBM_GetLastError();
+extern "C" int LGBM_DatasetCreateFromCSR(
+    const void*, int, const int32_t*, const void*, int, int64_t, int64_t,
+    int64_t, const Params, const DatasetHandle, DatasetHandle*);
+extern "C" int LGBM_DatasetSetField(DatasetHandle, const char*,
+                                    const void*, int, int);
+extern "C" int LGBM_DatasetFree(DatasetHandle);
+extern "C" int LGBM_BoosterCreate(const DatasetHandle, Params,
+                                  BoosterHandle*);
+extern "C" int LGBM_BoosterUpdateOneIter(BoosterHandle, int*);
+extern "C" int LGBM_BoosterCalcNumPredict(BoosterHandle, int, int, int,
+                                          int64_t*);
+extern "C" int LGBM_BoosterPredictForCSR(
+    BoosterHandle, const void*, int, const int32_t*, const void*, int,
+    int64_t, int64_t, int64_t, int, int, Params, int64_t*, double*);
+extern "C" int LGBM_BoosterSaveModel(BoosterHandle, int, int,
+                                     const char*);
+extern "C" int LGBM_BoosterFree(BoosterHandle);
+
+#define CHECK(x) if ((x) != 0) { \
+    printf("FAIL %s: %s\n", #x, LGBM_GetLastError()); return 1; }
+
+template <typename T>
+std::vector<T> load(const std::string& path) {
+  std::ifstream f(path, std::ios::binary);
+  std::vector<char> raw((std::istreambuf_iterator<char>(f)),
+                        std::istreambuf_iterator<char>());
+  std::vector<T> out(raw.size() / sizeof(T));
+  std::copy(raw.begin(), raw.end(), reinterpret_cast<char*>(out.data()));
+  return out;
+}
+
+double since(std::chrono::steady_clock::time_point t0) {
+  return std::chrono::duration<double>(
+      std::chrono::steady_clock::now() - t0).count();
+}
+
+int main(int argc, char** argv) {
+  const std::string dir = argv[1];
+  const int iterations = std::stoi(argv[2]);
+  std::vector<int32_t> indptr = load<int32_t>(dir + "/indptr.bin");
+  std::vector<int32_t> indices = load<int32_t>(dir + "/indices.bin");
+  std::vector<double> data = load<double>(dir + "/data.bin");
+  std::vector<float> label = load<float>(dir + "/label.bin");
+  std::vector<int32_t> n_indptr = load<int32_t>(dir + "/next_indptr.bin");
+  std::vector<int32_t> n_indices = load<int32_t>(dir + "/next_indices.bin");
+  std::vector<double> n_data = load<double>(dir + "/next_data.bin");
+  const int64_t ncol = std::stoll(argv[3]);
+  Params params;
+  std::ifstream pf(dir + "/params.txt");
+  for (std::string line; std::getline(pf, line);) {
+    size_t eq = line.find('=');
+    if (eq != std::string::npos)
+      params[line.substr(0, eq)] = line.substr(eq + 1);
+  }
+  const int n = (int)label.size();
+  const int n_next = (int)n_indptr.size() - 1;
+
+  auto t0 = std::chrono::steady_clock::now();
+  DatasetHandle ds = nullptr;
+  CHECK(LGBM_DatasetCreateFromCSR(indptr.data(), 2, indices.data(),
+                                  data.data(), 1, (int64_t)indptr.size(),
+                                  (int64_t)data.size(), ncol, params,
+                                  nullptr, &ds));
+  CHECK(LGBM_DatasetSetField(ds, "label", label.data(), n, 0));
+  BoosterHandle bst = nullptr;
+  CHECK(LGBM_BoosterCreate(ds, params, &bst));
+  double create_s = since(t0);
+
+  t0 = std::chrono::steady_clock::now();
+  int fin = 0, done = 0;
+  for (; done < iterations && !fin; done++) {
+    CHECK(LGBM_BoosterUpdateOneIter(bst, &fin));
+  }
+  double train_s = since(t0);
+
+  t0 = std::chrono::steady_clock::now();
+  int64_t len = 0;
+  CHECK(LGBM_BoosterCalcNumPredict(bst, n_next, 0, -1, &len));
+  std::vector<double> pred(len);
+  CHECK(LGBM_BoosterPredictForCSR(bst, n_indptr.data(), 2,
+                                  n_indices.data(), n_data.data(), 1,
+                                  (int64_t)n_indptr.size(),
+                                  (int64_t)n_data.size(), ncol, 0, -1,
+                                  params, &len, pred.data()));
+  double predict_s = since(t0);
+
+  CHECK(LGBM_BoosterSaveModel(bst, 0, -1, (dir + "/model.txt").c_str()));
+  std::ofstream out(dir + "/pred.bin", std::ios::binary);
+  out.write(reinterpret_cast<const char*>(pred.data()),
+            pred.size() * sizeof(double));
+  out.close();
+  CHECK(LGBM_BoosterFree(bst));
+  CHECK(LGBM_DatasetFree(ds));
+  printf("DRIVER {\"create_s\": %.6f, \"train_s\": %.6f, "
+         "\"predict_s\": %.6f, \"iterations\": %d, \"rows\": %d, "
+         "\"next_rows\": %d}\n", create_s, train_s, predict_s, done, n,
+         n_next);
+  return 0;
+}
+"""
+
+
+def csr_planes(X: np.ndarray) -> tuple:
+    """(indptr int32, indices int32, data float64) of X's non-zero
+    entries, row by row."""
+    rows, cols = np.nonzero(X)
+    indptr = np.zeros(X.shape[0] + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=X.shape[0]), out=indptr[1:])
+    return indptr, cols.astype(np.int32), X[rows, cols].astype(np.float64)
+
+
+def capi_driver_phase(dev, smi: str, tmp: str) -> dict:
+    """Phase 29(a): the fork's call pattern from C at the LRB window's
+    full width. Phase 6's window (1,000,000 x 53) and its next 65,536
+    rows as CSR planes and labels in a directory; the port's C library
+    (``cuda_build.capi_library``, g++ against this Python) and a C++
+    driver (``CAPI_DRIVER``) built; the driver run as a subprocess with
+    ``TRAIN_PARAMS`` and ``tpu_run_report`` (no ``LGBM_TPU_PLATFORM``:
+    cuda:0). Its report names cuda and this card, with K1-K4 launched;
+    the same planes through ``capi`` in this process give its model file
+    byte for byte and its predictions bit for bit. Returns the driver's
+    and this process's seconds and the report's launches."""
+    import site
+    import torch
+    from lightgbm_tpu_torch import capi
+    from lightgbm_tpu_torch.obs.recorder import load_run_report
+    from lightgbm_tpu_torch.utils import cuda_build
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "capi")
+    os.makedirs(d)
+    X = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    y = lrb_labels(X, seed=22)
+    Xn = make_lrb_rows(LRB_NEXT_ROWS, seed=23)
+    planes = csr_planes(X)
+    nplanes = csr_planes(Xn)
+    del X, Xn
+    for prefix, arrays in (("", planes), ("next_", nplanes)):
+        for name, a in zip(("indptr", "indices", "data"), arrays):
+            a.tofile(os.path.join(d, f"{prefix}{name}.bin"))
+    y.tofile(os.path.join(d, "label.bin"))
+    report = os.path.join(d, "report.json")
+    params = {**TRAIN_PARAMS, "tpu_run_report": report}
+    with open(os.path.join(d, "params.txt"), "w") as fh:
+        fh.write("".join(f"{k}={v}\n" for k, v in params.items()))
+    write_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    lib = cuda_build.capi_library()
+    with open(os.path.join(d, "driver.cpp"), "w") as fh:
+        fh.write(CAPI_DRIVER)
+    exe = os.path.join(d, "driver")
+    libdir = os.path.dirname(lib)
+    subprocess.run(["g++", "-O2", "-std=c++14", os.path.join(d, "driver.cpp"),
+                    "-o", exe, f"-L{libdir}", "-llightgbm_tpu_torch",
+                    f"-Wl,-rpath,{libdir}"], check=True)
+    build_s = time.perf_counter() - t0
+    env = {k: v for k, v in os.environ.items() if k != "LGBM_TPU_PLATFORM"}
+    env["PYTHONPATH"] = ":".join([ROOT] + site.getsitepackages())
+    iters = int(TRAIN_PARAMS["num_iterations"])
+    t0 = time.perf_counter()
+    run = subprocess.run([exe, d, str(iters), str(LRB_FEATURES)], env=env,
+                         capture_output=True, text=True, timeout=300)
+    driver_wall = time.perf_counter() - t0
+    line = next((ln for ln in run.stdout.splitlines()
+                 if ln.startswith("DRIVER ")), None)
+    assert run.returncode == 0 and line, (run.stdout, run.stderr[-3000:])
+    drv = json.loads(line[len("DRIVER "):])
+    assert drv["iterations"] == iters, drv
+    rep = load_run_report(report)
+    meta, launched = rep["meta"], rep["extra"]["kernel_launches"]
+    name = torch.cuda.get_device_name(0)
+    assert meta["device"].startswith("cuda") and \
+        meta["device_name"] == name, meta
+    assert all(launched[k] > 0 for k in ("K1", "K2", "K3", "K4")), launched
+    assert len(rep["iterations"]) == iters
+    with open(os.path.join(d, "model.txt"), "rb") as fh:
+        c_text = fh.read()
+    c_pred = np.fromfile(os.path.join(d, "pred.bin"), np.float64)
+    assert c_pred.shape == (LRB_NEXT_ROWS,) and np.isfinite(c_pred).all()
+
+    # the same planes through the port's Python capi, here
+    reset_counts()
+    ip, ix, dv = planes
+    t0 = time.perf_counter()
+    ds = capi.LGBM_DatasetCreateFromCSR(ip, 2, ix, dv, 1, ip.size, dv.size,
+                                        LRB_FEATURES, parameters=params)
+    capi.LGBM_DatasetSetField(ds, "label", y)
+    bst = capi.LGBM_BoosterCreate(ds, params)
+    torch.cuda.synchronize()
+    py_create = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        if capi.LGBM_BoosterUpdateOneIter(bst):
+            break
+    torch.cuda.synchronize()
+    py_train = time.perf_counter() - t0
+    nip, nix, ndv = nplanes
+    t0 = time.perf_counter()
+    py_pred = np.asarray(capi.LGBM_BoosterPredictForCSR(
+        bst, nip, 2, nix, ndv, 1, nip.size, ndv.size, LRB_FEATURES))
+    py_predict = time.perf_counter() - t0
+    py_model = os.path.join(d, "model_py.txt")
+    capi.LGBM_BoosterSaveModel(bst, filename=py_model)
+    capi.LGBM_BoosterFree(bst)
+    capi.LGBM_DatasetFree(ds)
+    counts = read_counts()
+    with open(py_model, "rb") as fh:
+        assert fh.read() == c_text, "C driver's model text != capi's"
+    assert np.array_equal(py_pred.reshape(-1), c_pred), \
+        "C driver's predictions != capi's"
+    assert all(counts[k] > 0 for k in ("K1", "K2", "K3", "K4")), counts
+    wall = time.perf_counter() - t_phase
+    it_ms = 1e3 * drv["train_s"] / iters
+    print(f"phase 29(a) ({smi}): the C driver (liblightgbm_tpu_torch.so, "
+          f"built with the driver in {build_s:.2f} s) on cuda:0, "
+          f"{LRB_TRAIN_ROWS} x {LRB_FEATURES} CSR rows ({dv.size} entries) "
+          f"and {LRB_NEXT_ROWS} next rows: dataset, label and booster "
+          f"{drv['create_s']:.3f} s (its first call starts Python, torch "
+          f"and CUDA), {iters} iterations "
+          f"{drv['train_s']:.3f} s ({it_ms:.1f} ms an iteration), "
+          f"predict {drv['predict_s']:.3f} s; the process "
+          f"{driver_wall:.1f} s; "
+          f"its report: {meta['device']}, {meta['device_name']}, launches "
+          f"{launched}; this process's capi on the same planes: "
+          f"{py_create:.3f} s, {py_train:.3f} s "
+          f"({1e3 * py_train / iters:.1f} ms an iteration), predict "
+          f"{py_predict:.3f} s, launches {counts}; model file byte-equal, "
+          f"predictions bit-equal; files written in {write_s:.1f} s")
+    return {"driver": drv, "driver_wall_s": driver_wall,
+            "python": {"create_s": py_create, "train_s": py_train,
+                       "predict_s": py_predict},
+            "report_launches": launched, "capi_launches": counts,
+            "wall_s": wall}
+
+
+def judge_goss(runs: dict, card_calls, cpu_calls, warm: int,
+               top_rate: float) -> str:
+    """Phase 9's rule for GOSS, card against CPU: each sampled
+    iteration's kept rows equal, or the first iteration where they part
+    parts on a near tie at the top-k threshold (each differing row's
+    ``Σ |g h|`` within GOSS_TIE of its run's threshold on both runs, at
+    most 1% of the rows: the runs' scores differ by f32 roundings, the
+    rows of one leaf path share a score and flip together, and a flipped
+    row's g and h are then amplified); the trees before it equal, or
+    parting on a near tie (``judge_trees``); train AUC within
+    AUC_TOL."""
+    import torch
+    part = None
+    for j, (c, h) in enumerate(zip(card_calls, cpu_calls)):
+        assert c[0] == h[0], "the runs drew other keys"
+        if not torch.equal(c[4][2], h[4][2]):
+            part = j
+            break
+    gm, cm = runs["cuda"][0]._gbdt.models, runs["cpu"][0]._gbdt.models
+    diff = tree_diff(gm, cm)
+    if part is None or (diff is not None and diff[0] < warm + part):
+        return judge_trees(runs)[1]
+    a, b = runs["cuda"][1]["auc"], runs["cpu"][1]["auc"]
+    assert abs(a - b) <= AUC_TOL, f"card vs CPU auc: {a} against {b}"
+    c, h = card_calls[part], cpu_calls[part]
+    rows = torch.nonzero(c[4][2] != h[4][2]).reshape(-1)
+    assert 0 < rows.numel() <= 0.01 * c[4][2].numel(), rows.numel()
+    worst = 0.0
+    for call in (c, h):
+        g, hh = call[1], call[2]
+        score = (g * hh).abs().sum(dim=0)
+        n = score.shape[0]
+        thr = torch.topk(score, max(1, int(n * top_rate))).values[-1]
+        gap = float(((score[rows] - thr).abs() / thr).max())
+        worst = max(worst, gap)
+    assert worst <= GOSS_TIE, \
+        f"goss kept rows part at iteration {warm + part + 1}, not a tie"
+    return (f"trees equal up to iteration {warm + part + 1}, where "
+            f"{rows.numel()} kept rows part on a near tie at the top-k "
+            f"threshold (scores within {worst:.2g} of it, relative); "
+            f"train auc {a:.6f} against {b:.6f}")
+
+
+def goss_legacy_phase(dev, smi: str, cpu_jobs) -> dict:
+    """Phase 29(b): GOSS's legacy sampler (``tpu_goss_hash=0``) on the
+    card. Threefry2x32 uniforms (ops/threefry.py) over UNIFORM_ROWS rows
+    bit-equal to the CPU's, for three seeds; ``GOSS_LEGACY_PARAMS`` on
+    100,000 LRB rows, 10 iterations (2 of warm-up) on the card against
+    the CPU (the side process's ``goss_legacy`` job) under phase 9's
+    rule, each sampled iteration's kept mask and amplified g and h
+    bit-equal to the plain sampler on the CPU on the same gradients, the
+    booster off the step cache; then ms an iteration at phase 6's full
+    window, legacy against the hashed sampler (cached, and uncached)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.models import boosting as bm
+    from lightgbm_tpu_torch.ops import threefry
+    t_phase = time.perf_counter()
+    for seed in (1, 987_654_321, 2 ** 31 - 1):
+        key = threefry.prng_key(seed)
+        card = threefry.uniform(key, UNIFORM_ROWS, dev).cpu()
+        host = threefry.uniform(key, UNIFORM_ROWS)
+        assert torch.equal(card.view(torch.int32), host.view(torch.int32)), \
+            f"threefry uniforms, seed {seed}: card != CPU"
+        assert 0.0 <= float(card.min()) and float(card.max()) < 1.0
+
+    params, X, y, iters, _, _ = cpu_job("goss_legacy")
+    with goss_samples() as calls:
+        card = train_on("cuda", params, X, y, iters)
+    runs = {"cuda": card, "cpu": cpu_jobs.take("goss_legacy")}
+    assert runs["cuda"][0]._gbdt._step_pool() is None
+    assert len(calls) == iters - 2, len(calls)
+    for key, g, h, mask, out in calls:
+        plain = bm.legacy_goss_sample(g, h, mask, key, 0.2, 0.1)
+        for a, b in zip(out, plain):
+            assert torch.equal(a, b), "legacy goss: card != plain sampler"
+    cpu_calls = torch.load(os.path.join(cpu_jobs.out, "goss_legacy.pt"),
+                           weights_only=False)["samples"]
+    where = judge_goss(runs, calls, cpu_calls, iters - len(calls),
+                       float(params["top_rate"]))
+    print(f"phase 29(b) ({smi}): threefry2x32 uniforms over {UNIFORM_ROWS} "
+          f"rows bit-equal card against CPU (3 seeds); legacy GOSS at "
+          f"{CPU_ROWS} LRB rows, {iters} iterations, card against CPU: "
+          f"{where}; {len(calls)} sampled iterations' masks and g, h "
+          f"bit-equal to the plain sampler; card {runs['cuda'][2]:.2f} s")
+
+    Xw = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    yw = lrb_labels(Xw, seed=22)
+    ds = lgt.Dataset(Xw, label=yw, params=params).construct()
+    del Xw
+    timed = {}
+    for label, extra in (("legacy", {}),
+                         ("hashed", {"tpu_goss_hash": "-1"}),
+                         ("hashed uncached", {"tpu_goss_hash": "-1",
+                                              "tpu_step_cache": "0"})):
+        bst, secs, counts = _train_timed({**params, **extra}, ds, iters)
+        assert all(counts[k] > 0 for k in ("K1", "K2", "K3")), counts
+        timed[label] = {"ms": 1e3 * secs / iters, "launches": counts,
+                        "cached": bst._gbdt._step_pool() is not None}
+        del bst
+    assert not timed["legacy"]["cached"] and timed["hashed"]["cached"]
+    wall = time.perf_counter() - t_phase
+    print(f"phase 29(b) ({smi}): GOSS at phase 6's window ({LRB_TRAIN_ROWS}"
+          f" x {LRB_FEATURES}), {iters} iterations, ms an iteration: "
+          + ", ".join(f"{k} {v['ms']:.1f}" for k, v in timed.items())
+          + f" (the legacy sampler runs off the step cache, as in the JAX "
+          f"package); launches {timed['legacy']['launches']}; "
+          f"{wall:.1f} s")
+    return {"timed": timed, "wall_s": wall, "trees": where}
 
 
 def main() -> None:
@@ -6331,6 +6837,9 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             variants = variant_phases(dev, smi, higgs_data, tmp, cpu_jobs)
         mark("23")
+        # 29(b): GOSS's legacy sampler, its CPU half from the side process
+        goss_legacy = goss_legacy_phase(dev, smi, cpu_jobs)
+        mark("29b")
     finally:
         cpu_jobs.close()
         cpu_dir.cleanup()
@@ -6356,6 +6865,12 @@ def main() -> None:
         # wave graphs
         reg = registry_phases(dev, smi, text, X, ltext, higgs_data, tmp)
         mark("28")
+        # 29(a): the fork's call pattern from C, through the port's library
+        capi_run = capi_driver_phase(dev, smi, tmp)
+        mark("29a")
+    p29 = capi_run["wall_s"] + goss_legacy["wall_s"]
+    print(f"phase 29: {p29:.1f} s (budget {PHASE29_BUDGET_S:.0f} s)")
+    assert p29 <= PHASE29_BUDGET_S, f"phase 29 took {p29:.1f} s"
     del higgs_data
     # 25: EFB and the sparse route on the one-hot airline rows
     efb = efb_sparse_phases(dev, smi)
@@ -6400,8 +6915,11 @@ def main() -> None:
         **{name: {k: variants[name]["k4"][k] for k in (
             "rows", "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")} for name in ("dart", "rf")}}
+    forest["capi_driver_launches"] = capi_run["report_launches"]["K4"]
     for e in train:
         kid = kid_of[e["name"]]
+        # phase 29(a): the C driver's run, from its report
+        e["capi_driver_launches"] = capi_run["report_launches"][kid]
         # phase 27: (b)'s run, its profiler window, (c)'s armed loop
         e["obs"] = {"launches": obs["b"][kid],
                     "profile_window_launches": obs["profile_window"][kid],

@@ -7,8 +7,9 @@ valid_sets=[...], init_model=...)``, ``cv`` and the C-API calls in
 continued training, writes and loads LightGBM v2 model text, and scores
 rows (``Booster(model_file=...).predict(X)``) on an NVIDIA GPU. The
 scikit-learn estimators (``LGBMRegressor``, ``LGBMClassifier``,
-``LGBMRanker``) are exported where scikit-learn is installed. Entry
-points run on ``cuda:0`` unless given ``device="cpu"``.
+``LGBMRanker``) are exported where scikit-learn is installed; the
+plotting functions run on the host and import matplotlib when called.
+Entry points run on ``cuda:0`` unless given ``device="cpu"``.
 """
 from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
@@ -23,7 +24,14 @@ try:
 except ImportError:          # scikit-learn is not installed
     _SKLEARN_EXPORTS = []
 
+# plotting imports matplotlib lazily inside each function, so the
+# module itself always imports
+from .plotting import (create_tree_digraph, plot_importance, plot_metric,
+                       plot_tree)
+_PLOT_EXPORTS = ["create_tree_digraph", "plot_importance", "plot_metric",
+                 "plot_tree"]
+
 __all__ = ["Booster", "CVBooster", "Dataset", "EarlyStopException",
            "LightGBMError", "cv", "early_stopping", "print_evaluation",
            "record_evaluation", "reset_parameter",
-           "train"] + _SKLEARN_EXPORTS
+           "train"] + _SKLEARN_EXPORTS + _PLOT_EXPORTS

@@ -16,7 +16,11 @@ types); the last error's text.
 Handles are opaque objects, out-parameters become return values, and
 the dtype and predict tags match c_api.h, so C callers transliterate line
 by line. Dataset and model handles take a ``device`` (None: ``cuda:0``);
-a booster trains on its dataset's device.
+a booster trains on its dataset's device. A booster created with
+``tpu_run_report`` records each ``UpdateOneIter`` and writes the run
+report (obs/recorder.py) when it is freed: its meta names the device
+and the card, its ``extra`` the kernels launched meanwhile (K1-K4), so a
+C caller's run shows where it ran.
 """
 from __future__ import annotations
 
@@ -354,6 +358,52 @@ class _BoosterHandle:
         self.gbdt = gbdt
         self.cfg = cfg if cfg is not None else Config()
         self.train = train
+        # tpu_run_report: (RunRecorder, kernel launches at its start)
+        self.report = None
+
+
+def kernel_launches() -> Dict[str, int]:
+    """The launches so far of K1, K2 (ops/hist_wave.py), K3
+    (ops/predict.py) and K4 (ops/forest.py, from rows among them)."""
+    from .ops import forest, hist_wave, predict
+    return {"K1": hist_wave.k1_launches.value,
+            "K2": hist_wave.k2_launches.value,
+            "K3": predict.launches.value, "K4": forest.launches.value,
+            "K4_from_rows": forest.from_x_launches.value}
+
+
+def _start_report(cfg: Config, gbdt: GBDT):
+    """A started RunRecorder for ``tpu_run_report``, its meta naming the
+    booster's device (and the card's name on CUDA)."""
+    from .obs.recorder import RunRecorder
+    dev = gbdt.device
+    name = None
+    if dev.type == "cuda":
+        import torch
+        name = torch.cuda.get_device_name(dev)
+    rec = RunRecorder(
+        path=cfg.tpu_run_report, watchdog_factor=cfg.tpu_watchdog_factor,
+        device=dev,
+        meta={"driver": "capi", "device": str(dev), "device_name": name,
+              "objective": cfg.objective, "tree_learner": "serial",
+              "mesh_devices": 1, "num_leaves": cfg.num_leaves,
+              "num_data": gbdt._n,
+              "num_features": gbdt.train_data.num_features}).start()
+    return rec, kernel_launches()
+
+
+def _finish_report(handle: "_BoosterHandle") -> None:
+    """Write the booster's run report: the kernels launched since its
+    creation, the registries' stats."""
+    from .ops import predict_cache, step_cache
+    rec, before = handle.report
+    handle.report = None
+    now = kernel_launches()
+    rec.meta["step_cache"] = step_cache.stats()
+    rec.meta["predict_cache"] = predict_cache.stats()
+    rec.finish(extra={
+        "trained_iterations": handle.gbdt.iter_,
+        "kernel_launches": {k: now[k] - before[k] for k in now}})
 
 
 def LGBM_BoosterCreate(train_data: _DatasetHandle,
@@ -370,8 +420,11 @@ def LGBM_BoosterCreate(train_data: _DatasetHandle,
         metrics = create_metrics(metric_names(cfg), cfg, inner.metadata,
                                  inner.num_data)
     gbdt = create_boosting(cfg.boosting_type(), inner.device)
-    return _BoosterHandle(gbdt.init(cfg, inner, objective, metrics), cfg,
-                          train_data)
+    handle = _BoosterHandle(gbdt.init(cfg, inner, objective, metrics), cfg,
+                            train_data)
+    if cfg.tpu_run_report:
+        handle.report = _start_report(cfg, gbdt)
+    return handle
 
 
 def LGBM_BoosterAddValidData(handle: _BoosterHandle,
@@ -392,7 +445,14 @@ def LGBM_BoosterAddValidData(handle: _BoosterHandle,
 
 def LGBM_BoosterUpdateOneIter(handle: _BoosterHandle) -> int:
     """c_api.cpp:605: returns is_finished (out-param -> return)."""
-    return 1 if handle.gbdt.train_one_iter() else 0
+    if handle.report is None:
+        return 1 if handle.gbdt.train_one_iter() else 0
+    rec = handle.report[0]
+    it = handle.gbdt.iter_ + 1
+    rec.begin_iteration(it)
+    finished = handle.gbdt.train_one_iter()
+    rec.end_iteration(it)
+    return 1 if finished else 0
 
 
 def LGBM_BoosterUpdateOneIterCustom(handle: _BoosterHandle, grad,
@@ -555,6 +615,10 @@ def LGBM_BoosterLoadModelFromString(model_str: str,
 
 
 def LGBM_BoosterFree(handle: _BoosterHandle):
+    """Drops the booster (its device tensors, its step-cache pool); a
+    booster created with ``tpu_run_report`` writes its report first."""
+    if handle.report is not None and handle.gbdt is not None:
+        _finish_report(handle)
     handle.gbdt = None
     return 0
 

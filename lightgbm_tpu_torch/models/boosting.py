@@ -10,6 +10,10 @@ the factory boosting.cpp:57-83).
   with a key drawn once an iteration from ``bagging_seed``, so the same
   rows are kept on the card, on the CPU and in the JAX package. The
   counts are f32 products, as the JAX package computes them in its step.
+  ``tpu_goss_hash=0`` takes the JAX package's legacy sampler instead
+  (``legacy_goss_sample``): the k-th largest score as the threshold and
+  ``jax.random.uniform``'s threefry2x32 draw (ops/threefry.py), kept as
+  its repro oracle; it runs without the step cache, as there.
 - DART subtracts the dropped trees (replayed, K3 at shrink -1), trains
   on the lowered shrinkage and rescales the dropped trees' records and
   scores (dart.hpp:86-190).
@@ -22,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import threefry
 from ..ops.f32math import fma
 from ..ops.predict import add_leaf_outputs
 from ..ops.quantize import hash_uniform
@@ -80,6 +85,41 @@ def goss_sample(g_all: torch.Tensor, h_all: torch.Tensor,
     return g_all * amp, h_all * amp, mask * keep
 
 
+def legacy_goss_sample(g_all: torch.Tensor, h_all: torch.Tensor,
+                       mask: torch.Tensor, seed: int, top_rate: float,
+                       other_rate: float) -> tuple:
+    """The legacy GOSS sampler (``tpu_goss_hash=0``; the JAX package's
+    ``_legacy_hook``, boosting.py:159-192) on g, h [K, n] and the mask
+    [n + passengers]: the counts from the host's n in double (``top_k =
+    max(1, int(n * top_rate))``), the rows of the ``top_k`` largest
+    ``Σ_k |g h|`` kept (ties at the ``top_k``-th value kept too, as
+    ``lax.top_k``'s last value thresholds them), the others drawn where
+    ``jax.random.uniform(PRNGKey(seed), (n,)) < f32(other_k / (n -
+    top_k))`` and their g and h multiplied by ``f32((n - top_k) /
+    other_k)``. A ``seed`` of 0 (warm-up's zero key) passes everything
+    through. The passengers' mask stays 0. Returns (g, h, mask)."""
+    if seed == 0:
+        return g_all, h_all, mask
+    n = g_all.shape[1]
+    top_k = max(1, int(n * top_rate))
+    other_k = max(1, int(n * other_rate))
+    multiply = float(np.float32((n - top_k) / other_k))
+    p = float(np.float32(other_k / max(n - top_k, 1)))
+    score = (g_all[0] * h_all[0]).abs()
+    for k in range(1, g_all.shape[0]):
+        score = score + (g_all[k] * h_all[k]).abs()
+    thr = torch.topk(score, top_k).values[-1]
+    is_top = score >= thr
+    u = threefry.uniform(threefry.prng_key(seed), n, g_all.device)
+    sampled = (u < p) & ~is_top
+    amp = torch.where(sampled, multiply, 1.0)
+    keep = (is_top | sampled).to(torch.float32)
+    tail = mask.shape[0] - n
+    if tail:
+        keep = torch.cat([keep, keep.new_zeros(tail)])
+    return g_all * amp, h_all * amp, mask * keep
+
+
 class GOSS(GBDT):
     """Gradient-based One-Side Sampling (goss.hpp:26-216)."""
 
@@ -90,11 +130,6 @@ class GOSS(GBDT):
             log.fatal("top_rate and other_rate should be larger than 0")
         if config.bagging_freq > 0 and config.bagging_fraction != 1.0:
             log.fatal("Cannot use bagging in GOSS")
-        if config.tpu_goss_hash == 0:
-            raise NotImplementedError(
-                "tpu_goss_hash=0 (the legacy sampler on jax.random's "
-                "threefry stream) is not ported; the hashed sampler is "
-                "the default")
         super().init(config, train_data, objective, training_metrics)
         log.info("Using GOSS")
         self._hook_rng = np.random.default_rng(config.bagging_seed)
@@ -103,12 +138,21 @@ class GOSS(GBDT):
         self._goss_warmup = int(1.0 / max(config.learning_rate, 1e-12))
         return self
 
+    def _step_cache_eligible(self) -> bool:
+        """The legacy sampler's stream is positional and its counts are
+        the booster's own: it trains uncached, as in the JAX package."""
+        return (self.config.tpu_goss_hash != 0
+                and super()._step_cache_eligible())
+
     def _sample(self, g_all, h_all, mask):
         if self.iter_ < self._goss_warmup:
             return g_all, h_all, mask
+        # the JAX package's key: PRNGKey of this draw (gbdt.py:1574)
         key = int(self._hook_rng.integers(1, 2 ** 31))
-        return goss_sample(g_all, h_all, mask, key, self.config.top_rate,
-                           self.config.other_rate)
+        sample = (legacy_goss_sample if self.config.tpu_goss_hash == 0
+                  else goss_sample)
+        return sample(g_all, h_all, mask, key, self.config.top_rate,
+                      self.config.other_rate)
 
 
 class DART(GBDT):

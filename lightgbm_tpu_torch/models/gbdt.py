@@ -244,9 +244,11 @@ class GBDT:
         once per grower and bin matrix, so a hit is a later booster on an
         earlier one's captures), or None when ineligible. The geometry:
         the rows padded to ``bucket_rows`` (uncounted columns, after the
-        valid passengers), the f32 passes' row ranges at each wave width
-        (planned from the counted rows: windows of a few rows more or
-        less share them), the bin matrix's rows and dtype, F and the
+        valid passengers), F padded to ``bucket_features`` with trivial
+        features (the JAX package's gbdt.py:523-529), the f32 passes' row
+        ranges at each wave width (planned from the counted rows and F's
+        bucket: windows of a few rows or trivial columns more or less
+        share them), the bin matrix's padded rows and dtype, and the
         grower's whole config (tier, B, leaf budget, W, split
         hyperparameters)."""
         if self._step is None:
@@ -254,7 +256,8 @@ class GBDT:
             if self._step_cache_eligible():
                 bins = self._grower_bins()
                 g = self._grower_cfg
-                F = self.train_data.num_features
+                F = step_cache.bucket_features(self.train_data.num_features)
+                bin_rows = F // 2 if g.packed4 else F
                 rows = step_cache.bucket_rows(self._n_total, 1,
                                               self.config.tpu_row_bucket)
                 # the f32 passes' row ranges at every wave width, planned
@@ -262,11 +265,12 @@ class GBDT:
                 ranges = (tuple(row_ranges(rows, F, k, g.num_bins, self._n)
                                 for k in range(1, self._grower.W + 1))
                           if g.precision == "f32" else ())
-                key = ("wave", str(self.device), g, F, bins.shape[0],
+                key = ("wave", str(self.device), g, F, bin_rows,
                        str(bins.dtype), rows, ranges)
                 dev = self.device
                 pool = step_cache.get_step(
-                    key, lambda: WaveState(dev, rows))
+                    key, lambda: WaveState(dev, rows, F, bin_rows,
+                                           g.num_bins, g.packed4))
             # a new token: every state reloads this booster's bins once
             self._step = (pool, object())
         return self._step[0]

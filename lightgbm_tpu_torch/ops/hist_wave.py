@@ -64,6 +64,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_build
+from .step_cache import FEATURE_PAD, bucket_features
 from ..utils.device import Counter, card_plan, on_device
 from ..utils.log import LightGBMError
 
@@ -229,26 +230,40 @@ class HistPlan(NamedTuple):
     slot_parts: int      # S: a block's slots are ceil(W / S) of the W
 
 
+def _rows_per_range(n: int, F: int, W: int, B: int) -> int:
+    """Rows per range of the f32 pass for n rows of F features, a
+    multiple of TILE_ROWS. Planned for the step cache's bucket of F (the
+    features ``step_cache.bucket_features`` pads to one width) at its
+    middle width, so that every F of a bucket, the padded width too,
+    adds in one order: about ITEM_WAVES items per block resident on the
+    card, unless the ranges' partial tiles (R * F * W * B * 12 bytes,
+    written and read again by the reduction) would outweigh the rows'
+    own bytes (n * (F + 12)): then fewer, longer ranges."""
+    F = bucket_features(F) - FEATURE_PAD // 2
+    fg, K, warps, S = _group_plan(F, W, B)
+    smem = hist_smem_bytes(-(-W // S), B, fg, K)
+    want = ITEM_WAVES * NUM_SMS * _blocks_per_sm(smem, warps)
+    tiles = max(-(-n // TILE_ROWS), 1)
+    by_bytes = n * (F + 12) // (F * W * B * 12)
+    R = max(min(-(-want // (-(-F // fg) * S)), tiles, by_bytes), 1)
+    return -(-tiles // R) * TILE_ROWS
+
+
 @functools.lru_cache(maxsize=4096)
 def hist_plan(n: int, num_features: int, num_slots: int,
               num_bins: int) -> HistPlan:
     """The f32 histogram pass's launch plan for n rows of F features
     into W slots of B bins: a block walks work items (feature group,
-    slot part, row range); about ITEM_WAVES items per block resident on
-    the card, unless the ranges' partial tiles (R * F * W * B * 12 bytes,
-    written and read again by the reduction) would outweigh the rows' own
-    bytes (n * (F + 12)): then fewer, longer ranges."""
+    slot part, row range). The groups, classes, warps and parts are
+    planned from F; the rows per range (``_rows_per_range``), which fix
+    the order of addition, from F's bucket, so that a set and its copy
+    padded as the step cache pads it add every cell in one order."""
     F, W, B = max(num_features, 1), num_slots, num_bins
     fg, K, warps, S = _group_plan(F, W, B)
     smem = hist_smem_bytes(-(-W // S), B, fg, K)
-    groups = -(-F // fg)
-    want = ITEM_WAVES * NUM_SMS * _blocks_per_sm(smem, warps)
-    tiles = max(-(-n // TILE_ROWS), 1)
-    by_bytes = n * (F + 12) // (F * W * B * 12)
-    R = max(min(-(-want // (groups * S)), tiles, by_bytes), 1)
-    per = -(-tiles // R) * TILE_ROWS
-    return HistPlan(fg, K, warps, groups, max(-(-n // per), 1), per, smem,
-                    S)
+    per = _rows_per_range(n, F, W, B)
+    return HistPlan(fg, K, warps, -(-F // fg), max(-(-n // per), 1), per,
+                    smem, S)
 
 
 def row_ranges(n: int, num_features: int, num_slots: int, num_bins: int,

@@ -554,6 +554,8 @@ class StackedModel:
                 st.x_np[:nr] = rows[c0:c0 + nr]
                 graph = graphs.get(rng)
                 if graph is None:
+                    # capture: ok(self) — the graph is kept in this
+                    # model's memo: the tables it reads are this model's
                     run = lambda: self._stage_and_launch(st, first, ntree)
                     run()
                     graphs[rng] = capture_graph(run, self.device)

@@ -20,12 +20,15 @@ The geometry (models/gbdt.py ``_step_pool``) is what a capture bakes
 in: the padded rows, the f32 passes' row ranges at each wave width
 (planned from the counted rows), the bin matrix's rows and dtype, F, the
 histogram tier and every field of ``WaveGrowerConfig`` (B, the leaf
-budget, W, the split hyperparameters). F is the set's own: the JAX
-package pads it to a multiple of 8, the port does not (its f32 row
-ranges depend on F), so windows that drop a different count of trivial
-columns do not share graphs. The rows pad to ``bucket_rows`` and ride as
-uncounted columns, the way valid passengers do, so the trees' bits do
-not depend on the pad; B pads to ``bucket_bins``.
+budget, W, the split hyperparameters). F pads to ``bucket_features``
+(a multiple of 8) with trivial features, as the JAX package's does
+(num_bin 1: no split candidate; feature mask False), so windows that
+drop a different count of trivial columns share graphs; the f32 passes
+plan their row ranges from F's bucket on every route
+(``hist_wave.hist_plan``), so the pad leaves the order of addition as it
+is uncached. The rows pad to ``bucket_rows`` and ride as uncounted columns, the
+way valid passengers do, so the trees' bits do not depend on the pad; B
+pads to ``bucket_bins``.
 
 The registry is bounded by entries (``MAX_ENTRIES``) and by the device
 bytes its states hold (``MAX_BYTES``): each holds a padded copy of its
@@ -65,6 +68,8 @@ MAX_BYTES = 4 << 30
 
 # smallest pow2 bucket the auto policy pads to
 MIN_BUCKET = 256
+# a cached geometry's features pad to a multiple of this
+FEATURE_PAD = 8
 
 _lock = threading.Lock()
 _steps: "OrderedDict[tuple, StepPool]" = OrderedDict()  # guarded-by: _lock
@@ -122,6 +127,15 @@ def pow2_bucket(x: int, floor: int) -> int:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def bucket_features(f: int) -> int:
+    """Padded feature-axis width for ``f`` features: the next multiple
+    of FEATURE_PAD (the JAX package's gbdt.py:523-529, under every row
+    policy). The pad features are trivial: num_bin 1, no split
+    candidate, feature mask False."""
+    f = max(int(f), 1)
+    return f + (-f) % FEATURE_PAD
 
 
 def bucket_bins(b: int, policy: Optional[int] = None) -> int:

@@ -162,14 +162,42 @@ def _forced_gain(sum_g, sum_h, l1: float, l2: float, mds: float,
     return -fma(twice_g, out, (sum_h + l2) * out * out)
 
 
+def pad_meta(meta: FeatureMeta, features: int) -> FeatureMeta:
+    """``meta`` of F features with trivial features appended up to
+    ``features``, the JAX package's pad (models/gbdt.py:634-651): num_bin
+    1 (no split candidate), no missing type, default bin 0, no monotone
+    constraint, penalty 1, numerical; unbundled."""
+    pad = features - int(meta.num_bin.shape[0])
+    if pad == 0:
+        return meta
+
+    def ext(x, fill):
+        x = torch.as_tensor(x)
+        if x.ndim == 0:
+            x = x.expand(features - pad)
+        return torch.cat([x, x.new_full((pad,), fill)])
+    return meta._replace(
+        num_bin=ext(meta.num_bin, 1), missing_type=ext(meta.missing_type, 0),
+        default_bin=ext(meta.default_bin, 0),
+        monotone=ext(meta.monotone, 0), penalty=ext(meta.penalty, 1.0),
+        is_cat=ext(meta.is_cat, 0))
+
+
 class WaveState:
     """A step-cache entry (ops/step_cache.py): one grower geometry's
     static tensors and its wave graphs. ``owner`` is the bin token of the
     booster whose bins and feature metadata the state holds."""
 
-    def __init__(self, device: torch.device, rows: int):
+    def __init__(self, device: torch.device, rows: int, features: int,
+                 bin_rows: int, num_bins: int, packed4: bool):
         self.device = device
         self.rows = rows            # the padded columns of every input
+        # F padded with trivial features (step_cache.bucket_features),
+        # and the bin matrix's padded rows (features / 2 when packed)
+        self.features = features
+        self.bin_rows = bin_rows
+        self.num_bins = num_bins    # the histogram width B
+        self.packed4 = packed4
         self.owner = None
         self.meta: Optional[FeatureMeta] = None
         self._bufs: dict = {}
@@ -211,15 +239,39 @@ class WaveState:
         return buf
 
     def load(self, owner, bins_t: torch.Tensor, meta: FeatureMeta):
-        """(bins, meta) of ``owner`` in the static tensors, copied only
-        when another booster (or other bins) held them last."""
+        """(bins, meta) of ``owner`` in the static tensors, padded to the
+        state's features and rows, copied only when another booster (or
+        other bins) held them last. The pad features' metadata are
+        trivial (``pad_meta``: num_bin 1, so no bin of theirs is ever a
+        split candidate) and their bins the row index mod B: with one
+        bin for all rows, every counted row of a pad feature would add
+        to one histogram cell, and the pass's shared-memory adds
+        serialize on it."""
         if self.owner is not owner:
-            self.padded("bins", bins_t)
-            self.meta = FeatureMeta(*[self.keep(f"meta_{name}", x)
-                                      for name, x in zip(meta._fields,
-                                                         meta)])
+            buf = self._bufs.get("bins")
+            if buf is None:
+                buf = self._bufs["bins"] = torch.zeros(
+                    (self.bin_rows, self.rows), dtype=bins_t.dtype,
+                    device=self.device)
+            f, n = bins_t.shape
+            buf[:f, :n].copy_(bins_t)
+            buf[:f, n:].zero_()
+            if f < self.bin_rows:
+                spread = torch.arange(n, device=self.device) % self.num_bins
+                if self.packed4:
+                    spread = spread | (spread << 4)
+                buf[f:, :n].copy_(spread.to(buf.dtype))
+                buf[f:, n:].zero_()
+            self.meta = FeatureMeta(*[
+                self.keep(f"meta_{name}", x) for name, x in zip(
+                    meta._fields, pad_meta(meta, self.features))])
             self.owner = owner
         return self._bufs["bins"], self.meta
+
+    def feature_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """``mask`` [F] in the static [features] mask, False past F."""
+        pad = mask.new_zeros(self.features - mask.shape[0])
+        return self.keep("fmask", torch.cat([mask, pad]))
 
     def run_wave(self, k: int, fn) -> None:
         """Wave width ``k``'s work: its graph's replay, or on its first
@@ -347,7 +399,7 @@ class WaveGrower:
             grad = state.padded("grad", grad)
             hess = state.padded("hess", hess)
             sample_mask = state.padded("mask", sample_mask)
-            feature_mask = state.keep("fmask", feature_mask)
+            feature_mask = state.feature_mask(feature_mask)
             keep = state.keep
         else:
             def keep(name, t):
@@ -461,11 +513,11 @@ class WaveGrower:
         for fs_leaf, fs_feat, fs_bin in cfg.forced:
             wl = torch.tensor([fs_leaf], dtype=i64, device=dev)
             new_id = torch.tensor([num_leaves], dtype=i64, device=dev)
-            leaf_ids = apply_split(
+            leaf_ids.copy_(apply_split(
                 leaf_ids, member_column(bins_t, fs_feat, self.host_meta),
                 fs_leaf, num_leaves, fs_bin, False,
                 meta.missing_type[fs_feat], meta.default_bin[fs_feat],
-                meta.num_bin[fs_feat])
+                meta.num_bin[fs_feat]))
             ids = torch.where(in_bag, leaf_ids, -1)
             if scale is None or cfg.bundle_bins:
                 hist_left = (self._hist(bins_t, hg, hh, ids, wl.to(i32),
@@ -534,6 +586,8 @@ class WaveGrower:
                    keep("top_gain", torch.zeros(W, dtype=f32, device=dev)),
                    keep("k", torch.zeros((), dtype=i64, device=dev)))
 
+        # capture: ok(L, W) — the leaf budget and wave width, fields of
+        # the grower's config, which the step key holds
         def elect():
             # the top-W leaves by gain (ties to the lower leaf id, as
             # lax.top_k), capped by the leaf budget; gains sort
@@ -547,6 +601,12 @@ class WaveGrower:
             elected[1].copy_(top_gain)
             elected[2].copy_(active.sum())
 
+        # capture: ok(self, cfg, hp, B, proxy, tier, l1, l2,
+        # counted_rows) — the grower and its config's fields, and the f32
+        # row ranges of counted_rows: the step key holds them
+        # (models/gbdt.py _step_pool)
+        # capture: ok(in_bag, sparse) — the two-pass routes' alone, which
+        # never run under a state (grow raises)
         def wave(k):
             wl = elected[0][:k]
             new_ids = nl + torch.arange(k, device=dev)

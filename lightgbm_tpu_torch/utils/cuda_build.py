@@ -1,10 +1,13 @@
-"""Build the port's CUDA kernels and its native parser; load them with
-ctypes.
+"""Build the port's CUDA kernels, its native parser and its linkable C
+ABI; load the first two with ctypes.
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for sm_90a, and the
 text parser ``csrc/fast_parser.cpp`` by ``g++`` for the host, into a
 shared library with a plain C interface, under ``_build/`` (ignored by
-git), keyed by a hash of the source and flags. ``build_all`` starts one
+git), keyed by a hash of the source and flags. ``capi_library`` builds
+``csrc/c_api_embed.cpp`` by ``g++`` against the running Python into
+``_build/capi_<hash>/liblightgbm_tpu_torch.so``, for C and C++ programs
+to link (the fork's ``src/test.cpp`` drivers). ``build_all`` starts one
 compiler per source at once and waits for all of them; ``library``
 builds on first use (every kernel source together, the parser alone),
 so a caller never needs a separate build step, and a failed build
@@ -20,6 +23,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import time
 from typing import Dict, NamedTuple
@@ -34,6 +39,9 @@ HOST_SOURCES = ("fast_parser",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")
+CAPI_SOURCE = "c_api_embed"
+CAPI_NAME = "lightgbm_tpu_torch"     # liblightgbm_tpu_torch.so
+CAPI_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++14")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -138,3 +146,54 @@ def library(name: str) -> ctypes.CDLL:
                 path = build_all(group)[name].path
             lib = _libs[name] = ctypes.CDLL(path)
         return lib
+
+
+def python_link_flags() -> list:
+    """g++ flags that embed the running Python: its include directory,
+    its shared library's directory and name, from ``sysconfig`` (not the
+    ``python3-config`` script, which an installation may lack). Raises
+    with the path looked for when ``Python.h`` or the library is
+    missing."""
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise LightGBMError(f"Python.h not found in {inc}: the C ABI "
+                            "embeds Python and needs its headers")
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ldlib = sysconfig.get_config_var("LDLIBRARY") or ""
+    if not os.path.exists(os.path.join(libdir, ldlib)):
+        raise LightGBMError(
+            f"{os.path.join(libdir, ldlib)} not found: the C ABI embeds "
+            "Python and links its shared library")
+    ver = f"python{sys.version_info.major}.{sys.version_info.minor}"
+    return [f"-I{inc}", f"-L{libdir}", f"-l{ver}", "-ldl", "-lm",
+            f"-Wl,-rpath,{libdir}"]
+
+
+def capi_library() -> str:
+    """The path of ``liblightgbm_tpu_torch.so``, the linkable C ABI,
+    built from ``csrc/c_api_embed.cpp`` on first use (a directory of its
+    own under ``_build/``, keyed by the source, the flags and the
+    Python it embeds). A failed build raises with g++'s errors."""
+    global _paid_s
+    flags = [*CAPI_FLAGS, *python_link_flags()]
+    src = os.path.join(CSRC, f"{CAPI_SOURCE}.cpp")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha1(fh.read() + " ".join(flags).encode())
+    out_dir = os.path.join(BUILD_DIR, f"capi_{digest.hexdigest()[:16]}")
+    path = os.path.join(out_dir, f"lib{CAPI_NAME}.so")
+    with _lock:
+        if os.path.exists(path):
+            return path
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_gxx(), src, "-o", tmp, *flags],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        with _paid_lock:
+            _paid_s += time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise LightGBMError(f"{os.path.basename(src)} failed to "
+                                f"build:\n{proc.stdout}")
+        os.replace(tmp, path)
+    return path

@@ -14,7 +14,9 @@ the first three trees (two of warm-up, the first sampled, whose root
 counts only the kept rows) are byte-equal. GOSS's hashed sampler (kept
 mask,
 amplified g and h) bit-equal to the JAX ``_hash_hook`` with and without
-its padded ``rvalid``; DART's dropped iterations equal and its train
+its padded ``rvalid``, and its legacy sampler (``tpu_goss_hash=0``) to
+``_legacy_hook``, whose threefry2x32 uniforms (ops/threefry.py) are
+bit-equal to ``jax.random.uniform``'s; DART's dropped iterations equal and its train
 scores bit-equal after every iteration; RF's and DART's scores after a
 rollback or with a valid set bit-equal; merged and continued models'
 texts byte-equal and their raw scores equal. Valid metrics within 1e-6
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import lightgbm_tpu as lgb
@@ -36,7 +39,9 @@ import lightgbm_tpu_torch as lgt
 from lightgbm_tpu import capi as jcapi
 from lightgbm_tpu.utils import log as jlog
 from lightgbm_tpu_torch import capi as tcapi
-from lightgbm_tpu_torch.models.boosting import goss_sample
+from lightgbm_tpu_torch.models.boosting import (goss_sample,
+                                                legacy_goss_sample)
+from lightgbm_tpu_torch.ops import threefry
 from lightgbm_tpu_torch.utils import log as tlog
 
 pytestmark = pytest.mark.torch_port
@@ -205,8 +210,8 @@ def test_goss_text_matches_jax(objective, extra):
 
 def test_goss_refusals():
     """Bagging under GOSS is refused as in the JAX package; the legacy
-    sampler (``tpu_goss_hash=0``, jax.random's threefry stream) is not
-    ported and raises."""
+    sampler (``tpu_goss_hash=0``) trains, without the step cache, as
+    there."""
     X, lin, rng = _set(n=300)
     y = _labels("binary", lin, rng)
     bag = _params(boosting="goss", bagging_freq=1, bagging_fraction=0.5)
@@ -214,9 +219,77 @@ def test_goss_refusals():
         with pytest.raises(Exception, match="bagging"):
             pkg.train(dict(bag), pkg.Dataset(X, label=y), 2,
                       verbose_eval=False, **kw)
-    with pytest.raises(NotImplementedError, match="tpu_goss_hash"):
-        lgt.train(_params(boosting="goss", tpu_goss_hash=0),
+    b = lgt.train(_params(boosting="goss", tpu_goss_hash=0),
                   lgt.Dataset(X, label=y), 2, device="cpu")
+    assert b._gbdt._step_pool() is None
+
+
+def _partitionable():
+    """The stream ops/threefry.py follows; another one is a failure to
+    report, not a stream to switch to."""
+    assert jax.config.jax_threefry_partitionable, (
+        "jax_threefry_partitionable is off: jax.random draws another "
+        "stream than ops/threefry.py's")
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 65_537])
+@pytest.mark.parametrize("seed", [1, 987_654_321, 2 ** 31 - 1])
+def test_threefry_uniform_bit_equal_jax(n, seed):
+    """``PRNGKey(seed)``'s words and ``uniform(key, (n,))`` bit for bit."""
+    _partitionable()
+    key = jax.random.PRNGKey(seed)
+    assert tuple(int(w) for w in np.asarray(key)) == threefry.prng_key(seed)
+    want = np.asarray(jax.random.uniform(key, (n,)))
+    got = threefry.uniform(threefry.prng_key(seed), n).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("K,tail", [(1, 0), (3, 0), (1, 300)])
+def test_goss_legacy_hook_bit_equal(K, tail):
+    """The legacy sampler's kept mask and amplified g and h, bit for
+    bit, against the JAX ``_legacy_hook`` (ties at the threshold; a
+    zero key passes everything; passengers' mask stays 0)."""
+    _partitionable()
+    X, lin, rng = _set()
+    n = 1500
+    gbm = lgb.train(_params(boosting="goss", tpu_goss_hash=0, top_rate=0.15,
+                            other_rate=0.2),
+                    lgb.Dataset(X, label=_labels("binary", lin, rng)),
+                    num_boost_round=1, verbose_eval=False,
+                    keep_training_booster=True)
+    hook = gbm._gbdt._sample_hook
+    g = rng.normal(size=(K, n)).astype(np.float32)
+    h = rng.uniform(0.01, 0.25, (K, n)).astype(np.float32)
+    g[:, :40] = g[:, 40:80]
+    h[:, :40] = h[:, 40:80]
+    mask = np.concatenate([np.ones(n, np.float32),
+                           np.zeros(tail, np.float32)])
+    for seed in (0, 17, 123456789, 2 ** 31 - 1):
+        jg, jh, jm = hook(jnp.asarray(g), jnp.asarray(h), jnp.asarray(mask),
+                          jax.random.PRNGKey(seed))
+        tg, th, tm = legacy_goss_sample(
+            torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(mask),
+            seed, 0.15, 0.2)
+        np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+        np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        if seed:
+            kept = int(tm.numpy().sum())
+            assert 0.3 * n <= kept < 0.5 * n, kept
+
+
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_goss_legacy_text_matches_jax(objective):
+    """``tpu_goss_hash=0`` from iteration 3 (two of warm-up at
+    learning_rate 0.5): the model text byte-equal to the JAX package's."""
+    _partitionable()
+    X, lin, rng = _set(seed=5)
+    y = _labels(objective, lin, rng)
+    params = _params(objective, boosting="goss", learning_rate=0.5,
+                     tpu_goss_hash=0)
+    jb, tb = _train_both(params, X, y, 8)
+    assert _body(tb.model_to_string()) == _body(jb.model_to_string())
+    assert tb._gbdt._step_pool() is None
 
 
 # -- DART ---------------------------------------------------------------------

@@ -194,6 +194,45 @@ def test_a_later_booster_hits_and_the_record_says_so():
     assert s1["compile_s"] == 0.0    # no graph is captured on the CPU
 
 
+def test_feature_counts_of_one_bucket_share_a_pool():
+    """Two sets of 40 columns, one with 6 constant columns (34 features
+    kept), the other with 40: F pads to 40 with trivial features in both
+    geometries (the JAX package's pad), so the second booster's lookup is
+    a hit on the first's pool, and each text equals its
+    ``tpu_step_cache=0`` text but for that parameter."""
+    params = dict(TEST_PARAMS, objective="binary", feature_fraction=0.8)
+    r = np.random.default_rng(65)
+    X1 = r.normal(size=(1000, 40))
+    X1[:, [3, 9, 17, 22, 30, 38]] = 1.0
+    y1 = (X1[:, 0] + X1[:, 1] > 0).astype(np.float32)
+    X2 = r.normal(size=(1000, 40))
+    y2 = (X2[:, 2] - X2[:, 5] > 0).astype(np.float32)
+    tsc.clear()
+    lookups, counts = [], []
+    for X, y in ((X1, y1), (X2, y2)):
+        s0 = tsc.stats()
+        on = lgbt.train(dict(params, tpu_step_cache=-1),
+                        lgbt.Dataset(X, label=y), 4, device="cpu")
+        s1 = tsc.stats()
+        off = lgbt.train(dict(params, tpu_step_cache=0),
+                         lgbt.Dataset(X, label=y), 4, device="cpu")
+        assert _body(on.model_to_string()) == _body(off.model_to_string())
+        g = on._gbdt
+        counts.append(g.train_data.num_features)
+        pool = g._step_pool()
+        state = pool.lease(g._step[1])
+        try:
+            assert state.features == 40
+            assert tuple(state.meta.num_bin.shape) == (40,)
+        finally:
+            pool.release(state)
+        lookups.append((s1["hits"] - s0["hits"],
+                        s1["misses"] - s0["misses"]))
+    assert counts == [34, 40]
+    assert lookups == [(0, 1), (1, 0)]
+    tsc.clear()
+
+
 def test_the_registry_is_bounded_by_bytes(monkeypatch):
     """A state's bytes are its static tensors (the padded bins among
     them); once a booster releases its state, the registry evicts the

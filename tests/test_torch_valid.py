@@ -624,7 +624,9 @@ def test_binary_error_metric_and_names_match_jax():
 def test_unported_options_raise(tmp_path):
     """What stays refused, and the options that once were: a missing
     init model raises as the JAX package's does; GOSS's legacy sampler
-    (``tpu_goss_hash=0``, ROADMAP item 23) is refused; the run report,
+    (``tpu_goss_hash=0``, ROADMAP item 23) trains
+    (tests/test_torch_boosting.py holds it against the JAX package); the
+    run report,
     checkpoints and the profiler window (obs/recorder.py,
     utils/checkpoint.py, obs/profiler.py) now train and leave their
     artifacts, and ``callback.record_run`` gives the report's callback
@@ -637,10 +639,10 @@ def test_unported_options_raise(tmp_path):
     # model file raises as the JAX package's does
     with pytest.raises(FileNotFoundError):
         lgt.train(params, ds, 2, device="cpu", init_model="m.txt")
-    with pytest.raises(NotImplementedError, match="tpu_goss_hash"):
-        lgt.train({**params, "boosting": "goss", "tpu_goss_hash": 0,
-                   "bagging_fraction": 1.0, "bagging_freq": 0},
-                  lgt.Dataset(X, label=y), 2, device="cpu")
+    legacy = lgt.train({**params, "boosting": "goss", "tpu_goss_hash": 0,
+                        "bagging_fraction": 1.0, "bagging_freq": 0},
+                       lgt.Dataset(X, label=y), 2, device="cpu")
+    assert legacy.current_iteration() == 2
     for key, extra in (("tpu_run_report", {}),
                        ("tpu_checkpoint_dir", {"tpu_checkpoint_freq": 1}),
                        ("tpu_profile_dir", {})):
