@@ -399,7 +399,35 @@ the entry points a user calls:
    the card's kept rows the CPU's, or parting first on a near tie at the
    top-k threshold, with the trees equal before it or parting on a near
    tie (``judge_goss``); then ms an iteration at phase 6's full window,
-   the legacy sampler against the hashed one, cached and uncached.
+   the legacy sampler against the hashed one, cached and uncached;
+30. the distributed learners (lightgbm_tpu_torch/parallel), last, in at
+   most ``PHASE30_BUDGET_S``: the serial yardstick, ``DIST_ITERS``
+   iterations of ``TRAIN_PARAMS`` on phase 6's window (1,000,000 x 53)
+   in f32 and int8 in this process; then the launcher
+   (``parallel/elastic.run_world``) starts ``DIST_WORLD`` ranks on
+   cuda:0 (gloo: the ranks share the card), each making the window
+   (``dist_window``) and binning only its row block, and trains
+   ``DIST_RUNS`` in turn, ``DIST_ITERS`` iterations each: data f32,
+   data int8 on the int32 wire, data int8 asking for the narrow wire and
+   slots (at 1,000,000 rows the int16 wire's bound, 127 N < 2^15,
+   refuses it and the run takes the int32 wire in two slots), feature,
+   voting. Each rank's runs go through ``dist_setup``/``dist_probe``:
+   K1, K2, K3 launches a rank (the feature learner histograms its slice
+   of the features with K2 a wave, and launches no K1); in data f32 and
+   int8 the rank's first K2 (root) and K1 (first wave) against their
+   plain versions on its rows (f32 in the kernels' order on the CPU,
+   int8 on the card, bit for bit), and one wave's histogram collective
+   alone in 1 and 2 slots (``ops/autotune.measure_psum_s``); on rank 0
+   the data f32 model's K4 predict of the next window bit-equal to
+   plain, and the busy share of two more iterations. The checks: every
+   mode's text the same on both ranks, the int8 data texts byte-equal to
+   serial int8, the feature text to serial f32, data f32's train AUC
+   within ``AUC_TOL`` of serial's; after the phase (outside its budget)
+   the two-rank smoke (``elastic.run_two_process``, the drill set on
+   cuda:0), its models equal;
+   printed: ms an iteration, the collectives' ms and bytes an iteration,
+   launches a rank, the slots' times, voting's AUC, each rank's peak
+   device memory.
 
 The CPU halves of the card-vs-CPU checks of phases 9, 14, 18, 22, 23
 and 29(b) train in a side process started after phase 20 (``CpuJobs``,
@@ -599,6 +627,21 @@ GOSS_LEGACY_PARAMS = {          # TRAIN_PARAMS without bagging (GOSS
     "boosting": "goss", "tpu_goss_hash": "0", "learning_rate": "0.5",
     "num_iterations": "10", "top_rate": "0.2", "other_rate": "0.1"}
 GOSS_LEGACY_ITERS = 10
+# phase 30: the distributed learners, ranks sharing the card
+PHASE30_BUDGET_S = 90.0
+DIST_WORLD = 2
+DIST_ITERS = 10
+DIST_RUNS = [
+    {"name": "data_f32", "params": {"tree_learner": "data"}, "check": "f32"},
+    {"name": "data_int8", "check": "int8",
+     "params": {"tree_learner": "data", "tpu_quantized_hist": "true",
+                "tpu_quantized_psum": 1, "tpu_psum_wire": 0}},
+    {"name": "data_int8_narrow", "params": {
+        "tree_learner": "data", "tpu_quantized_hist": "true",
+        "tpu_quantized_psum": 1, "tpu_psum_wire": 1, "tpu_async_psum": 1}},
+    {"name": "feature", "params": {"tree_learner": "feature"}},
+    {"name": "voting", "params": {"tree_learner": "voting"}},
+]
 UNIFORM_ROWS = 1_000_000        # (b): threefry uniforms, card against CPU
 GOSS_TIE = 1e-4                 # (b): a row's score off the top-k threshold
 
@@ -6615,6 +6658,216 @@ def goss_legacy_phase(dev, smi: str, cpu_jobs) -> dict:
     return {"timed": timed, "wall_s": wall, "trees": where}
 
 
+def dist_window(spec) -> dict:
+    """Phase 30's data, made in each rank: phase 6's LRB window."""
+    X = make_lrb_rows(LRB_TRAIN_ROWS, seed=21)
+    return {"X": X, "y": lrb_labels(X, seed=22)}
+
+
+_dist_state: dict = {}     # a rank's captures between setup and probe
+
+
+def dist_setup(run: dict, rank: int) -> None:
+    """Before each phase-30 run in a rank: the launch counts to 0, and in
+    the checked runs the grower's K1/K2 and the loop's K3 captured."""
+    reset_counts()
+    stack = _dist_state["stack"] = contextlib.ExitStack()
+    _dist_state["caps"] = (stack.enter_context(capturing())
+                           if run.get("check") else None)
+
+
+def dist_probe(booster, run: dict, spec: dict, rank: int) -> dict:
+    """After each phase-30 run in a rank: its launches, the kernel checks
+    on its captured inputs, and on rank 0 after data f32 the K4 check and
+    the busy share (see the module docstring, phase 30)."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.ops import hist_wave as hw
+    t0 = time.perf_counter()
+    counts = read_counts()
+    caps = _dist_state["caps"]
+    _dist_state["stack"].close()
+    iters = max(booster.current_iteration, 1)
+    out = {"launches": {k: counts[k] for k in ("K1", "K2", "K3")}}
+    out["launches_per_iteration"] = {k: v / iters
+                                     for k, v in out["launches"].items()}
+    dev = booster.device
+    if caps is not None:
+        a2, kw2 = caps["K2"].args, caps["K2"].kw
+        a1, kw1 = caps["K1"].args, caps["K1"].kw
+
+        def k2(*a):
+            return hw.wave_histogram(*a, **kw2)
+
+        def k1(*a):
+            return hw.fused_partition_histogram(*a, **kw1)
+        if run["check"] == "f32":
+            st2 = check_histogram(
+                "K2", k2, lambda *a, **k: hw.wave_histogram_plain(
+                    *a, **plain_kw(kw2), **k), a2, lambda o: o, None)
+            st1 = check_histogram(
+                "K1", k1, lambda *a, **k: hw.fused_partition_histogram_plain(
+                    *a, **plain_kw(kw1), **k), a1, lambda o: o[1],
+                lambda o: o[0])
+            out["kernel_checks"] = {"K2": st2, "K1": st1}
+        else:
+            check_int_histogram("K2q", hw.wave_histogram,
+                                hw.wave_histogram_plain, a2, kw2,
+                                lambda o: (o,))
+            check_int_histogram("K1q", hw.fused_partition_histogram,
+                                hw.fused_partition_histogram_plain, a1, kw1,
+                                lambda o: tuple(o))
+            out["kernel_checks"] = {"K2": "bitwise", "K1": "bitwise"}
+        out["kernel_checks"]["rows"] = int(a1[0].shape[1])
+    if run["name"] == "data_f32":
+        # every rank trains the two more iterations (their collectives
+        # need both); rank 0's profile is the one printed
+        text = booster.model_to_string()
+        wall, busy = device_busy(lambda: booster.train_one_iter(), 2)
+        out["busy"] = {"wall_ms": wall, "busy_ms": busy}
+        if rank == 0:
+            Xn = make_lrb_rows(LRB_NEXT_ROWS, seed=23)
+            bst = lgt.Booster(model_str=text, device=dev)
+            r = check_forest("phase 30 rank 0", bst, Xn, bst.predict(Xn),
+                             dev, alternatives=False)
+            out["k4"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "max_abs_err")}
+    if run["name"] in ("data_f32", "data_int8"):
+        # the histogram collective of one wave, in 1 and 2 slots (every
+        # rank times together): the evidence for tpu_async_psum's auto
+        from lightgbm_tpu_torch.ops.autotune import measure_psum_s
+        g = booster._grower_cfg
+        shape = (g.wave_size, booster.train_data.num_features, g.num_bins,
+                 2 if g.count_proxy else 3)
+        dtype = torch.int32 if g.quant_psum else torch.float32
+        out["psum_ms"] = [1e3 * measure_psum_s(shape, dtype, repeats=7,
+                                               device=dev, slots=s)
+                          for s in (1, 2)]
+        out["psum_shape"] = list(shape)
+    out["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    out["probe_s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_phase(dev, smi: str, tmp: str) -> dict:
+    """Phase 30 of the module docstring."""
+    import torch
+    import lightgbm_tpu_torch as lgt
+    from lightgbm_tpu_torch.parallel import elastic
+    t0 = time.perf_counter()
+    data = dist_window(None)
+    params = {**TRAIN_PARAMS, "num_iterations": str(DIST_ITERS)}
+    serial = {}
+    for name, extra in (("f32", {}), ("int8", {"tpu_quantized_hist":
+                                               "true"})):
+        bst = lgt.Booster({**params, **extra},
+                          lgt.Dataset(data["X"], label=data["y"]))
+        walls = []
+        for _ in range(DIST_ITERS):
+            t1 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        serial[name] = {
+            "text": bst.model_to_string(),
+            "auc": {m: v for _, m, v, _ in bst.eval_train()}["auc"],
+            "ms_per_iter": 1e3 * float(np.mean(walls[1:]))}
+        del bst
+    del data
+    gc.collect()
+    torch.cuda.empty_cache()
+    cores = len(os.sched_getaffinity(0))
+    t1 = time.perf_counter()
+    out = elastic.run_world(os.path.join(tmp, "dist"), {
+        "maker": "chip_smoke:dist_window", "device": "cuda:0",
+        "params": params, "runs": DIST_RUNS,
+        "setup": "chip_smoke:dist_setup", "hook": "chip_smoke:dist_probe"},
+        DIST_WORLD, env={"OMP_NUM_THREADS": str(max(cores // DIST_WORLD,
+                                                    1))},
+        timeout_s=PHASE30_BUDGET_S + 60)
+    world_s = time.perf_counter() - t1
+    assert out["codes"] == [0] * DIST_WORLD, \
+        f"phase 30: ranks exited {out['codes']}\n{out['logs']}"
+    ranks = [{r["name"]: r for r in res["runs"]} for res in out["results"]]
+    texts = out["texts"]
+    for name, ts in texts.items():
+        assert all(t == ts[0] for t in ts), f"phase 30 {name}: ranks differ"
+    for name in ("data_int8", "data_int8_narrow"):
+        assert _body(texts[name][0]) == _body(serial["int8"]["text"]), \
+            f"phase 30 {name}: text != serial int8"
+    assert _body(texts["feature"][0]) == _body(serial["f32"]["text"]), \
+        "phase 30 feature: text != serial f32"
+    auc = {n: ranks[0][n]["evals"]["training/auc"] for n in ranks[0]}
+    gap = abs(auc["data_f32"] - serial["f32"]["auc"])
+    assert gap <= AUC_TOL, f"phase 30 data f32: train auc {gap} off serial"
+    for r in ranks:
+        assert r["data_f32"]["kernel_checks"] and \
+            r["data_int8"]["kernel_checks"]
+        for name, run in r.items():
+            # the feature learner partitions unfused and histograms its
+            # slice with K2 a wave: no K1 on its path
+            path = ("K2", "K3") if name == "feature" else ("K1", "K2", "K3")
+            assert all(run["launches"][k] > 0 for k in path), \
+                (name, run["launches"])
+    wall = time.perf_counter() - t0
+    backend = out["results"][0]["backend"]
+    print(f"phase 30 ({smi}): {DIST_WORLD} ranks on cuda:0 ({backend}), "
+          f"{LRB_TRAIN_ROWS} x {LRB_FEATURES}, "
+          f"{DIST_ITERS} iterations a mode; serial yardstick (this "
+          f"process, the step cache on; after the first iteration) f32 "
+          f"{serial['f32']['ms_per_iter']:.1f} ms an iteration (auc "
+          f"{serial['f32']['auc']:.6f}), int8 "
+          f"{serial['int8']['ms_per_iter']:.1f} (auc "
+          f"{serial['int8']['auc']:.6f})")
+    for name in ranks[0]:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        print(f"phase 30 {name}: rank 0 {r0['ms_per_iter_after_first']:.1f}"
+              f" ms an iteration (first {r0['ms_per_iter']:.1f} mean), "
+              f"rank 1 {r1['ms_per_iter_after_first']:.1f}; collectives "
+              f"{r0['collective_ms_per_iter']:.1f} ms and "
+              f"{r0['comm_bytes_per_iter'] / 1e6:.3f} MB an iteration "
+              f"({r0['collective_calls_per_iter']:.0f} calls), wire "
+              f"{r0['psum_wire']} in {r0['psum_slots']} slot(s); launches "
+              f"a rank {r0['launches']} / {r1['launches']}; train auc "
+              f"{auc[name]:.6f}; row blocks {r0['row_block']} "
+              f"{r1['row_block']}; binning {r0['ingest_s']:.2f} s, checks "
+              f"{r0['probe_s']:.1f} / {r1['probe_s']:.1f} s; {smi}")
+    for name in ("data_f32", "data_int8"):
+        r0 = ranks[0][name]
+        print(f"phase 30 {name} collective alone, one wave's histograms "
+              f"{r0['psum_shape']}: 1 slot {r0['psum_ms'][0]:.2f} ms, 2 "
+              f"slots {r0['psum_ms'][1]:.2f} ms (median of 7, rank 0); {smi}")
+    busy = ranks[0]["data_f32"]["busy"]
+    share = 100 * busy["busy_ms"] / busy["wall_ms"]
+    peaks = [max(run["peak_device_bytes"] for run in r.values())
+             for r in ranks]
+    print(f"phase 30 checks: every mode's text the same on both ranks; int8 "
+          f"data (int32 and narrow-asked wires) == serial int8; feature == "
+          f"serial f32; data f32 auc {auc['data_f32']:.6f} vs serial "
+          f"{serial['f32']['auc']:.6f} (gap {gap:.2g}); voting auc "
+          f"{auc['voting']:.6f}; each rank's K1/K2 (f32, int8) bit-equal to "
+          f"plain on its {ranks[0]['data_f32']['kernel_checks']['rows']}/"
+          f"{ranks[1]['data_f32']['kernel_checks']['rows']} rows; rank 0's "
+          f"K4 == plain; rank 0 busy {busy['busy_ms']:.1f} of "
+          f"{busy['wall_ms']:.1f} ms ({share:.1f}%) over 2 data f32 "
+          f"iterations; peak device memory "
+          + ", ".join(f"rank {i} {peak / 1e9:.3f} GB"
+                      for i, peak in enumerate(peaks))
+          + f"; ranks {world_s:.1f} s, phase {wall:.1f} s; {smi}")
+    assert wall <= PHASE30_BUDGET_S, f"phase 30 took {wall:.1f} s"
+    # after the phase, outside its budget: the two-rank smoke
+    # (elastic.run_two_process), the drill set on the card by default,
+    # both ranks agreeing on the model
+    t1 = time.perf_counter()
+    two = elastic.run_two_process(os.path.join(tmp, "two"), timeout_s=120)
+    assert [r["device"] for r in two["results"]] == ["cuda:0", "cuda:0"]
+    print(f"phase 30 then the two-rank smoke (elastic.run_two_process, "
+          f"drill set on cuda:0): models agree, "
+          f"{time.perf_counter() - t1:.1f} s; {smi}")
+    return {"ranks": ranks, "serial": serial, "wall_s": wall,
+            "results": out["results"], "peaks": peaks}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -6875,6 +7128,10 @@ def main() -> None:
     # 25: EFB and the sparse route on the one-hot airline rows
     efb = efb_sparse_phases(dev, smi)
     mark("25")
+    # 30: the distributed learners, two ranks sharing the card
+    with tempfile.TemporaryDirectory() as tmp:
+        dist = dist_phase(dev, smi, tmp)
+    mark("30")
 
     # kernels line
     forest = {
@@ -6916,8 +7173,14 @@ def main() -> None:
             "rows", "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err")} for name in ("dart", "rf")}}
     forest["capi_driver_launches"] = capi_run["report_launches"]["K4"]
+    forest["distributed"] = {"rank0_data_f32_check": dist["ranks"][0][
+        "data_f32"]["k4"]}
     for e in train:
         kid = kid_of[e["name"]]
+        # phase 30: each rank's launches in each mode
+        e["distributed"] = {
+            name: [r[name]["launches"][kid] for r in dist["ranks"]]
+            for name in dist["ranks"][0]}
         # phase 29(a): the C driver's run, from its report
         e["capi_driver_launches"] = capi_run["report_launches"][kid]
         # phase 27: (b)'s run, its profiler window, (c)'s armed loop

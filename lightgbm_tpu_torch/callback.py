@@ -82,10 +82,16 @@ def record_run(recorder):
     when ``tpu_run_report`` is set. Each span is the time since the
     previous iteration's callback (or the recorder's start); the port's
     loop evaluates every iteration before the next starts, so a span is
-    one update and its evaluation."""
+    one update and its evaluation. On several ranks each iteration's
+    record also carries ``comm_bytes``, the bytes the rank sent through
+    the collectives (models/gbdt.py)."""
     def _callback(env):
         recorder.tick(env.iteration + 1,
                       [x[:4] for x in (env.evaluation_result_list or [])])
+        comm = getattr(getattr(env.model, "_gbdt", None), "_comm", None)
+        if comm:
+            recorder.set_field(env.iteration + 1, "comm_bytes",
+                               comm[-1]["bytes"])
     _callback.order = 25
     return _callback
 

@@ -11,7 +11,9 @@ model text and file and JSON dump, leaf values read and set, iterations
 shuffled, refit on new data, merging two models, continuing on new
 training data, and scoring a matrix, CSR or CSC planes (densified in
 bounded row chunks) or a file (SHAP contributions among the predict
-types); the last error's text.
+types); the last error's text; the network calls (the topology comes
+from the cluster bootstrap, parallel/cluster.py; injected collectives
+go to parallel/learners.py).
 
 Handles are opaque objects, out-parameters become return values, and
 the dtype and predict tags match c_api.h, so C callers transliterate line
@@ -37,6 +39,7 @@ from .metrics import create_metric, create_metrics, metric_names
 from .models.boosting import create_boosting
 from .models.gbdt import GBDT
 from .objectives import create_objective
+from .utils import log
 from .utils.log import LightGBMError
 
 # dtype tags (c_api.h:20-27)
@@ -385,9 +388,10 @@ def _start_report(cfg: Config, gbdt: GBDT):
         path=cfg.tpu_run_report, watchdog_factor=cfg.tpu_watchdog_factor,
         device=dev,
         meta={"driver": "capi", "device": str(dev), "device_name": name,
-              "objective": cfg.objective, "tree_learner": "serial",
-              "mesh_devices": 1, "num_leaves": cfg.num_leaves,
-              "num_data": gbdt._n,
+              "objective": cfg.objective,
+              "tree_learner": gbdt.learner_mode,
+              "mesh_devices": gbdt.num_devices, "num_leaves": cfg.num_leaves,
+              "num_data": gbdt.train_data.num_data,
               "num_features": gbdt.train_data.num_features}).start()
     return rec, kernel_launches()
 
@@ -765,3 +769,48 @@ def LGBM_SetLastError(msg: str):
 
 def LGBM_GetLastError() -> str:
     return _last_error[0]
+
+
+# -- the network (c_api.h LGBM_Network*) ---------------------------------------
+
+
+def LGBM_NetworkInit(machines: str, local_listen_port: int,
+                     listen_time_out: int, num_machines: int):
+    """c_api.cpp:1180. The reference boots its socket linkers here; the
+    port's ranks join one ``torch.distributed`` process group at
+    bootstrap (``tpu_num_machines``, ``tpu_machine_rank``,
+    ``tpu_coordinator`` or their environment twins,
+    parallel/cluster.py), so the arguments are accepted and logged, as
+    the JAX package does (its capi.py:759)."""
+    if int(num_machines) > 1:
+        log.info("LGBM_NetworkInit: the topology comes from the cluster "
+                 "bootstrap (tpu_num_machines, tpu_machine_rank, "
+                 "tpu_coordinator); machines/port arguments are not used")
+    return 0
+
+
+def LGBM_NetworkFree():
+    """c_api.cpp:1195: clears the injected collectives."""
+    from .parallel.learners import set_network_functions
+    set_network_functions()
+    return 0
+
+
+def LGBM_NetworkInitWithFunctions(num_machines: int, rank: int,
+                                  reduce_scatter_fn=None,
+                                  allgather_fn=None):
+    """c_api.cpp:1200 (network.cpp:41-54): install external collectives.
+    The reference takes C function pointers over raw byte buffers; here
+    each is ``fn(value, default_collective) -> value``, called at every
+    collective of the distributed learners (the histogram and scalar
+    sums through ``reduce_scatter_fn``, the best-split gather through
+    ``allgather_fn``). The port runs eagerly, so an override runs at
+    every call, where the JAX package's runs once per collective site
+    per compilation. A booster with overrides declines the step cache."""
+    from .parallel.learners import set_network_functions
+    set_network_functions(reduce_scatter_fn=reduce_scatter_fn,
+                          allgather_fn=allgather_fn)
+    log.info("NetworkInitWithFunctions: collective overrides installed "
+             "(num_machines=%s rank=%s come from the cluster bootstrap)",
+             num_machines, rank)
+    return 0

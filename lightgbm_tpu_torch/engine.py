@@ -182,8 +182,8 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     dev = booster._gbdt.device
     if recorder is not None:
         recorder.device = dev
-        recorder.meta["mesh_devices"] = 1
-        recorder.meta["tree_learner"] = "serial"
+        recorder.meta["mesh_devices"] = booster._gbdt.num_devices
+        recorder.meta["tree_learner"] = booster._gbdt.learner_mode
     if is_valid_contain_train:
         booster.set_train_data_name(train_data_name)
     for valid_set, name in zip(reduced_valid_sets, name_valid_sets):

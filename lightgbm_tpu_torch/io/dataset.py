@@ -273,11 +273,16 @@ class BinnedDataset:
         self.sparse_density: Optional[float] = None
         self.sparse_zero_bins: Optional[np.ndarray] = None
         self.sparse_coords = None
+        # a sharded set (the row-sharded learners, parallel/learners.py):
+        # its device bins hold only the rows [lo, hi) of its num_data;
+        # the metadata stay every row's. None: every row
+        self.row_block: Optional[tuple] = None
 
     def construct_from_matrix(self, X, metadata: Metadata,
                               feature_names: Optional[List[str]] = None,
                               categorical: Sequence[int] = (),
-                              mappers: Optional[List[BinMapper]] = None
+                              mappers: Optional[List[BinMapper]] = None,
+                              row_block: Optional[tuple] = None
                               ) -> "BinnedDataset":
         """Find the mappers on a host sample, then bin every row on the
         device (DatasetLoader::ConstructFromSampleData,
@@ -285,7 +290,16 @@ class BinnedDataset:
         features (``_apply_efb``); ``categorical`` lists the categorical
         columns. ``mappers`` (one per column, trivial ones included) are
         used as given instead, and then nothing is bundled, as in the JAX
-        package. ``X`` may be a ``SparseMatrix`` (the sparse route)."""
+        package. ``X`` may be a ``SparseMatrix`` (the sparse route).
+
+        ``row_block`` (lo, hi): the sharded ingest of a row-sharded
+        learner's rank (io/ingest.py ``bin_matrix_sharded``): the mappers
+        and bundles come from every row, as in the whole set, and only
+        rows [lo, hi) are binned onto the device."""
+        if row_block is not None:
+            if isinstance(X, sp.SparseMatrix):
+                log.fatal("a sharded set takes a dense matrix")
+            self.row_block = (int(row_block[0]), int(row_block[1]))
         if isinstance(X, sp.SparseMatrix):
             return self._construct_from_sparse(X, metadata, feature_names,
                                                categorical, mappers)
@@ -306,8 +320,18 @@ class BinnedDataset:
         with timing.phase("binning/bin_matrix") as ph:
             self.bins_t = ph.watch(self._bin_dense(X))
         if mappers is None:
+            sample = None
+            if self.row_block is not None:
+                # the bundles of every rank: found on the whole set's
+                # row sample, binned here on the host's behalf
+                idx = efb.sample_rows_for_probe(n)
+                rows = X if idx is None else X[idx]
+                sample = bin_columns(
+                    torch.from_numpy(np.ascontiguousarray(rows)).to(
+                        self.device), self.mappers, self.used_feature_map,
+                    self.bin_dtype()).T.cpu().numpy()
             with timing.phase("binning/efb"):
-                self._apply_efb(self._find_bundles())
+                self._apply_efb(self._find_bundles(sample))
         return self
 
     def _bin_dense(self, X: np.ndarray) -> torch.Tensor:
@@ -316,7 +340,9 @@ class BinnedDataset:
         columns only, no device copy of the matrix), else the one-copy
         route (the whole matrix uploaded, then binned a feature at a
         time). Both bin in float64 on the device: the same bits."""
-        if ingest.ingest_enabled(self.config, self.device):
+        block = self.row_block
+        if ingest.ingest_enabled(self.config, self.device) or (
+                block is not None and self.mappers):
             try:
                 binner = ingest.DeviceBinner(
                     self.mappers, self.used_feature_map, self.config,
@@ -324,7 +350,11 @@ class BinnedDataset:
             except ingest.IngestUnsupported as e:
                 log.debug("streamed ingest unavailable (%s)", e)
             else:
+                if block is not None:
+                    return ingest.bin_matrix_sharded(binner, X, *block)
                 return binner.bin_matrix(X)
+        if block is not None:
+            X = X[block[0]:block[1]]
         Xd = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
         obs.counter("ingest/h2d_bytes").add(int(X.nbytes))
         obs.counter("ingest/rows_one_copy").add(X.shape[0])

@@ -48,9 +48,18 @@ on the card. It runs only where ``tpu_ingest=1`` asks for it
 ``SparseEntries.upload`` until a reading on the card shows the streamed
 route helps (chip_smoke.py phase 26 (c) reads both).
 
-Left for ROADMAP item 19: the sharded and multi-host halves
-(``shard_width``, ``host_row_block``, ``bin_matrix_sharded``,
-``bin_matrix_multihost``, ``ShardedIngestStream``).
+The sharded half (the JAX package's :116-160, :755-912, :1241-1340) for
+the row-sharded learners (parallel/learners.py), where each rank is a
+process with one device: ``shard_width`` and ``host_row_block`` are the
+JAX package's geometry (rank r owns the contiguous global rows [r*S,
+(r+1)*S), S aligned to a power-of-two row unit); ``bin_matrix_sharded``
+bins only a rank's block of a host matrix onto its device,
+``bin_matrix_multihost`` the block out of a host array that holds only
+some of the rows (a rank's own file), and ``ShardedIngestStream``
+(``start_sharded_stream``) takes every row of a file in order and bins
+only the rank's block, the two-round loader's sharded stream. The bins
+of a block equal the same columns of ``bin_matrix``'s (the same chunk
+binner over the same rows).
 """
 from __future__ import annotations
 
@@ -438,6 +447,101 @@ class IngestStream:
             raise ValueError(f"ingest stream fed {self._rows} rows, "
                              f"expected {self._out.shape[1]}")
         return self._out
+
+
+# -- the sharded half: one rank's row block ----------------------------------
+
+# the largest power-of-two row unit a shard aligns to (the JAX package's
+# autotune candidate ceiling, ops/autotune.py MAX_HIST_CHUNK)
+MAX_HIST_CHUNK = 65536
+
+
+def shard_width(n: int, D: int, hist_chunk: int = 0) -> int:
+    """Rows a rank's block holds of ``n`` over ``D`` ranks (the JAX
+    package's ``shard_width``, io/ingest.py:116): ceil(n / D), rounded up
+    to the pinned ``hist_chunk`` or else to the largest power-of-two unit
+    u <= MAX_HIST_CHUNK with n >= 4 D u (the pad stays under a quarter
+    block). The last block is short; the blocks tile [0, n)."""
+    S = max(-(-int(n) // int(D)), 1)
+    if hist_chunk > 0:
+        u = hist_chunk if n >= 4 * D * hist_chunk else 1
+    else:
+        u = 1
+        while u * 2 <= MAX_HIST_CHUNK and n >= 4 * D * (u * 2):
+            u *= 2
+    if u > 1:
+        S = -(-S // u) * u
+    return S
+
+
+def host_row_block(n_global: int, world_n: int, rank_n: int,
+                   hist_chunk: int = 0) -> tuple:
+    """(row_start, row_stop, S): the contiguous global rows rank
+    ``rank_n`` of ``world_n`` holds (``shard_width``'s S; the stop
+    clamps to ``n_global``, so a late rank's block may be empty)."""
+    S = shard_width(n_global, world_n, hist_chunk)
+    lo = min(rank_n * S, int(n_global))
+    return lo, min(lo + S, int(n_global)), S
+
+
+def bin_matrix_sharded(binner: "DeviceBinner", X: np.ndarray, lo: int,
+                       hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of the host matrix ``X`` -> [F, hi - lo] bins on the
+    binner's device, through the chunk pipeline: the other rows are never
+    read or sent."""
+    out = binner.bin_matrix(X[lo:hi])
+    obs.counter("ingest/rows_local_host").add(hi - lo)
+    log.debug("sharded device ingest: rows [%d, %d) of %d onto %s", lo, hi,
+              X.shape[0], binner.device)
+    return out
+
+
+def bin_matrix_multihost(binner: "DeviceBinner", X_local: np.ndarray,
+                         row_start: int, lo: int, hi: int) -> torch.Tensor:
+    """Rows [lo, hi) of the global matrix, out of ``X_local``, which holds
+    the global rows [row_start, row_start + len(X_local)) (a rank's own
+    file): they must cover the block."""
+    if not (row_start <= lo and hi <= row_start + X_local.shape[0]):
+        raise ValueError(
+            f"multihost ingest: the rows [{row_start}, "
+            f"{row_start + X_local.shape[0]}) do not cover the block "
+            f"[{lo}, {hi}); cut each rank's data with host_row_block")
+    return bin_matrix_sharded(binner, X_local, lo - row_start,
+                              hi - row_start)
+
+
+class ShardedIngestStream:
+    """The feed-driven variant of ``bin_matrix_sharded`` for the
+    two-round loader: every row of the file arrives in order, in
+    parser-sized blocks, and only the rows in [lo, hi) go on to an
+    ``IngestStream`` of the block's rows (the JAX package's
+    ``ShardedIngestStream``, io/ingest.py:1241)."""
+
+    def __init__(self, binner: "DeviceBinner", n_global: int, lo: int,
+                 hi: int):
+        self._n, self._lo, self._hi = int(n_global), int(lo), int(hi)
+        self._inner = IngestStream(binner, self._hi - self._lo)
+        self._cursor = 0                # the global row of the next block
+
+    def feed(self, X: np.ndarray) -> None:
+        r0, r1 = self._cursor, self._cursor + X.shape[0]
+        self._cursor = r1
+        a, b = max(r0, self._lo), min(r1, self._hi)
+        if a < b:
+            self._inner.feed(X[a - r0:b - r0])
+
+    def finish(self) -> torch.Tensor:
+        """-> [F, hi - lo] device bins of the block."""
+        if self._cursor != self._n:
+            raise ValueError(f"sharded ingest stream fed {self._cursor} "
+                             f"rows, expected {self._n}")
+        obs.counter("ingest/rows_local_host").add(self._hi - self._lo)
+        return self._inner.finish()
+
+
+def start_sharded_stream(binner: "DeviceBinner", n_global: int, lo: int,
+                         hi: int) -> ShardedIngestStream:
+    return ShardedIngestStream(binner, n_global, lo, hi)
 
 
 # -- CSR --------------------------------------------------------------------

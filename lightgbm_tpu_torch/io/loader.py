@@ -211,7 +211,11 @@ class DatasetLoader:
         each block on the host into the [N, F] bins, uploaded once. A
         valid set (``reference``) is binned with its reference's mappers
         and bundles; a train set bundles as the one-round route does,
-        from its bins on the device."""
+        from its bins on the device. A rank of a row-sharded learner
+        (tree_learner data or voting on several ranks) parses every row
+        and bins only its block (io/ingest.py ``ShardedIngestStream``,
+        the set's ``row_block``); its bins are not bundled, since ranks
+        cannot agree on bundles found from their own rows."""
         cfg = self.config
         block_rows = int(cfg.tpu_ooc_block_rows) or (1 << 18)
         first, head = _first_data_lines(filename, 2, cfg.header, True)
@@ -307,11 +311,20 @@ class DatasetLoader:
 
         # pass 3: stream the blocks into the binner
         stream = None
-        if cfg.tpu_out_of_core != 0 and ingest.ingest_enabled(cfg, ds.device):
+        from ..parallel import cluster, learners
+        if (reference is None and cluster.is_multiprocess()
+                and cfg.tree_learner in ("data", "voting")):
+            ds.row_block = learners.learner_block(n, cluster.world(),
+                                                  cluster.rank())
+        if (cfg.tpu_out_of_core != 0 and ingest.ingest_enabled(cfg, ds.device)
+                or ds.row_block is not None):
             try:
-                stream = ingest.DeviceBinner(
+                binner = ingest.DeviceBinner(
                     ds.mappers, ds.used_feature_map, cfg, np.float64,
-                    ds.device).start_stream(n)
+                    ds.device)
+                stream = (binner.start_stream(n) if ds.row_block is None
+                          else ingest.start_sharded_stream(
+                              binner, n, *ds.row_block))
             except ingest.IngestUnsupported as e:
                 log.debug("two_round: streamed ingest unavailable (%s)", e)
         bins = None
@@ -371,6 +384,8 @@ class DatasetLoader:
             if stream is not None:
                 bins_t = ph.watch(stream.finish())
             else:
+                if ds.row_block is not None:
+                    bins = bins[ds.row_block[0]:ds.row_block[1]]
                 obs.counter("ingest/h2d_bytes").add(int(bins.nbytes))
                 bins_t = ph.watch(torch.from_numpy(
                     np.ascontiguousarray(bins.T)).to(ds.device))
@@ -382,6 +397,7 @@ class DatasetLoader:
         ds.bins_t = bins_t
         with timing.phase("binning/efb"):
             ds._apply_efb(reference.bundles if reference is not None
+                          else None if ds.row_block is not None
                           else ds._find_bundles())
         try:
             import resource

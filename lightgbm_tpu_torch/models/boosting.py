@@ -221,7 +221,7 @@ class DART(GBDT):
         self._drop_leaves = {}
         K = self.num_tree_per_iteration
         # unpacked from the 4-bit form when the grower reads it packed
-        tb = self.train_data.bins_t if self._drop_index else None
+        tb = self._train_bins_t() if self._drop_index else None
         for i in self._drop_index:
             for k in range(K):
                 rec = self.records[i * K + k]
@@ -396,7 +396,7 @@ class RF(GBDT):
         K = self.num_tree_per_iteration
         it = float(self.iter_)
         div = float(max(self.iter_ - 1, 1))
-        train_bins = self.train_data.bins_t
+        train_bins = self._train_bins_t()
         for k in range(K - 1, -1, -1):
             rec = self.records.pop()
             self.models.pop()

@@ -24,6 +24,7 @@ chunking changes no bit.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Optional
 
@@ -64,6 +65,24 @@ class ObjectiveFunction:
                         else np.asarray(metadata.weights, np.float32))
         self.num_data = num_data
         self._dev = {}
+
+    def rows(self, lo: int, hi: int) -> "ObjectiveFunction":
+        """This objective on rows [lo, hi) of its training set (a rank's
+        block under the data and voting learners): a copy whose per-row
+        arrays, [N] or [K, N], are sliced on their row axis; what
+        ``init`` drew from every row (class weights, averages) stays
+        global. An objective with query groups needs every row."""
+        if self.need_query:
+            raise ValueError(f"{self.name} reads whole queries; it takes "
+                             "no row block")
+        N = self.num_data
+        view = copy.copy(self)
+        for name, v in vars(self).items():
+            if isinstance(v, np.ndarray) and v.ndim and v.shape[-1] == N:
+                setattr(view, name, v[..., lo:hi])
+        view._dev = {}
+        view.num_data = hi - lo
+        return view
 
     def _on(self, dev: torch.device, **arrays) -> List[torch.Tensor]:
         """The named host arrays as tensors on ``dev`` (None stays None),

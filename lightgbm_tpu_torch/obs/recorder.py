@@ -158,6 +158,13 @@ class RunRecorder:
                 self.record_eval(it, str(tup[0]), str(tup[1]),
                                  float(tup[2]))
 
+    def set_field(self, it: int, key: str, value) -> None:
+        """Set ``key`` of iteration ``it``'s record (the distributed
+        learners' ``comm_bytes``)."""
+        rec = self._rec(it)
+        with self._lock:
+            rec[key] = value
+
     def observe_iteration(self, it: int, wall_s: float,
                           kind: str = "iter") -> None:
         """Record one iteration's wall time + device samples and run

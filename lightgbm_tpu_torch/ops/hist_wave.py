@@ -457,11 +457,13 @@ def _int_launch_args(bins_t, g, h, n, F, W, B, C, packed4, dev) -> tuple:
 
 
 def launch_plan(n: int, F: int, W: int, B: int, packed4: bool,
-                dev: torch.device, counted=None) -> dict:
+                dev: torch.device, counted=None, order_features=None) -> dict:
     """``hist_plan`` of an f32 launch on ``dev``, with its grid
-    (``utils.device.card_plan``); its ranges are ``row_ranges``'."""
+    (``utils.device.card_plan``); its ranges are ``row_ranges``' of
+    ``order_features`` (default F)."""
+    R, per = row_ranges(n, order_features or F, W, B, counted)
     p = hist_plan(n if counted is None else counted, F, W, B)._replace(
-        ranges=row_ranges(n, F, W, B, counted)[0])
+        ranges=R, rows_per_range=per)
     Wp = -(-W // p.slot_parts)
     return card_plan(p, p.groups * p.slot_parts * p.ranges, dev,
                      (_fn("hist_wave_smem_bytes"), Wp, B, p.fg, p.classes),
@@ -580,19 +582,19 @@ def scatter_in_ranges(bins_t, g, h, base, num_bins: int, num_slots: int,
 
 
 def _scatter(bins_t, g, h, base, num_bins, num_slots, count_proxy,
-             kernel_order=False, counted=None):
+             kernel_order=False, counted=None, order_features=None):
     """The tier's scatter: int8 g/h give exact int32 sums (2 channels
     under count-proxy), f32 or f64 g/h their own dtype's sums, with
     ``kernel_order`` in the f32 kernel's order (``scatter_in_ranges``
-    over ``row_ranges``)."""
+    over ``row_ranges`` of ``order_features``, default F)."""
     if g.dtype == torch.int8:
         return _scatter_hist_int(bins_t, g, h, base, num_bins, num_slots,
                                  2 if count_proxy else 3)
     if kernel_order:
         F, n = bins_t.shape
         return scatter_in_ranges(bins_t, g, h, base, num_bins, num_slots,
-                                 row_ranges(n, F, num_slots, num_bins,
-                                            counted))
+                                 row_ranges(n, order_features or F,
+                                            num_slots, num_bins, counted))
     return _scatter_hist3(bins_t, g, h, base, num_bins, num_slots)
 
 
@@ -619,11 +621,11 @@ def _first_slot(memb):
 def wave_histogram_plain(bins_t, g, h, leaf_ids, wave_leaves, num_bins,
                          count_proxy=False, packed4=False,
                          num_features=None, kernel_order=False,
-                         counted_rows=None):
+                         counted_rows=None, order_features=None):
     """``wave_histogram_xla`` (hist_wave.py:85) in PyTorch: raw sums in
     the tier of g's dtype (int8 -> int32); f32 sums with
     ``kernel_order`` in the kernel's order of addition (``row_ranges``
-    of ``counted_rows``)."""
+    of ``counted_rows`` and ``order_features``)."""
     if packed4:
         bins_t = unpack4(bins_t, num_features)
     F, n = bins_t.shape
@@ -634,7 +636,7 @@ def wave_histogram_plain(bins_t, g, h, leaf_ids, wave_leaves, num_bins,
     found, slot = _first_slot(eq)
     base = torch.where(found, slot * (F * B), W * F * B)
     return _scatter(bins_t, g, h, base, B, W, count_proxy, kernel_order,
-                    counted_rows)
+                    counted_rows, order_features)
 
 
 def fused_partition_histogram_plain(bins_t, g, h, sample_mask, leaf_ids, tbl,
@@ -855,21 +857,24 @@ def _finish(hist, gh_scale, precision):
 def wave_histogram(bins_t, g, h, leaf_ids, wave_leaves, num_bins: int, *,
                    precision: str = "f32", count_proxy: bool = False,
                    packed4: bool = False, num_features=None,
-                   gh_scale=None, counted_rows=None):
+                   gh_scale=None, counted_rows=None, order_features=None):
     """[W, F, B, C] histograms of the rows whose leaf id equals each wave
     leaf (-1 slots give zeros). g and h are pre-masked by bagging;
     out-of-bag rows carry leaf id -1. See the module docstring for the
     tiers; int8 sums come back raw unless ``gh_scale`` is given.
     ``counted_rows``: only the first rows can be counted, the others are
-    passengers (``row_ranges``)."""
+    passengers (``row_ranges``). ``order_features``: the width whose f32
+    order of addition the sums keep (default F): a slice of a set's
+    features, given the set's width, adds every cell as the whole set's
+    pass does (the feature learner, parallel/learners.py)."""
     n = bins_t.shape[1]
     _check_tier(n, num_bins, precision, count_proxy, packed4, num_features,
                 g)
     if bins_t.device.type == "cpu":
         return _finish(wave_histogram_plain(
             bins_t, g, h, leaf_ids, wave_leaves, num_bins, count_proxy,
-            packed4, num_features, counted_rows=counted_rows), gh_scale,
-            precision)
+            packed4, num_features, counted_rows=counted_rows,
+            order_features=order_features), gh_scale, precision)
     if bins_t.device.type != "cuda":
         raise LightGBMError(f"no histogram kernel for {bins_t.device}")
     F = _logical_features(bins_t, packed4, num_features)
@@ -902,7 +907,8 @@ def wave_histogram(bins_t, g, h, leaf_ids, wave_leaves, num_bins: int, *,
                 slot.data_ptr(), part.data_ptr(), *parts, out.data_ptr(),
                 stream)
         else:
-            lp = launch_plan(n, F, W, num_bins, packed4, dev, counted_rows)
+            lp = launch_plan(n, F, W, num_bins, packed4, dev, counted_rows,
+                             order_features)
             part = torch.empty((lp["ranges"], F, W, num_bins, 3),
                                dtype=torch.float32, device=dev)
             err = _fn("wave_histogram_launch")(

@@ -68,17 +68,30 @@ class Quantized(NamedTuple):
     sh: torch.Tensor
 
 
-def quantize(grad: torch.Tensor, hess: torch.Tensor) -> Quantized:
+def _same(x):
+    return x
+
+
+def quantize(grad: torch.Tensor, hess: torch.Tensor, max_reduce=_same,
+             sum_reduce=_same, row_offset: int = 0) -> Quantized:
     """Quantize one tree's gradients on their device, with no readback;
     ``grad`` and ``hess`` are f32 and already multiplied by the bagging
-    mask."""
+    mask.
+
+    A row-sharded learner (parallel/learners.py) passes its collectives:
+    ``max_reduce`` makes the scales global (a max over ranks is exact),
+    ``sum_reduce`` adds the ranks' int64 bit sums (exact; the salt takes
+    them mod 2^32, as a wrapping sum would), and ``row_offset`` is the
+    global index of the first row, so each row draws what it draws in a
+    serial run (the JAX package's :535-569)."""
     tiny = float(np.float32(1e-30))
-    sg = torch.clamp(grad.abs().max(), min=tiny) * INV127
-    sh = torch.clamp(hess.max(), min=tiny) * INV127
+    sg = torch.clamp(max_reduce(grad.abs().max()), min=tiny) * INV127
+    sh = torch.clamp(max_reduce(hess.max()), min=tiny) * INV127
     bg, bh = _bits(sg), _bits(sh)
-    gbits = grad.view(torch.int32).to(torch.int64).sum() & MASK32
+    gbits = sum_reduce(grad.view(torch.int32).to(torch.int64).sum()) & MASK32
     salt = bg ^ (((bh << 16) | (bh >> 16)) & MASK32) ^ mix32(gbits)
-    idx = torch.arange(grad.shape[0], dtype=torch.int64, device=grad.device)
+    idx = torch.arange(grad.shape[0], dtype=torch.int64,
+                       device=grad.device) + row_offset
     u_g = hash_uniform(idx, salt)
     u_h = hash_uniform(idx, salt ^ GOLDEN)
     gq = torch.clamp(torch.floor(grad / sg + u_g), -127.0, 127.0)

@@ -502,13 +502,19 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
                     sum_h: torch.Tensor, num_data: torch.Tensor,
                     feature_mask: torch.Tensor, meta: FeatureMeta,
                     hp: SplitParams, can_split: torch.Tensor,
-                    sum_scale=None) -> SplitResult:
+                    sum_scale=None, per_feature: bool = False):
     """The best (feature, threshold, direction) of each of M leaves.
 
     hist [M, F, B, 3] f32 (grad, hess, count); sum_g, sum_h, num_data
     [M] f32 leaf totals (num_data counts in-bag rows); feature_mask [F]
-    bool; can_split [M] bool (False forces -inf gain: depth limit or an
-    inactive slot). ``meta`` holds tensors on hist's device.
+    bool, or [M, F] for a mask per leaf (the voting learner's elected
+    features); can_split [M] bool (False forces -inf gain: depth limit
+    or an inactive slot). ``meta`` holds tensors on hist's device.
+
+    ``per_feature``: return instead each feature's best gain [M, F]
+    (KMIN_SCORE where it has no valid split), the JAX package's
+    ``best_gain_per_feature`` (split.py:403), the voting learner's
+    local vote.
     """
     M, F, B, _ = hist.shape
     dev = hist.device
@@ -589,7 +595,8 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
     gains2 = side_gains(l_g2, l_h2, r_g2, r_h2)
     ok2 = valid2 & constraints(l_c2, l_h2, r_c2, r_h2) \
         & (gains2 > cmp_shift)
-    fmask = feature_mask.to(torch.bool)[None, :, None] \
+    fm = feature_mask.to(torch.bool)
+    fmask = (fm[None] if fm.ndim == 1 else fm)[:, :, None] \
         & can_split.to(torch.bool)[:, None, None]
     ic = (meta.is_cat.to(torch.int64).expand(F) > 0)[None, :, None]
     g1 = torch.where(ok1 & fmask & ~ic, gains1, KMIN_SCORE)
@@ -603,6 +610,11 @@ def find_best_split(hist: torch.Tensor, sum_g: torch.Tensor,
             hist, sum_g, sum_h2, num_data, fmask, meta, hp, min_gain_shift)
         branches += [gc1, gc2]
     nbr = len(branches)
+    if per_feature:
+        best = torch.stack(branches, dim=2).reshape(M, F, -1).amax(dim=2)
+        return torch.where(torch.isfinite(best),
+                           (best - min_gain_shift[:, :, 0])
+                           * meta.penalty.to(f32), KMIN_SCORE)
     cand = torch.stack(branches, dim=2).reshape(M, -1)
     idx = torch.argmax(cand, dim=1)                        # [M]
     best_gain = cand.gather(1, idx[:, None])[:, 0]

@@ -65,11 +65,22 @@ replayed at every later wave of that width, in this tree or another
 booster's. The root (its K2 pass and ``_stable_sum``'s host add) stays
 outside the graphs. Without a state the same code runs eagerly on the
 booster's own tensors.
+
+The distributed learners (parallel/learners.py) grow on the same code
+through its collective points (``Seams``, the JAX package's
+``make_wave_grower`` arguments, :224-263): the root's and each wave's
+histograms go through ``hist_reduce_fn`` before the subtraction (with
+``quant_psum`` as raw integer sums, dequantized after it), the root's
+sums, count-proxy counts and the quantization salt's bit sum through
+``reduce_fn``, the int8 scales through ``max_reduce_fn``, the rounding
+hash takes ``row_offset_fn``'s global index of the first row, and
+``split_fn`` replaces the split search. Without seams the grower runs
+the serial learner as it always did.
 """
 from __future__ import annotations
 
 import time
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -103,6 +114,35 @@ class WaveGrowerConfig(NamedTuple):
     bundle_bins: int = 0
     # the sparse histogram tier: grow() takes the set's binned entries
     sparse_hist: bool = False
+    # the data learner's quantized wire (tpu_quantized_psum): the int8
+    # histograms cross the collective as raw integer sums in
+    # ``psum_wire``'s dtype, in ``psum_slots`` collectives along F
+    # (tpu_async_psum); the serial learner keeps the defaults
+    quant_psum: bool = False
+    psum_wire: str = "int32"
+    psum_slots: int = 1
+
+
+class Seams(NamedTuple):
+    """The collective points of a distributed learner; None keeps the
+    serial learner's (the JAX package's make_wave_grower :224-263).
+
+    ``reduce_fn(x)``: the sum over ranks of a locally summed tensor
+    (exact for integer tensors); ``hist_reduce_fn(h)``: the sum over
+    ranks of a wave's [W, F, B, C] histograms; ``max_reduce_fn(x)``: the
+    max over ranks (the int8 scales); ``row_offset_fn(n_local)``: the
+    global index of this rank's first row; ``split_fn(hists, sg, sh, nd,
+    fmask, can, sum_scale)``: the split search of 2k children, returning
+    a ``SplitResult`` with global feature indices."""
+    reduce_fn: Optional[Callable] = None
+    hist_reduce_fn: Optional[Callable] = None
+    max_reduce_fn: Optional[Callable] = None
+    row_offset_fn: Optional[Callable] = None
+    split_fn: Optional[Callable] = None
+
+
+def _same(x):
+    return x
 
 
 def bound_counts(hist: torch.Tensor, sg, sh) -> torch.Tensor:
@@ -295,7 +335,12 @@ class WaveState:
 class WaveGrower:
     """Grows one tree per ``grow`` call from bins [F, N] on one device."""
 
-    def __init__(self, cfg: WaveGrowerConfig, meta: FeatureMeta, device):
+    def __init__(self, cfg: WaveGrowerConfig, meta: FeatureMeta, device,
+                 seams: Seams = Seams()):
+        if cfg.quant_psum and (cfg.precision != "int8" or cfg.bundle_bins
+                               or cfg.sparse_hist):
+            raise ValueError("quant_psum needs the int8 tier on the "
+                             "fused route")
         if cfg.forced and (cfg.count_proxy or cfg.packed4):
             raise ValueError("forced splits do not compose with the "
                              "count-proxy or packed4 tiers")
@@ -317,6 +362,7 @@ class WaveGrower:
         self.meta = meta.to(device)
         self.device = device
         self.two_pass = bool(cfg.bundle_bins) or cfg.sparse_hist
+        self.seams = seams
 
     def _hist(self, bins_t, hg, hh, ids, wl, scale, counted_rows, sparse):
         """[W, F, B, 3] histograms of the wave leaves ``wl`` on the
@@ -419,8 +465,12 @@ class WaveGrower:
         tier = dict(precision=cfg.precision, count_proxy=proxy,
                     packed4=cfg.packed4, num_features=F,
                     counted_rows=counted_rows)
+        sm = self.seams
+        red = sm.reduce_fn or _same
+        hred = sm.hist_reduce_fn or _same
         if cfg.precision == "int8":
-            q = quantize(grad, hess)
+            q = quantize(grad, hess, sm.max_reduce_fn or _same, red,
+                         sm.row_offset_fn(n) if sm.row_offset_fn else 0)
             hg, hh = keep("hg", q.gq), keep("hh", q.hq)
             scale = (keep("sg", q.sg), keep("sh", q.sh))
             qscale = keep("qscale", torch.stack([q.sg, q.sh,
@@ -436,32 +486,43 @@ class WaveGrower:
         root_ids = torch.where(in_bag, leaf_ids, -1)
         root_wl = torch.zeros(1, dtype=i32, device=dev)
         if self.two_pass:
-            root_hist = self._hist(bins_t, hg, hh, root_ids, root_wl, scale,
-                                   counted_rows, sparse)
+            root_hist = hred(self._hist(bins_t, hg, hh, root_ids, root_wl,
+                                        scale, counted_rows, sparse))
+        elif cfg.quant_psum:
+            # the quantized wire: raw integer sums cross the collective,
+            # dequantized after it
+            root_hist = dequantize(hred(wave_histogram(
+                bins_t, hg, hh, root_ids, root_wl, B, **tier)), scale)
         else:
-            root_hist = wave_histogram(bins_t, hg, hh, root_ids, root_wl, B,
-                                       gh_scale=scale, **tier)
+            root_hist = hred(wave_histogram(bins_t, hg, hh, root_ids, root_wl,
+                                            B, gh_scale=scale, **tier))
         if scale is None:
-            root_g = _stable_sum(grad)
-            root_h = _stable_sum(hess)
+            root_g = red(_stable_sum(grad))
+            root_h = red(_stable_sum(hess))
             sums = (root_g[None], root_h[None])
         else:
             # dequantized sums of the integers the passes add: exact
             # (|sum| <= 127 n < 2^31, which the kernels' guard holds),
             # converted to f32 once; the split search takes the integer
             # sums and the scales (ops/split.py sum_scale)
-            sums = (hg.to(i64).sum().to(f32)[None],
-                    hh.to(i64).sum().to(f32)[None])
+            sums = (red(hg.to(i64).sum()).to(f32)[None],
+                    red(hh.to(i64).sum()).to(f32)[None])
             root_g = sums[0][0] * scale[0]
             root_h = sums[1][0] * scale[1]
-        root_c = sample_mask.sum()
+        root_c = red(sample_mask.sum())
         if proxy:
             root_hist = bound_counts(root_hist, *scale)
-        res = find_best_split(root_hist, *sums, root_c[None], feature_mask,
-                              meta, hp,
-                              self._depth_ok(torch.zeros(1, dtype=i32,
-                                                         device=dev)),
-                              sum_scale=scale)
+
+        def split(hists, sg, sh, nd, can, sum_scale=None):
+            if sm.split_fn is not None:
+                return sm.split_fn(hists, sg, sh, nd, feature_mask, can,
+                                   sum_scale)
+            return find_best_split(hists, sg, sh, nd, feature_mask, meta, hp,
+                                   can, sum_scale=sum_scale)
+
+        res = split(root_hist, *sums, root_c[None],
+                    self._depth_ok(torch.zeros(1, dtype=i32, device=dev)),
+                    sum_scale=scale)
 
         def table(fill, dtype, first, name):
             t = torch.full((L,), fill, dtype=dtype, device=dev)
@@ -520,20 +581,20 @@ class WaveGrower:
                 meta.num_bin[fs_feat]))
             ids = torch.where(in_bag, leaf_ids, -1)
             if scale is None or cfg.bundle_bins:
-                hist_left = (self._hist(bins_t, hg, hh, ids, wl.to(i32),
-                                        scale, counted_rows, sparse)
-                             if self.two_pass else
-                             wave_histogram(bins_t, hg, hh, ids, wl.to(i32),
-                                            B, **tier))
+                hist_left = hred(self._hist(bins_t, hg, hh, ids, wl.to(i32),
+                                            scale, counted_rows, sparse)
+                                 if self.two_pass else
+                                 wave_histogram(bins_t, hg, hh, ids,
+                                                wl.to(i32), B, **tier))
                 hist_right = pool[wl] - hist_left
             else:
                 # int8: the right child's subtraction fuses the
                 # dequantization, as in the waves below
-                raw = (self._hist(bins_t, hg, hh, ids, wl.to(i32), None,
-                                  counted_rows, sparse)
-                       if self.two_pass else
-                       wave_histogram(bins_t, hg, hh, ids, wl.to(i32), B,
-                                      **tier))
+                raw = hred(self._hist(bins_t, hg, hh, ids, wl.to(i32), None,
+                                      counted_rows, sparse)
+                           if self.two_pass else
+                           wave_histogram(bins_t, hg, hh, ids, wl.to(i32), B,
+                                          **tier))
                 hist_left = dequantize(raw, scale)
                 hist_right = fma(raw.to(f32), -qscale, pool[wl])
             pool[wl] = hist_left
@@ -567,10 +628,10 @@ class WaveGrower:
                 arr[wl] = lv
                 arr[new_id] = rv
             can = self._depth_ok(child_depth)
-            res = find_best_split(
+            res = split(
                 torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
-                torch.cat([lh, rh]), torch.cat([lcnt, rcnt]), feature_mask,
-                meta, hp, torch.cat([can, can]))
+                torch.cat([lh, rh]), torch.cat([lcnt, rcnt]),
+                torch.cat([can, can]))
             idx2 = torch.cat([wl, new_id])
             for name in t:
                 v = getattr(res, name)
@@ -607,6 +668,10 @@ class WaveGrower:
         # (models/gbdt.py _step_pool)
         # capture: ok(in_bag, sparse) — the two-pass routes' alone, which
         # never run under a state (grow raises)
+        # capture: ok(sm, red, hred, split) — the seams: a distributed
+        # learner never takes the step cache (models/gbdt.py
+        # _step_cache_eligible), and without seams they are the identity
+        # and the default search
         def wave(k):
             wl = elected[0][:k]
             new_ids = nl + torch.arange(k, device=dev)
@@ -628,17 +693,22 @@ class WaveGrower:
             # int8 with exact counts: raw sums, so that the sibling's
             # subtraction fuses the dequantization as XLA contracts
             # ``parent - hist * scale`` (one rounding); on the sparse
-            # tier too, but not under bundles, which expand in f32
+            # tier too, but not under bundles, which expand in f32. A
+            # collective of f32 histograms (the int8 tier without the
+            # quantized wire) takes them dequantized, and the sibling
+            # is an unfused subtraction, as in the JAX package's learner
             fuse_sub = (scale is not None and not proxy
-                        and not cfg.bundle_bins)
+                        and not cfg.bundle_bins
+                        and (sm.hist_reduce_fn is None or cfg.quant_psum))
+            raw_out = fuse_sub or cfg.quant_psum
             if self.two_pass:
                 leaf_ids.copy_(self._partition(
                     bins_t, leaf_ids, wl, new_ids, feat,
                     t["threshold_bin"][wl], dleft, iscat, catw))
-                hist_small = self._hist(
+                hist_small = hred(self._hist(
                     bins_t, hg, hh, torch.where(in_bag, leaf_ids, -1),
                     small_ids.to(i32), None if fuse_sub else scale,
-                    counted_rows, sparse)
+                    counted_rows, sparse))
             else:
                 tbl = torch.stack([x.to(i32) for x in (
                     wl, new_ids, feat, t["threshold_bin"][wl], dleft,
@@ -648,11 +718,11 @@ class WaveGrower:
                     tbl = torch.cat([tbl, iscat.to(i32)[None], catw.T])
                 out = fused_partition_histogram(
                     bins_t, hg, hh, sample_mask, leaf_ids, tbl, B,
-                    gh_scale=None if fuse_sub else scale,
+                    gh_scale=None if raw_out else scale,
                     any_cat=hp.has_cat, **tier)
                 leaf_ids.copy_(out[0])
-                hist_small = out[1]
-            if fuse_sub:
+                hist_small = hred(out[1])
+            if raw_out:
                 raw = hist_small
                 hist_small = dequantize(raw, scale)
             if proxy:
@@ -660,8 +730,9 @@ class WaveGrower:
                 # channel holds lower bounds, which do not survive the
                 # subtraction: each child's is recomputed from its own
                 # g/h sums
-                lcnt_x = leaf_count[wl] - out[2]
-                rcnt_x = out[2]
+                cnt_r = red(out[2])
+                lcnt_x = leaf_count[wl] - cnt_r
+                rcnt_x = cnt_r
                 hist_small = bound_counts(hist_small, *scale)
             else:
                 lcnt_x, rcnt_x = lcnt, rcnt
@@ -701,10 +772,10 @@ class WaveGrower:
 
             # 7. best splits of the 2k children
             can = self._depth_ok(child_depth)
-            res = find_best_split(
+            res = split(
                 torch.cat([hist_left, hist_right]), torch.cat([lg, rg]),
                 torch.cat([lh, rh]), torch.cat([lcnt_x, rcnt_x]),
-                feature_mask, meta, hp, torch.cat([can, can]))
+                torch.cat([can, can]))
             idx2 = torch.cat([wl, new_ids])
             for name in t:
                 v = getattr(res, name)

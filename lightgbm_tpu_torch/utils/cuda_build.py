@@ -8,7 +8,8 @@ git), keyed by a hash of the source and flags. ``capi_library`` builds
 ``csrc/c_api_embed.cpp`` by ``g++`` against the running Python into
 ``_build/capi_<hash>/liblightgbm_tpu_torch.so``, for C and C++ programs
 to link (the fork's ``src/test.cpp`` drivers). ``build_all`` starts one
-compiler per source at once and waits for all of them; ``library``
+compiler per source at once and waits for all of them, under a file lock
+that keeps two processes from building into ``_build/`` at once; ``library``
 builds on first use (every kernel source together, the parser alone),
 so a caller never needs a separate build step, and a failed build
 raises.
@@ -91,9 +92,23 @@ def _target(name: str) -> str:
 
 def build_all(names=SOURCES + HOST_SOURCES) -> Dict[str, Built]:
     """Compile every source of ``names`` not yet built, all compilers at
-    once. Raises with the compiler's errors if any source fails."""
-    global _paid_s
+    once. Raises with the compiler's errors if any source fails. Holds
+    ``_build/.lock`` (an exclusive ``flock``) meanwhile, so that processes
+    that start together (the ranks of a distributed run) never build into
+    the directory at once: the later ones find the libraries built."""
+    import fcntl
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # atomic-ok: an empty lock file, never read
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_all(names)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_all(names) -> Dict[str, Built]:
+    global _paid_s
     out: Dict[str, Built] = {}
     running = {}
     for name in names:

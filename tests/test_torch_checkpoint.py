@@ -22,6 +22,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as jlgb
 from lightgbm_tpu.utils import checkpoint as jckpt
@@ -34,6 +35,17 @@ from lightgbm_tpu_torch.utils import checkpoint as ckpt
 from lightgbm_tpu_torch.utils import faults
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One PyTorch thread a test worker, restored after: under parallel
+    workers on a shared CPU, each small op's thread pool only contends
+    (as in test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 PARAMS = {"objective": "binary", "num_leaves": 7, "max_bin": 63,
           "min_data_in_leaf": 5, "num_iterations": 12,

@@ -38,6 +38,17 @@ from lightgbm_tpu_torch.ops.predict import replay_partition
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One PyTorch thread a test worker, restored after: under parallel
+    workers on a shared CPU, each small op's thread pool only contends
+    (as in test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 CPU = torch.device("cpu")
 
 

@@ -40,6 +40,17 @@ from lightgbm_tpu_torch.utils.log import LightGBMError
 pytestmark = pytest.mark.torch_port
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One PyTorch thread a test worker, restored after: under parallel
+    workers on a shared CPU, each small op's thread pool only contends
+    (as in test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(F, n, B, W, seed, nb=None):
     r = np.random.default_rng(seed)
     nb = np.full(F, B) if nb is None else nb

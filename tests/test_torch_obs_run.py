@@ -26,6 +26,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as jlgb
 from lightgbm_tpu.obs import export as jexport
@@ -40,6 +41,17 @@ from lightgbm_tpu_torch.obs.profiler import ProfileWindow
 from lightgbm_tpu_torch.utils import faults, log
 
 pytestmark = pytest.mark.torch_port
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One PyTorch thread a test worker, restored after: under parallel
+    workers on a shared CPU, each small op's thread pool only contends
+    (as in test_torch_train.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARAMS = {"objective": "binary", "num_leaves": 7, "max_bin": 63,
